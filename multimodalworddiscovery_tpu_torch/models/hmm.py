@@ -1,0 +1,247 @@
+"""Discrete HMM aligner: multinomial emissions over the phone vocabulary.
+
+Counterpart of ``multimodalworddiscovery_tpu/models/hmm.py``.  States are
+the paired image's concepts (plus paired NULL states), emissions are
+multinomial over phones, transitions are Vogel-style jump-width weights;
+trained with batched forward-backward EM and decoded with Viterbi.
+
+One EM step on the kernel route (``use_kernels=True`` inside the fused
+gate) is the K1 lookup kernel (ops/counts.py) followed by the K2 fused
+E-step kernel (ops/hmm_fwdbwd.py), which hands back the pooled emission
+counts and transition posteriors; then one projection onto jump widths and
+the M-step.  ``use_kernels=False`` runs the plain dense fwd-bwd
+(hmm_core.estep) and a scatter-add of the posteriors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from multimodalworddiscovery_tpu_torch.core.counts import pair_counts, table_lookup
+from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
+from multimodalworddiscovery_tpu_torch.models import hmm_core
+from multimodalworddiscovery_tpu_torch.ops import counts as counts_ops
+from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd
+
+# The fused route's gate, as in the reference (models/hmm.py:110-115).
+FUSED_MAX_STATES = 64
+FUSED_MAX_SRC_VOCAB = 128
+FUSED_MAX_TRG_VOCAB = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class HMMParams:
+    """log emission table [V_src, V_trg] (col 0 = NULL concept), unnormalized
+    log jump weights [2*max_jump+1], scalar log null weight."""
+
+    log_emit: torch.Tensor
+    log_jump: torch.Tensor
+    log_p0: torch.Tensor
+    max_jump: int = 3
+
+
+def init(corpus: Corpus, max_jump: int = 3) -> HMMParams:
+    if corpus.src.ndim != 2:
+        raise ValueError(
+            "the discrete HMM's emissions are multinomial over token ids "
+            f"(src must be [N, Ts], got {tuple(corpus.src.shape)})"
+        )
+    f32 = dict(dtype=torch.float32, device=corpus.device)
+    v_src, v_trg = corpus.src_vocab, corpus.trg_vocab
+    w = 2 * max_jump + 1
+    log_v = torch.log(torch.tensor(float(v_src), **f32))
+    return HMMParams(
+        log_emit=(-log_v).expand(v_src, v_trg).contiguous(),
+        # mild preference for +1 jumps breaks the uniform-EM symmetry
+        log_jump=-0.5 * torch.abs(torch.arange(w, **f32) - max_jump - 1),
+        log_p0=torch.log(torch.tensor(0.2, **f32)),
+        max_jump=max_jump,
+    )
+
+
+def params_from_numpy(
+    log_emit, log_jump, log_p0, max_jump: int = 3, device=None
+) -> HMMParams:
+    """Carry parameters across from host arrays (e.g. the JAX reference's)."""
+    def t(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+    return HMMParams(
+        log_emit=t(log_emit).contiguous(), log_jump=t(log_jump),
+        log_p0=t(log_p0).reshape(()), max_jump=int(max_jump),
+    )
+
+
+def _log_emissions(
+    params: HMMParams, corpus: Corpus, concepts: torch.Tensor | None = None
+) -> torch.Tensor:
+    """[N, Ts, S]: log p(phone at t | state s), plain gather."""
+    if concepts is None:
+        concepts = hmm_core.state_concepts(corpus)
+    return table_lookup(params.log_emit, corpus.src, concepts)
+
+
+def loglik(params: HMMParams, corpus: Corpus) -> torch.Tensor:
+    log_trans = hmm_core.build_log_trans(
+        params.log_jump, params.log_p0, corpus, params.max_jump
+    )
+    log_init = hmm_core.build_log_init(params.log_p0, corpus)
+    _, logz = hmm_core.forward(
+        log_init, log_trans, _log_emissions(params, corpus), corpus.src_len
+    )
+    return logz.sum()
+
+
+def estep_route(
+    s: int, v_src: int, v_trg: int, use_kernels: bool, dot_dtype: str,
+    device_type: str,
+) -> str:
+    """Which E-step runs: "fused" (K1 + K2) or "plain" (hmm_core.estep).
+
+    Raises NotImplementedError for a route whose kernel is not yet ported,
+    instead of dropping silently to the plain path.
+    """
+    if not use_kernels:
+        return "plain"
+    if dot_dtype == "bfloat16":
+        raise NotImplementedError(
+            "dot_dtype='bfloat16': the bf16 variant of the K2 E-step kernel "
+            "is not yet ported"
+        )
+    if dot_dtype != "float32":
+        raise ValueError(f"dot_dtype must be 'float32' or 'bfloat16', got {dot_dtype!r}")
+    if (
+        s <= FUSED_MAX_STATES
+        and v_src <= FUSED_MAX_SRC_VOCAB
+        and v_trg <= FUSED_MAX_TRG_VOCAB
+    ):
+        return "fused"
+    if device_type == "cuda":
+        raise NotImplementedError(
+            f"S={s}, V_src={v_src}, V_trg={v_trg} is outside the fused gate: "
+            "that route needs K4, the general E-step kernel "
+            "(hmm_fwdbwd_pallas.hmm_estep_pallas), which is not yet ported"
+        )
+    return "plain"  # on the CPU, K4's plain version is hmm_core.estep
+
+
+def expected_counts(
+    params: HMMParams,
+    corpus: Corpus,
+    use_kernels: bool = False,
+    dot_dtype: str = "float32",
+) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """E-step only: ((emission counts [V, V], jump-width counts [W+2]), loglik).
+
+    Counts are additive across corpus shards.  ``use_kernels`` mirrors the
+    reference's ``use_pallas``: inside the gate (S <= 64, V_src <= 128,
+    V_trg <= 256) the step runs through K1 and K2.
+    """
+    v_src, v_trg = params.log_emit.shape
+    concepts = hmm_core.state_concepts(corpus)  # [N, S]
+    route = estep_route(
+        concepts.shape[1], v_src, v_trg, use_kernels, dot_dtype,
+        corpus.device.type,
+    )
+    if route == "fused":
+        return _expected_counts_fused(params, corpus, concepts)
+    log_emit = _log_emissions(params, corpus, concepts)
+    gamma, width_counts, logz = hmm_core.estep(
+        params.log_jump, params.log_p0, params.max_jump, log_emit, corpus
+    )
+    emit_counts = pair_counts(gamma, corpus.src, concepts, v_src, v_trg)
+    return (emit_counts, width_counts), logz.sum()
+
+
+def _expected_counts_fused(
+    params: HMMParams, corpus: Corpus, concepts: torch.Tensor
+) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Kernel E-step: K1 lookup -> K2 fwd-bwd with fused counts.  gamma
+    never exists in device memory; only the small [N, S] factored-transition
+    terms are built around the kernels."""
+    v_src, v_trg = params.log_emit.shape
+    emit = counts_ops.table_lookup(params.log_emit, corpus.src, concepts)
+    base, rowz, colmask = hmm_core.factor_log_trans(
+        params.log_jump, params.log_p0, corpus, params.max_jump
+    )
+    log_init = hmm_core.build_log_init(params.log_p0, corpus)
+    emit_counts, xi_pooled, logz = hmm_fwdbwd.hmm_estep_counts(
+        log_init, base, rowz, colmask, emit, corpus.src, concepts,
+        corpus.src_len, v_src, v_trg,
+    )
+    width_counts = hmm_core.project_widths(
+        xi_pooled, corpus.max_trg_len, params.max_jump
+    )
+    return (emit_counts, width_counts), logz.sum()
+
+
+def m_step(
+    params: HMMParams,
+    counts: tuple[torch.Tensor, torch.Tensor],
+    smoothing: float = 1e-8,
+) -> HMMParams:
+    emit_counts, width_counts = counts
+    emit_counts = emit_counts + smoothing
+    new_log_emit = torch.log(emit_counts) - torch.log(
+        emit_counts.sum(dim=0, keepdim=True)
+    )
+    W = 2 * params.max_jump + 1
+    return HMMParams(
+        log_emit=new_log_emit,
+        log_jump=torch.log(width_counts[:W] + smoothing),
+        log_p0=torch.log(width_counts[W] + smoothing),
+        max_jump=params.max_jump,
+    )
+
+
+def em_step(
+    params: HMMParams,
+    corpus: Corpus,
+    smoothing: float = 1e-8,
+    use_kernels: bool = False,
+    dot_dtype: str = "float32",
+) -> tuple[HMMParams, dict[str, torch.Tensor]]:
+    """One batched forward-backward EM iteration."""
+    counts, ll = expected_counts(params, corpus, use_kernels, dot_dtype)
+    return m_step(params, counts, smoothing), {"loglik": ll}
+
+
+def train(
+    params: HMMParams,
+    corpus: Corpus,
+    num_iterations: int,
+    smoothing: float = 1e-8,
+    use_kernels: bool = False,
+    dot_dtype: str = "float32",
+) -> tuple[HMMParams, torch.Tensor]:
+    """``num_iterations`` EM steps -> (params, per-iteration logliks).
+
+    The logliks stay on the device and are stacked once at the end, so the
+    loop never waits on the device."""
+    lls = []
+    for _ in range(num_iterations):
+        params, stats = em_step(
+            params, corpus, smoothing=smoothing, use_kernels=use_kernels,
+            dot_dtype=dot_dtype,
+        )
+        lls.append(stats["loglik"])
+    if not lls:
+        return params, torch.empty(0, device=corpus.device)
+    return params, torch.stack(lls)
+
+
+def align(params: HMMParams, corpus: Corpus) -> torch.Tensor:
+    """Viterbi decode -> [N, Ts] int32 alignment (0 = NULL, else 1-based
+    trg position), through the factored-transition decoder."""
+    base, rowz, colmask = hmm_core.factor_log_trans(
+        params.log_jump, params.log_p0, corpus, params.max_jump
+    )
+    log_init = hmm_core.build_log_init(params.log_p0, corpus)
+    path = hmm_core.viterbi_factored(
+        log_init, base, rowz, colmask, _log_emissions(params, corpus),
+        corpus.src_len,
+    )
+    return hmm_core.path_to_alignment(path, corpus)

@@ -1,0 +1,89 @@
+"""K1's plain version and the plain pair counts vs the JAX reference.
+
+The JAX Pallas lookup runs in interpret mode, as the reference's own tests
+run it on the CPU; its padded time-major output is transposed to the port's
+utterance-major [N, Ts, S] layout to compare.  Both sides are exact gathers,
+so the lookup must match bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodalworddiscovery_tpu.core import counts as jcounts
+from multimodalworddiscovery_tpu.data import make_flickr8k_mini as jax_make
+from multimodalworddiscovery_tpu.models import hmm as jhmm
+from multimodalworddiscovery_tpu.models import hmm_core as jcore
+from multimodalworddiscovery_tpu.ops.counts_pallas import (
+    pad_time_major,
+    table_lookup_pallas,
+)
+from multimodalworddiscovery_tpu_torch.core import counts as tcounts
+from multimodalworddiscovery_tpu_torch.ops import counts as k1
+
+CASES = {
+    "S8": dict(n_utterances=40, seed=3),
+    "S40": dict(n_utterances=8, n_concepts=200, min_concepts=17,
+                max_concepts=20, min_word_len=2, max_word_len=3, seed=21),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def lookup_case(request):
+    corpus, _, _ = jax_make(**CASES[request.param])
+    corpus = corpus.pad_to(corpus.n + 3)  # zero-length utterances
+    params, _ = jhmm.em_step(jhmm.init(corpus), corpus)  # non-uniform table
+    table = np.array(params.log_emit)
+    src = np.array(corpus.src)
+    concepts = np.array(jcore.state_concepts(corpus))
+    return corpus, table, src, concepts
+
+
+def test_plain_lookup_equals_pallas_lookup(lookup_case):
+    corpus, table, src, concepts = lookup_case
+    n, ts = src.shape
+    s = concepts.shape[1]
+    bn, bt = 128, 8
+    tp, np_, kp = -(-ts // bt) * bt, -(-n // bn) * bn, -(-s // 8) * 8
+    want_t = table_lookup_pallas(
+        table, pad_time_major(src, tp, np_), pad_time_major(concepts, kp, np_),
+        k_real=s, block_n=bn, block_t=bt, interpret=True,
+    )
+    want = np.transpose(np.asarray(want_t), (2, 0, 1))[:n, :ts, :s]
+    got = k1.table_lookup(
+        torch.as_tensor(table), torch.as_tensor(src), torch.as_tensor(concepts)
+    )
+    assert got.shape == (n, ts, s) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_plain_lookup_equals_core_lookup(lookup_case):
+    _, table, src, concepts = lookup_case
+    want = np.asarray(jcounts.table_lookup(table, src, concepts))
+    got = tcounts.table_lookup(
+        torch.as_tensor(table), torch.as_tensor(src), torch.as_tensor(concepts)
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_lookup_launches_no_kernel(lookup_case):
+    _, table, src, concepts = lookup_case
+    before = k1.table_lookup.launches
+    k1.table_lookup(torch.as_tensor(table), torch.as_tensor(src), torch.as_tensor(concepts))
+    assert k1.table_lookup.launches == before
+
+
+@pytest.mark.parametrize("k", [6, 40])  # reference's broadcast / einsum forms
+def test_pair_counts_matches_jax(k):
+    rng = np.random.default_rng(k)
+    n, t, f, e = 30, 17, 11, 23
+    gamma = rng.random((n, t, k)).astype(np.float32)
+    gamma[rng.random((n, t)) < 0.2] = 0.0  # padded positions carry zeros
+    rows = rng.integers(0, f, size=(n, t)).astype(np.int32)
+    cols = rng.integers(0, e, size=(n, k)).astype(np.int32)
+    want = np.asarray(jcounts.pair_counts(gamma, rows, cols, f, e))
+    got = tcounts.pair_counts(
+        torch.as_tensor(gamma), torch.as_tensor(rows), torch.as_tensor(cols), f, e
+    )
+    assert got.shape == (f, e)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

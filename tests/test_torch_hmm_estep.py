@@ -1,0 +1,178 @@
+"""K2's plain version and the plain E-step vs the JAX reference.
+
+The same corpus (numpy generator, fixed seed, padded with zero-length
+utterances) and the same parameters (one JAX EM step from init, carried
+across with ``params_from_numpy``) go through the JAX fused Pallas pipeline
+in interpret mode, the JAX scan E-step, and the port.  Tolerances are the
+reference's own (tests/test_hmm_estep_pallas.py): logZ rtol/atol 1e-4,
+counts atol 1e-4 x scale, widths rtol 1e-4 atol 1e-3, loglik rtol 1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodalworddiscovery_tpu.data import make_flickr8k_mini as jax_make
+from multimodalworddiscovery_tpu.models import hmm as jhmm
+from multimodalworddiscovery_tpu.models import hmm_core as jcore
+from multimodalworddiscovery_tpu.ops.hmm_fwdbwd_pallas import hmm_estep_pallas
+from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
+from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini as torch_make
+from multimodalworddiscovery_tpu_torch.models import hmm as thmm
+from multimodalworddiscovery_tpu_torch.models import hmm_core as tcore
+from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
+
+CASES = {
+    "S8": dict(n_utterances=40, seed=3),
+    "S40": dict(n_utterances=8, n_concepts=200, min_concepts=17,
+                max_concepts=20, min_word_len=2, max_word_len=3, seed=21),
+}
+N_EMPTY = 3
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    kw = CASES[request.param]
+    jc, _, _ = jax_make(**kw)
+    tc, _, _ = torch_make(**kw)
+    jc, tc = jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
+    jp, _ = jhmm.em_step(jhmm.init(jc), jc)
+    tp = thmm.params_from_numpy(
+        np.asarray(jp.log_emit), np.asarray(jp.log_jump), np.asarray(jp.log_p0),
+        jp.max_jump,
+    )
+    return jc, jp, tc, tp
+
+
+def _factored(tc, tp):
+    base, rowz, colmask = tcore.factor_log_trans(tp.log_jump, tp.log_p0, tc, tp.max_jump)
+    return tcore.build_log_init(tp.log_p0, tc), base, rowz, colmask
+
+
+def test_state_space_matches_jax(case):
+    jc, jp, tc, tp = case
+    np.testing.assert_array_equal(
+        tcore.state_concepts(tc).numpy(), np.asarray(jcore.state_concepts(jc))
+    )
+    np.testing.assert_array_equal(
+        tcore.state_mask(tc).numpy(), np.asarray(jcore.state_mask(jc))
+    )
+    np.testing.assert_array_equal(
+        tcore.jump_width_ids(tc.max_trg_len, 3).numpy(),
+        np.asarray(jcore.jump_width_ids(jc.max_trg_len, 3)),
+    )
+
+
+def test_factor_log_trans_and_init_match_jax(case):
+    jc, jp, tc, tp = case
+    want = jcore.factor_log_trans(jp.log_jump, jp.log_p0, jc, jp.max_jump)
+    got = tcore.factor_log_trans(tp.log_jump, tp.log_p0, tc, tp.max_jump)
+    # rowz is a float32 logsumexp over S terms: the two libraries' exp and
+    # summation order differ by a few ulps per term
+    for name, w, g in zip(("base", "rowz", "colmask"), want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    np.testing.assert_allclose(
+        tcore.build_log_init(tp.log_p0, tc).numpy(),
+        np.asarray(jcore.build_log_init(jp.log_p0, jc)), rtol=1e-6, atol=1e-6,
+    )
+    np.testing.assert_allclose(
+        tcore.build_log_trans(tp.log_jump, tp.log_p0, tc, tp.max_jump).numpy(),
+        np.asarray(jcore.build_log_trans(jp.log_jump, jp.log_p0, jc, jp.max_jump)),
+        rtol=1e-5, atol=1e-6,
+    )
+
+
+def test_plain_k2_matches_fused_pallas_pipeline(case):
+    """The port's fused route (K1 + K2, plain versions on the CPU) against
+    the reference's _expected_counts_fused in interpret mode."""
+    jc, jp, tc, tp = case
+    (ec_w, wc_w), ll_w = jhmm.expected_counts(jp, jc, use_pallas=True, interpret=True)
+    concepts = tcore.state_concepts(tc)
+    (ec_g, wc_g), ll_g = thmm._expected_counts_fused(tp, tc, concepts)
+    scale = max(float(np.max(ec_w)), 1.0)
+    np.testing.assert_allclose(ec_g.numpy(), np.asarray(ec_w), atol=1e-4 * scale)
+    np.testing.assert_allclose(wc_g.numpy(), np.asarray(wc_w), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(float(ll_g), float(ll_w), rtol=1e-6)
+
+
+def test_plain_k2_matches_scan_estep(case):
+    """K2's plain version against the JAX scan E-step + pair counts."""
+    jc, jp, tc, tp = case
+    (ec_w, wc_w), ll_w = jhmm.expected_counts(jp, jc)
+    log_init, base, rowz, colmask = _factored(tc, tp)
+    concepts = tcore.state_concepts(tc)
+    emit = thmm._log_emissions(tp, tc, concepts)
+    v_src, v_trg = tp.log_emit.shape
+    counts, xi, logz = k2.hmm_estep_counts(
+        log_init, base, rowz, colmask, emit, tc.src, concepts, tc.src_len,
+        v_src, v_trg,
+    )
+    scale = max(float(np.max(ec_w)), 1.0)
+    np.testing.assert_allclose(counts.numpy(), np.asarray(ec_w), atol=1e-4 * scale)
+    wc = tcore.project_widths(xi, tc.max_trg_len, tp.max_jump)
+    np.testing.assert_allclose(wc.numpy(), np.asarray(wc_w), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(float(logz.sum()), float(ll_w), rtol=1e-6)
+
+
+def test_plain_k2_logz_and_xi_match_pallas_estep(case):
+    """logZ and pooled xi of K2's plain version against the reference's
+    general E-step kernel (shared forward and step math)."""
+    jc, jp, tc, tp = case
+    j_init = jcore.build_log_init(jp.log_p0, jc)
+    j_base, j_rowz, j_colmask = jcore.factor_log_trans(jp.log_jump, jp.log_p0, jc, jp.max_jump)
+    j_emit = jhmm._log_emissions(jp, jc)
+    _, xi_w, logz_w = hmm_estep_pallas(
+        j_init, j_base, j_rowz, j_colmask, j_emit, jc.src_len, interpret=True
+    )
+    log_init, base, rowz, colmask = _factored(tc, tp)
+    concepts = tcore.state_concepts(tc)
+    _, xi, logz = k2.hmm_estep_counts_plain(
+        log_init, base, rowz, colmask, thmm._log_emissions(tp, tc, concepts),
+        tc.src, concepts, tc.src_len, *tp.log_emit.shape,
+    )
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_w), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(xi.numpy(), np.asarray(xi_w), rtol=1e-4, atol=1e-3)
+
+
+def test_zero_length_utterances_have_logz_zero(case):
+    jc, jp, tc, tp = case
+    log_init, base, rowz, colmask = _factored(tc, tp)
+    concepts = tcore.state_concepts(tc)
+    emit = thmm._log_emissions(tp, tc, concepts)
+    _, _, logz = k2.hmm_estep_counts_plain(
+        log_init, base, rowz, colmask, emit, tc.src, concepts, tc.src_len,
+        *tp.log_emit.shape,
+    )
+    _, _, logz_dense = tcore.estep(tp.log_jump, tp.log_p0, tp.max_jump, emit, tc)
+    assert torch.all(logz[-N_EMPTY:] == 0) and torch.all(logz_dense[-N_EMPTY:] == 0)
+    assert torch.all(logz[:-N_EMPTY] < 0) and torch.all(logz[:-N_EMPTY] > NEG_INF / 2)
+
+
+def test_dense_estep_matches_jax(case):
+    """The port's plain dense E-step (the use_kernels=False route)."""
+    jc, jp, tc, tp = case
+    j_emit = jhmm._log_emissions(jp, jc)
+    g_w, wc_w, logz_w = jcore.estep(jp.log_jump, jp.log_p0, jp.max_jump, j_emit, jc)
+    g, wc, logz = tcore.estep(
+        tp.log_jump, tp.log_p0, tp.max_jump, thmm._log_emissions(tp, tc), tc
+    )
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_w), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_w), rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(wc.numpy(), np.asarray(wc_w), rtol=1e-4, atol=1e-3)
+
+
+def test_forward_backward_match_jax(case):
+    jc, jp, tc, tp = case
+    j_init, j_trans, j_emit = jhmm._machinery(jp, jc)
+    a_w, z_w = jcore.forward(j_init, j_trans, j_emit, jc.src_len)
+    b_w = jcore.backward(j_trans, j_emit, jc.src_len)
+    t_trans = tcore.build_log_trans(tp.log_jump, tp.log_p0, tc, tp.max_jump)
+    t_emit = thmm._log_emissions(tp, tc)
+    a, z = tcore.forward(tcore.build_log_init(tp.log_p0, tc), t_trans, t_emit, tc.src_len)
+    b = tcore.backward(t_trans, t_emit, tc.src_len)
+    valid = np.asarray(a_w) > NEG_INF / 2
+    np.testing.assert_allclose(a.numpy()[valid], np.asarray(a_w)[valid], rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_w), rtol=1e-5, atol=1e-4)
+    valid = np.asarray(b_w) > NEG_INF / 2
+    np.testing.assert_allclose(b.numpy()[valid], np.asarray(b_w)[valid], rtol=1e-5, atol=1e-3)
