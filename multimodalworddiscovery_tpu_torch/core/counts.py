@@ -4,7 +4,8 @@ Counterpart of ``multimodalworddiscovery_tpu/core/counts.py``.  The
 reference writes both as one-hot matmuls because gathers and scatters were
 slow on the TPU; on a GPU an index gather is exact and the natural form, and
 a scatter-add (``index_add_``) accumulates the counts.  These are the plain
-versions of the K1 lookup kernel and of K2's count half (``ops/``).
+versions of the K1 lookup kernel and of K2's count half (``ops/``);
+``select_columns`` picks each state's column of per-concept emissions.
 """
 
 from __future__ import annotations
@@ -19,6 +20,16 @@ def table_lookup(
 ) -> torch.Tensor:
     """out[n, t, k] = table[row_ids[n, t], col_ids[n, k]]  ->  [N, T, K]."""
     return table[row_ids.long()[:, :, None], col_ids.long()[:, None, :]]
+
+
+def select_columns(
+    values: torch.Tensor,   # [N, T, E]
+    col_ids: torch.Tensor,  # [N, K] int
+) -> torch.Tensor:
+    """out[n, t, k] = values[n, t, col_ids[n, k]]  ->  [N, T, K]."""
+    n, t, _ = values.shape
+    idx = col_ids.long()[:, None, :].expand(n, t, col_ids.shape[1])
+    return torch.gather(values, 2, idx)
 
 
 def pair_counts(

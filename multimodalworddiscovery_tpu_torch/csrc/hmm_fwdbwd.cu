@@ -1,28 +1,39 @@
-// K2: fused discrete-HMM E-step — forward, then a backward sweep that
+// K2 and K4: the HMM E-step over factored transitions.
+//
+// K2, the fused discrete-HMM E-step: forward, then a backward sweep that
 // accumulates the pooled transition posteriors and the (phone, concept)
 // expected counts, so the state posteriors gamma never reach device memory.
-//
 // Replaces multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:
 // hmm_estep_counts_pallas (_fwd_kernel, then _bwd_counts_kernel with the
-// step math of _bwd_math).  Transitions come factored,
-// trans[n, s, s'] = base[s, s'] - rowz[n, s] + colmask[n, s'], and each
-// step's log-semiring product is a plain product on max-rescaled
-// exponentials: p[s'] = sum_s exp(base0[s, s']) * exp(a2[s] - m).
+// step math of _bwd_math).
+//
+// K4, the general E-step every Vogel-HMM aligner runs (Gaussian, DNN and
+// CRF emissions, and the discrete HMM outside K2's gate): the same forward,
+// then a backward sweep that writes gamma [N, Ts, S] and the pooled xi.
+// Replaces hmm_fwdbwd_pallas.py: hmm_estep_pallas (_fwd_kernel, then
+// _bwd_kernel with the same _bwd_math).
+//
+// Transitions come factored, trans[n, s, s'] = base[s, s'] - rowz[n, s] +
+// colmask[n, s'], and each step's log-semiring product is a plain product
+// on max-rescaled exponentials: p[s'] = sum_s exp(base0[s, s']) *
+// exp(a2[s] - m).
 //
 // What bounds it on the H100: the recursion is sequential in time and tiny
-// per step (S <= 64 states), so it is bound by latency (one barrier, one
-// block reduction and an S-term FMA chain per step), not by FLOPs or bytes.
-// The design runs one block per utterance, one thread per state, so the
-// card holds thousands of independent recursions in flight; exp(base0)
-// sits in shared memory with a padded row stride (s + 1), which keeps both
-// the forward's column walk and the backward's row walk free of bank
-// conflicts; shared memory is sized by S at launch, so small-S blocks pack
-// many to an SM.  The TPU kernel's lane-major layout, VMEM tiling and
-// deferred per-state histograms are not carried over: the counts go
-// straight to device memory with one atomicAdd per nonzero posterior, and
-// the per-block xi table with one atomicAdd per entry at the end.  Atomics
-// make the summation order vary between runs, so comparisons use
-// tolerances, never bitwise equality.
+// per step (S <= 160 states), so it is bound by latency (one barrier, one
+// block reduction and an S-term FMA chain per step), not by FLOPs or bytes;
+// K4 also streams gamma out, N*Ts*S floats, in coalesced rows.  The design
+// runs one block per utterance, one thread per state, so the card holds
+// thousands of independent recursions in flight; exp(base0) sits in shared
+// memory with a padded row stride (s + 1), which keeps both the forward's
+// column walk and the backward's row walk free of bank conflicts; shared
+// memory is sized by S at launch, so small-S blocks pack many to an SM, and
+// above 48 KB (S > 109 in the forward, S > 77 in the backward) the kernel
+// opts into the larger limit.  The TPU kernels' lane-major layout, VMEM
+// tiling and deferred per-state histograms are not carried over: K2's
+// counts go straight to device memory with one atomicAdd per nonzero
+// posterior, and the per-block xi table goes out with one atomicAdd per
+// entry at the end.  Atomics make the summation order vary between runs,
+// so comparisons use tolerances, never bitwise equality.
 
 #include "common.cuh"
 
@@ -39,7 +50,7 @@ __device__ __forceinline__ float mwd_load_bexp(const float* __restrict__ base, i
 }
 
 // Forward: alpha[t] for every t (frozen past src_len) and logZ.
-// One block per utterance, thread j = state j.
+// One block per utterance, thread j = state j.  Shared by K2 and K4.
 __global__ void mwd_hmm_fwd_kernel(
     const float* __restrict__ base,     // [S, S]
     const float* __restrict__ init,     // [N, S]
@@ -93,19 +104,23 @@ __global__ void mwd_hmm_fwd_kernel(
     }
 }
 
-// Backward sweep with the count accumulation fused in.  Walks t down from
-// Ts - 1 carrying eb = emit[t + 1] + beta[t + 1].
-__global__ void mwd_hmm_bwd_counts_kernel(
+// Backward sweep.  Walks t down from Ts - 1 carrying eb = emit[t + 1] +
+// beta[t + 1], accumulates the pooled xi, and hands each step's posterior
+// gamma to its consumer: K2 adds it into the (phone, concept) counts, K4
+// writes it out.  COUNTS selects the consumer at compile time.
+template <bool COUNTS>
+__global__ void mwd_hmm_bwd_kernel(
     const float* __restrict__ base,     // [S, S]
     const float* __restrict__ rowz,     // [N, S]
     const float* __restrict__ colmask,  // [N, S]
     const float* __restrict__ emit,     // [N, Ts, S]
     const float* __restrict__ alphas,   // [N, Ts, S]
     const float* __restrict__ logz,     // [N]
-    const int* __restrict__ src,        // [N, Ts] phone ids
-    const int* __restrict__ conc,       // [N, S] concept id of each state
     const int* __restrict__ lens,       // [N]
-    float* __restrict__ counts,         // [F, E], accumulated into
+    const int* __restrict__ src,        // K2: [N, Ts] phone ids
+    const int* __restrict__ conc,       // K2: [N, S] concept id of each state
+    float* __restrict__ counts,         // K2: [F, E], accumulated into
+    float* __restrict__ gamma,          // K4: out [N, Ts, S]
     float* __restrict__ xi,             // [S, S], accumulated into
     int ts, int s, int f, int e) {
     extern __shared__ float smem[];
@@ -123,13 +138,12 @@ __global__ void mwd_hmm_bwd_counts_kernel(
     const long long row = (long long)n * s;
     const float* em = emit + row * ts;
     const float* al = alphas + row * ts;
-    const int* sr = src + (long long)n * ts;
     const int len = lens[n];
     const float lzn = logz[n];
     const float lzs = lzn > MWD_NEG_INF / 2 ? lzn : 0.f;
     const float rz = act ? rowz[row + j] - mb : 0.f;  // rowz0
     const float cm = act ? colmask[row + j] : 0.f;
-    const int cj = act ? conc[row + j] : 0;
+    const int cj = (COUNTS && act) ? conc[row + j] : 0;
     float eb = MWD_NEG_INF;
     __syncthreads();
     for (int t = ts - 1; t >= 0; --t) {
@@ -157,12 +171,16 @@ __global__ void mwd_hmm_bwd_counts_kernel(
             if (t + 1 < len)
                 for (int k = 0; k < s; ++k)
                     xi_acc[k * s + j] += bexp[k * sp + j] * (ea_sh[k] * fv);
-            if (g != 0.f) {
-                const int ph = sr[t];
-                // ids are validated when the corpus is built; an id outside
-                // the table already made K1's emission NaN
-                if (ph >= 0 && ph < f && cj >= 0 && cj < e)
-                    atomicAdd(&counts[(long long)ph * e + cj], g);
+            if (COUNTS) {
+                if (g != 0.f) {
+                    const int ph = src[(long long)n * ts + t];
+                    // ids are validated when the corpus is built; an id
+                    // outside the table already made K1's emission NaN
+                    if (ph >= 0 && ph < f && cj >= 0 && cj < e)
+                        atomicAdd(&counts[(long long)ph * e + cj], g);
+                }
+            } else {
+                gamma[row * ts + (long long)t * s + j] = g;
             }
             eb = em[(long long)t * s + j] + beta;
         }
@@ -174,20 +192,26 @@ __global__ void mwd_hmm_bwd_counts_kernel(
     }
 }
 
-static int mwd_state_threads(int s) { return ((s + 31) / 32) * 32; }
+static size_t mwd_fwd_smem(int s) { return (size_t)(s * (s + 1) + s + 32) * sizeof(float); }
+static size_t mwd_bwd_smem(int s) {
+    return (size_t)(s * (s + 1) + s * s + 2 * s + 32) * sizeof(float);
+}
 
 extern "C" int mwd_hmm_fwd(const float* base, const float* init, const float* rowz,
                            const float* colmask, const float* emit, const int* lens,
                            float* alphas, float* logz, int n, int ts, int s,
                            void* stream) {
-    if (s < 1 || s > MWD_MAX_S || ts < 1 || n < 0) return (int)cudaErrorInvalidValue;
+    if (s < 1 || s > MWD_MAX_S_GENERAL || ts < 1 || n < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    const size_t smem = (size_t)(s * (s + 1) + s + 32) * sizeof(float);
+    const size_t smem = mwd_fwd_smem(s);
+    const int st = mwd_smem_optin(mwd_hmm_fwd_kernel, smem);
+    if (st != 0) return st;
     mwd_hmm_fwd_kernel<<<n, mwd_state_threads(s), smem, (cudaStream_t)stream>>>(
         base, init, rowz, colmask, emit, lens, alphas, logz, ts, s);
     return (int)cudaGetLastError();
 }
 
+// K2's backward (fused counts), S <= 64 as the discrete route's gate.
 extern "C" int mwd_hmm_bwd_counts(const float* base, const float* rowz,
                                   const float* colmask, const float* emit,
                                   const float* alphas, const float* logz, const int* src,
@@ -196,8 +220,28 @@ extern "C" int mwd_hmm_bwd_counts(const float* base, const float* rowz,
                                   void* stream) {
     if (s < 1 || s > MWD_MAX_S || ts < 1 || n < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    const size_t smem = (size_t)(s * (s + 1) + s * s + 2 * s + 32) * sizeof(float);
-    mwd_hmm_bwd_counts_kernel<<<n, mwd_state_threads(s), smem, (cudaStream_t)stream>>>(
-        base, rowz, colmask, emit, alphas, logz, src, conc, lens, counts, xi, ts, s, f, e);
+    const size_t smem = mwd_bwd_smem(s);
+    const int st = mwd_smem_optin(mwd_hmm_bwd_kernel<true>, smem);
+    if (st != 0) return st;
+    mwd_hmm_bwd_kernel<true><<<n, mwd_state_threads(s), smem, (cudaStream_t)stream>>>(
+        base, rowz, colmask, emit, alphas, logz, lens, src, conc, counts, nullptr, xi,
+        ts, s, f, e);
+    return (int)cudaGetLastError();
+}
+
+// K4's backward (gamma out), S <= MWD_MAX_S_GENERAL.
+extern "C" int mwd_hmm_bwd_gamma(const float* base, const float* rowz,
+                                 const float* colmask, const float* emit,
+                                 const float* alphas, const float* logz, const int* lens,
+                                 float* gamma, float* xi, int n, int ts, int s,
+                                 void* stream) {
+    if (s < 1 || s > MWD_MAX_S_GENERAL || ts < 1 || n < 0) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    const size_t smem = mwd_bwd_smem(s);
+    const int st = mwd_smem_optin(mwd_hmm_bwd_kernel<false>, smem);
+    if (st != 0) return st;
+    mwd_hmm_bwd_kernel<false><<<n, mwd_state_threads(s), smem, (cudaStream_t)stream>>>(
+        base, rowz, colmask, emit, alphas, logz, lens, nullptr, nullptr, nullptr, gamma, xi,
+        ts, s, 0, 0);
     return (int)cudaGetLastError();
 }

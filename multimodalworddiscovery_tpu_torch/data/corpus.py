@@ -18,12 +18,18 @@ from multimodalworddiscovery_tpu_torch.core.masking import (
 )
 
 
+def _as_field(x) -> np.ndarray:
+    """int32 for integer arrays (ids, lengths), float32 for the rest."""
+    x = np.asarray(x)
+    return x.astype(np.int32 if x.dtype.kind in "iu" else np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Corpus:
     """Padded paired corpus.
 
-    src: [N, Ts] int32 token ids (phones).
-    trg: [N, Tt] int32 concept ids.
+    src: [N, Ts] int32 token ids (phones) OR [N, Ts, D] float32 frames.
+    trg: [N, Tt] int32 concept ids OR [N, Tt, D] float32 region embeddings.
     src_len / trg_len: [N] int32 true lengths.
     """
 
@@ -52,6 +58,9 @@ class Corpus:
 
     def src_mask(self) -> torch.Tensor:
         return lengths_to_mask(self.src_len, self.max_src_len)
+
+    def trg_mask(self) -> torch.Tensor:
+        return lengths_to_mask(self.trg_len, self.max_trg_len)
 
     def to(self, device) -> "Corpus":
         return dataclasses.replace(
@@ -91,12 +100,14 @@ class Corpus:
         trg_vocab: int = 0,
         device=None,
     ) -> "Corpus":
-        """Build from padded host arrays.  Token ids are checked against the
-        vocab sizes here, once, because the CUDA kernels index tables with
-        them unchecked."""
-        src = np.asarray(src, dtype=np.int32)
-        trg = np.asarray(trg, dtype=np.int32)
+        """Build from padded host arrays.  Integer ids become int32 and
+        anything else float32, as in the reference.  Ids are checked against
+        the vocab sizes here, once, because the CUDA kernels index tables
+        with them unchecked."""
+        src, trg = _as_field(src), _as_field(trg)
         for name, ids, vocab in (("src", src, src_vocab), ("trg", trg, trg_vocab)):
+            if ids.dtype != np.int32:
+                continue
             if ids.size and vocab and (ids.min() < 0 or ids.max() >= vocab):
                 raise ValueError(
                     f"{name} ids must lie in [0, {vocab}), got "
@@ -104,13 +115,13 @@ class Corpus:
                 )
 
         def t(x):
-            return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=device)
+            return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
         return cls(
             src=t(src),
-            src_len=t(src_len),
+            src_len=t(_as_field(src_len)),
             trg=t(trg),
-            trg_len=t(trg_len),
+            trg_len=t(_as_field(trg_len)),
             src_vocab=src_vocab,
             trg_vocab=trg_vocab,
         )

@@ -121,3 +121,70 @@ def make_flickr8k_mini(
         gold_align[i, : len(a)] = a
     gold = GoldAnnotations(alignment=gold_align, segments=segments)
     return corpus, gold, _meta(lexicon, n_concepts, n_phones)
+
+
+def phones_to_frames(
+    corpus: Corpus,
+    gold: GoldAnnotations,
+    feat_dim: int = 16,
+    min_frames: int = 2,
+    max_frames: int = 4,
+    noise: float = 0.15,
+    seed: int = 0,
+    device=None,
+) -> tuple[Corpus, GoldAnnotations, np.ndarray]:
+    """Expand a discrete phone corpus into continuous acoustic frames.
+
+    Each phone id gets a random mean vector; each phone token emits 2-4
+    noisy frames around it, a stand-in for MFCC frames.  Draws from
+    ``default_rng(seed)`` in the reference's order, so frames, frame gold
+    and phone means equal the reference's bit for bit.
+
+    Returns (frame corpus on ``device``, frame-level gold, phone means [V, D]).
+    """
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(corpus.src_vocab, feat_dim)).astype(np.float32)
+
+    src = corpus.src.cpu().numpy()
+    src_len = corpus.src_len.cpu().numpy()
+    trg = corpus.trg.cpu().numpy()
+    trg_len = corpus.trg_len.cpu().numpy()
+    frame_seqs, frame_aligns, frame_segments = [], [], []
+    for i in range(corpus.n):
+        frames, falign = [], []
+        fsegs: list[tuple[int, int, int]] = []
+        starts = {s: c for (s, e, c) in gold.segments[i]}
+        # the reference scans every gold segment at each phone and closes the
+        # open one at the first (in segment order) that ends at this phone
+        # with the open concept; index the ends once instead
+        ends: dict[int, list[int]] = {}
+        for s, (e, c) in {s: (e, c) for (s, e, c) in gold.segments[i]}.items():
+            ends.setdefault(e - 1, []).append(c)
+        open_start: int | None = None
+        open_concept = 0
+        for t in range(int(src_len[i])):
+            if t in starts:
+                open_start = len(frames)
+                open_concept = starts[t]
+            ph = int(src[i, t])
+            nf = int(rng.integers(min_frames, max_frames + 1))
+            for _ in range(nf):
+                frames.append(means[ph] + noise * rng.normal(size=feat_dim))
+                falign.append(int(gold.alignment[i, t]))
+            if open_start is not None and open_concept in ends.get(t, ()):
+                fsegs.append((open_start, len(frames), open_concept))
+                open_start = None
+        frame_seqs.append(np.asarray(frames, dtype=np.float32))
+        frame_aligns.append(np.asarray(falign, dtype=np.int32))
+        frame_segments.append(fsegs)
+
+    trg_ragged = [trg[i, : int(trg_len[i])] for i in range(corpus.n)]
+    frame_corpus = Corpus.from_ragged(
+        frame_seqs, trg_ragged, src_vocab=0, trg_vocab=corpus.trg_vocab,
+        device=device,
+    )
+    gold_align = np.zeros((corpus.n, frame_corpus.max_src_len), dtype=np.int32)
+    for i, a in enumerate(frame_aligns):
+        gold_align[i, : len(a)] = a
+    frame_gold = GoldAnnotations(alignment=gold_align, segments=frame_segments)
+    return frame_corpus, frame_gold, means

@@ -5,5 +5,6 @@
   align(params, corpus) -> [N, Ts] int32   # 0 = NULL, else 1-based trg position
   loglik(params, corpus) -> scalar
 
-Ported so far: ``hmm`` (discrete HMM) on ``hmm_core``.
+Ported so far: ``hmm`` (discrete HMM) and ``hmm_gaussian`` (Gaussian /
+GMM-emission HMM) on ``hmm_core``.
 """

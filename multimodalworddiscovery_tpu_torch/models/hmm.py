@@ -5,12 +5,14 @@ the paired image's concepts (plus paired NULL states), emissions are
 multinomial over phones, transitions are Vogel-style jump-width weights;
 trained with batched forward-backward EM and decoded with Viterbi.
 
-One EM step on the kernel route (``use_kernels=True`` inside the fused
-gate) is the K1 lookup kernel (ops/counts.py) followed by the K2 fused
+One EM step on the kernel route (``use_kernels=True``) inside the fused
+gate is the K1 lookup kernel (ops/counts.py) followed by the K2 fused
 E-step kernel (ops/hmm_fwdbwd.py), which hands back the pooled emission
 counts and transition posteriors; then one projection onto jump widths and
-the M-step.  ``use_kernels=False`` runs the plain dense fwd-bwd
-(hmm_core.estep) and a scatter-add of the posteriors.
+the M-step.  Outside the gate it is K1, then K4, the general E-step kernel,
+then a scatter-add of its posteriors.  ``use_kernels=False`` runs the plain
+dense fwd-bwd (hmm_core.estep) and the same scatter-add.  Decode with
+``use_kernels=True`` runs K3 (ops/viterbi.py).
 """
 
 from __future__ import annotations
@@ -84,25 +86,28 @@ def _log_emissions(
     return table_lookup(params.log_emit, corpus.src, concepts)
 
 
-def loglik(params: HMMParams, corpus: Corpus) -> torch.Tensor:
+def _machinery(params: HMMParams, corpus: Corpus):
     log_trans = hmm_core.build_log_trans(
         params.log_jump, params.log_p0, corpus, params.max_jump
     )
     log_init = hmm_core.build_log_init(params.log_p0, corpus)
-    _, logz = hmm_core.forward(
-        log_init, log_trans, _log_emissions(params, corpus), corpus.src_len
-    )
+    return log_init, log_trans, _log_emissions(params, corpus)
+
+
+def loglik(params: HMMParams, corpus: Corpus) -> torch.Tensor:
+    log_init, log_trans, log_emit = _machinery(params, corpus)
+    _, logz = hmm_core.forward(log_init, log_trans, log_emit, corpus.src_len)
     return logz.sum()
 
 
 def estep_route(
     s: int, v_src: int, v_trg: int, use_kernels: bool, dot_dtype: str,
-    device_type: str,
 ) -> str:
-    """Which E-step runs: "fused" (K1 + K2) or "plain" (hmm_core.estep).
+    """Which E-step runs: "fused" (K1 + K2), "general" (K1 + K4, then the
+    plain count scatter) or "plain" (hmm_core.estep).
 
-    Raises NotImplementedError for a route whose kernel is not yet ported,
-    instead of dropping silently to the plain path.
+    Raises NotImplementedError for the bf16 variant, whose kernel is not
+    yet ported, instead of dropping silently to the plain path.
     """
     if not use_kernels:
         return "plain"
@@ -119,13 +124,7 @@ def estep_route(
         and v_trg <= FUSED_MAX_TRG_VOCAB
     ):
         return "fused"
-    if device_type == "cuda":
-        raise NotImplementedError(
-            f"S={s}, V_src={v_src}, V_trg={v_trg} is outside the fused gate: "
-            "that route needs K4, the general E-step kernel "
-            "(hmm_fwdbwd_pallas.hmm_estep_pallas), which is not yet ported"
-        )
-    return "plain"  # on the CPU, K4's plain version is hmm_core.estep
+    return "general"
 
 
 def expected_counts(
@@ -138,19 +137,21 @@ def expected_counts(
 
     Counts are additive across corpus shards.  ``use_kernels`` mirrors the
     reference's ``use_pallas``: inside the gate (S <= 64, V_src <= 128,
-    V_trg <= 256) the step runs through K1 and K2.
+    V_trg <= 256) the step runs through K1 and K2, outside it through K1
+    and K4.
     """
     v_src, v_trg = params.log_emit.shape
     concepts = hmm_core.state_concepts(corpus)  # [N, S]
-    route = estep_route(
-        concepts.shape[1], v_src, v_trg, use_kernels, dot_dtype,
-        corpus.device.type,
-    )
+    route = estep_route(concepts.shape[1], v_src, v_trg, use_kernels, dot_dtype)
     if route == "fused":
         return _expected_counts_fused(params, corpus, concepts)
-    log_emit = _log_emissions(params, corpus, concepts)
+    if route == "general":
+        log_emit = counts_ops.table_lookup(params.log_emit, corpus.src, concepts)
+    else:
+        log_emit = _log_emissions(params, corpus, concepts)
     gamma, width_counts, logz = hmm_core.estep(
-        params.log_jump, params.log_p0, params.max_jump, log_emit, corpus
+        params.log_jump, params.log_p0, params.max_jump, log_emit, corpus,
+        use_kernels=route == "general",
     )
     emit_counts = pair_counts(gamma, corpus.src, concepts, v_src, v_trg)
     return (emit_counts, width_counts), logz.sum()
@@ -233,15 +234,24 @@ def train(
     return params, torch.stack(lls)
 
 
-def align(params: HMMParams, corpus: Corpus) -> torch.Tensor:
+def align(
+    params: HMMParams, corpus: Corpus, use_kernels: bool = False
+) -> torch.Tensor:
     """Viterbi decode -> [N, Ts] int32 alignment (0 = NULL, else 1-based
-    trg position), through the factored-transition decoder."""
+    trg position), through the factored-transition decoder (K3 with
+    ``use_kernels=True``)."""
     base, rowz, colmask = hmm_core.factor_log_trans(
         params.log_jump, params.log_p0, corpus, params.max_jump
     )
     log_init = hmm_core.build_log_init(params.log_p0, corpus)
     path = hmm_core.viterbi_factored(
         log_init, base, rowz, colmask, _log_emissions(params, corpus),
-        corpus.src_len,
+        corpus.src_len, use_kernels=use_kernels,
     )
     return hmm_core.path_to_alignment(path, corpus)
+
+
+def posteriors(params: HMMParams, corpus: Corpus) -> torch.Tensor:
+    """State posteriors [N, Ts, S] (plain fwd-bwd, as in the reference)."""
+    log_init, log_trans, log_emit = _machinery(params, corpus)
+    return hmm_core.posteriors_from(log_init, log_trans, log_emit, corpus)

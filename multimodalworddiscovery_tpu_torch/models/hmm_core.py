@@ -28,6 +28,8 @@ from multimodalworddiscovery_tpu_torch.core.logsemiring import (
 )
 from multimodalworddiscovery_tpu_torch.core.masking import lengths_to_mask
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
+from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd
+from multimodalworddiscovery_tpu_torch.ops import viterbi as viterbi_ops
 
 
 def state_positions(tt_max: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -152,13 +154,27 @@ def estep(
     max_jump: int,
     log_emit: torch.Tensor,
     corpus: Corpus,
+    use_kernels: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain HMM E-step over dense transitions (the oracle of the fused
-    kernel route and the ``use_kernels=False`` route).
+    """Shared HMM E-step for every Vogel-transition aligner (discrete,
+    Gaussian, DNN-hybrid emissions differ only in ``log_emit``).
 
     Returns (gamma [N, Ts, S] state posteriors, width_counts [2*max_jump+3]
     expected jump counts (..., p0 slot, impossible slot), logz [N]).
+
+    ``use_kernels=True`` routes through K4, the general E-step kernel
+    (``ops/hmm_fwdbwd.hmm_estep``: its plain version on a CPU corpus); the
+    dense plain path below is its oracle.  All outputs are additive across
+    corpus shards.
     """
+    if use_kernels:
+        base, rowz, colmask = factor_log_trans(log_jump, log_p0, corpus, max_jump)
+        gamma, xi_pooled, logz = hmm_fwdbwd.hmm_estep(
+            build_log_init(log_p0, corpus), base, rowz, colmask, log_emit,
+            corpus.src_len,
+        )
+        return gamma, project_widths(xi_pooled, corpus.max_trg_len, max_jump), logz
+
     n, ts, s = log_emit.shape
     log_init = build_log_init(log_p0, corpus)
     log_trans = build_log_trans(log_jump, log_p0, corpus, max_jump)
@@ -199,6 +215,25 @@ def project_widths(
     return out.index_add_(0, ids.reshape(-1), xi_pooled.reshape(-1))
 
 
+def posteriors_from(
+    log_init: torch.Tensor,   # [N, S]
+    log_trans: torch.Tensor,  # [N, S, S]
+    log_emit: torch.Tensor,   # [N, Ts, S]
+    corpus: Corpus,
+) -> torch.Tensor:
+    """State posteriors [N, Ts, S] from assembled machinery (shared by the
+    per-model ``posteriors`` wrappers)."""
+    alphas, logz = forward(log_init, log_trans, log_emit, corpus.src_len)
+    betas = backward(log_trans, log_emit, corpus.src_len)
+    logz_safe = torch.where(logz > NEG_INF / 2, logz, 0.0)
+    gamma = torch.exp(alphas + betas - logz_safe[None, :, None])
+    valid = (
+        lengths_to_mask(corpus.src_len, log_emit.shape[1]).T[:, :, None]
+        & state_mask(corpus)[None, :, :]
+    )
+    return torch.where(valid, gamma, 0.0).transpose(0, 1)
+
+
 def viterbi_factored(
     log_init: torch.Tensor,  # [N, S]
     base: torch.Tensor,      # [S, S]
@@ -206,30 +241,15 @@ def viterbi_factored(
     colmask: torch.Tensor,   # [N, S]
     log_emit: torch.Tensor,  # [N, Ts, S]
     src_len: torch.Tensor,   # [N]
+    use_kernels: bool = False,
 ) -> torch.Tensor:
-    """Viterbi decode from factored transitions -> state path [N, Ts] int64
-    (junk past src_len).  Never builds the [N, S, S] transition tensor
-    outside one step; backpointers are int8 when S < 128.  Ties resolve to
-    the lowest state index, as in the reference."""
-    n, ts, s = log_emit.shape
-    bp_dtype = torch.int8 if s < 128 else torch.int32
-    ident = torch.arange(s, device=log_emit.device).to(bp_dtype).expand(n, s)
-    delta = log_init + log_emit[:, 0]
-    bps = []
-    for t in range(1, ts):
-        x = (delta - rowz)[:, :, None] + base[None, :, :]  # [N, S_prev, S]
-        best, bp = torch.max(x, dim=1)
-        best = best + colmask + log_emit[:, t]
-        alive = (t < src_len)[:, None]
-        delta = torch.where(alive, best, delta)
-        bps.append(torch.where(alive, bp.to(bp_dtype), ident))
-
-    state = torch.argmax(delta, dim=-1)  # [N]
-    states = [state]
-    for bp in reversed(bps):
-        state = bp.long().gather(1, state[:, None])[:, 0]
-        states.append(state)
-    return torch.stack(states[::-1], dim=1)
+    """Viterbi decode from factored transitions -> state path [N, Ts] int32
+    (frozen-carry states past src_len).  ``use_kernels=True`` routes through
+    K3 (``ops/viterbi.viterbi``: its plain version on a CPU corpus); the
+    plain decoder never builds the [N, S, S] transition tensor outside one
+    step.  Ties resolve to the lowest state index, as in the reference."""
+    decode = viterbi_ops.viterbi if use_kernels else viterbi_ops.viterbi_plain
+    return decode(log_init, base, rowz, colmask, log_emit, src_len)
 
 
 def path_to_alignment(path: torch.Tensor, corpus: Corpus) -> torch.Tensor:

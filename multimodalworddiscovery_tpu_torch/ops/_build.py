@@ -37,6 +37,9 @@ SIGNATURES = {
     "mwd_table_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mwd_hmm_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mwd_hmm_bwd_counts": [_P] * 11 + [_I] * 5 + [_P],
+    "mwd_hmm_bwd_gamma": [_P] * 9 + [_I] * 3 + [_P],
+    "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
+    "mwd_viterbi_bp_in_smem": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,7 @@ segmentation stays on the device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
@@ -59,6 +60,31 @@ def segments_from_alignment(
         dim=-1,
     ).to(i32)
     return segs, slot_valid
+
+
+def boundaries_from_segments(
+    segments: torch.Tensor, seg_mask: torch.Tensor, max_len: int
+) -> torch.Tensor:
+    """[N, S, 3] segments -> [N, max_len + 1] bool boundary indicators: a
+    boundary sits at position p if some word unit starts or ends there."""
+    n = segments.shape[0]
+    # column max_len + 1 is a discard bucket for masked segment slots
+    out = torch.zeros((n, max_len + 2), dtype=torch.bool, device=segments.device)
+    discard = max_len + 1
+    for col in (0, 1):
+        idx = torch.where(seg_mask, segments[..., col], discard).long()
+        out.scatter_(1, idx, True)
+    return out[:, : max_len + 1]
+
+
+def segments_to_host(segments, seg_mask) -> list[list[tuple[int, int, int]]]:
+    """Device segment arrays -> per-utterance python lists for JSON dumps."""
+    segments = np.asarray(torch.as_tensor(segments).cpu())
+    seg_mask = np.asarray(torch.as_tensor(seg_mask).cpu())
+    return [
+        [tuple(int(x) for x in segments[i, s]) for s in np.where(seg_mask[i])[0]]
+        for i in range(segments.shape[0])
+    ]
 
 
 def segment_corpus(alignment: torch.Tensor, corpus: Corpus):

@@ -9,10 +9,12 @@ without the suite's conftest:
 import pytest
 import torch
 
-from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
-from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
+from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_gaussian
 from multimodalworddiscovery_tpu_torch.ops import counts as k1
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
+from multimodalworddiscovery_tpu_torch.ops import _build
+from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
 
 pytestmark = pytest.mark.cuda
 
@@ -21,6 +23,10 @@ CASES = {
     "S40": dict(n_utterances=12, n_concepts=200, min_concepts=17,
                 max_concepts=20, min_word_len=2, max_word_len=3, seed=21),
 }
+# K3 and K4 also take the discrete route outside K2's gate (S=128)
+GENERAL_CASES = dict(CASES, S128=dict(n_utterances=8, n_concepts=200, min_concepts=60,
+                                      max_concepts=64, min_word_len=2, max_word_len=3,
+                                      seed=21))
 
 
 @pytest.fixture
@@ -32,7 +38,7 @@ def dev():
 
 
 def _inputs(name, dev):
-    corpus, _, _ = make_flickr8k_mini(**CASES[name])
+    corpus, _, _ = make_flickr8k_mini(**GENERAL_CASES[name])
     corpus = corpus.pad_to(corpus.n + 3).to(dev)
     params, _ = hmm.em_step(hmm.init(corpus), corpus)
     concepts = hmm_core.state_concepts(corpus)
@@ -88,8 +94,96 @@ def test_wrappers_validate_inputs(dev):
 
 
 def test_unported_route_raises_on_cuda(dev):
-    corpus, _, _ = make_flickr8k_mini(n_utterances=6, n_concepts=200, min_concepts=33,
-                                      max_concepts=34, min_word_len=2, max_word_len=2,
-                                      seed=1, device=dev)
-    with pytest.raises(NotImplementedError, match="K4"):
-        hmm.expected_counts(hmm.init(corpus), corpus, use_kernels=True)
+    """K2's bf16 variant is not ported: asking for it raises on CUDA."""
+    corpus, _, _ = make_flickr8k_mini(**CASES["S12"], device=dev)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        hmm.expected_counts(hmm.init(corpus), corpus, use_kernels=True,
+                            dot_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_k4_kernel_matches_plain(dev, name):
+    """Tolerances of tests/test_hmm_estep_pallas.py:74-80; xi is summed with
+    atomics in a varying order."""
+    corpus, params, concepts, (log_init, base, rowz, colmask) = _inputs(name, dev)
+    emit = k1.table_lookup(params.log_emit, corpus.src, concepts)
+    args = (log_init, base, rowz, colmask, emit, corpus.src_len)
+    before = k2.hmm_estep.launches
+    gamma, xi, logz = k2.hmm_estep(*args)
+    assert k2.hmm_estep.launches == before + 1
+    gamma_p, xi_p, logz_p = k2.hmm_estep_plain(*args)
+    torch.testing.assert_close(logz, logz_p, rtol=1e-4, atol=1e-4)
+    assert torch.all(logz[-3:] == 0) and torch.all(gamma[-3:] == 0)
+    torch.testing.assert_close(logz.sum(), logz_p.sum(), rtol=1e-6, atol=0)
+    torch.testing.assert_close(gamma, gamma_p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(xi, xi_p, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_k3_kernel_matches_plain(dev, name):
+    """Paths agree on >= 0.99 of valid frames and scores to rtol 1e-5 atol
+    1e-3 (tests/test_viterbi_pallas.py:61-65)."""
+    corpus, params, concepts, (log_init, base, rowz, colmask) = _inputs(name, dev)
+    args = (log_init, base, rowz, colmask, hmm._log_emissions(params, corpus, concepts),
+            corpus.src_len)
+    before = k3.viterbi.launches
+    path = k3.viterbi(*args)
+    assert k3.viterbi.launches == before + 1 and path.dtype == torch.int32
+    path_p = k3.viterbi_plain(*args)
+    mask = corpus.src_mask()
+    assert (path == path_p)[mask].float().mean() >= 0.99
+    torch.testing.assert_close(k3.path_score(path, *args), k3.path_score(path_p, *args),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_k3_backpointers_in_global_scratch(dev):
+    """Ts * S bytes beyond shared memory: the backpointers go to a global
+    scratch.  Random inputs have no ties, so the paths are equal."""
+    gen = torch.Generator().manual_seed(0)
+    n, ts, s = 3, 1400, 128
+    f32 = dict(dtype=torch.float32)
+    args = (torch.randn(n, s, generator=gen, **f32), torch.randn(s, s, generator=gen, **f32),
+            torch.randn(n, s, generator=gen, **f32), torch.zeros(n, s, **f32),
+            torch.randn(n, ts, s, generator=gen, **f32),
+            torch.tensor([ts, 700, 0], dtype=torch.int32))
+    args = tuple(a.to(dev) for a in args)
+    assert not _build.load().mwd_viterbi_bp_in_smem(ts, s)
+    assert torch.equal(k3.viterbi(*args), k3.viterbi_plain(*args))
+
+
+def test_kernels_reject_too_many_states(dev):
+    n, ts, s = 2, 4, k2.MAX_STATES_GENERAL + 1
+    z = torch.zeros
+    args = (z(n, s, device=dev), z(s, s, device=dev), z(n, s, device=dev),
+            z(n, s, device=dev), z(n, ts, s, device=dev),
+            torch.full((n,), ts, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="160"):
+        k2.hmm_estep(*args)
+    with pytest.raises(ValueError, match="160"):
+        k3.viterbi(*args)
+
+
+def test_general_route_matches_plain_em(dev):
+    """S=128 discrete EM through K1 + K4 against the plain dense route."""
+    corpus, params, _, _ = _inputs("S128", dev)
+    before = k2.hmm_estep.launches
+    p_k, lls_k = hmm.train(params, corpus, 2, use_kernels=True)
+    assert k2.hmm_estep.launches == before + 2
+    p_p, lls_p = hmm.train(params, corpus, 2, use_kernels=False)
+    torch.testing.assert_close(lls_k, lls_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(p_k.log_emit, p_p.log_emit, rtol=1e-3, atol=1e-3)
+
+
+def test_gaussian_kernel_route_matches_plain(dev):
+    """Annealed Gaussian EM and decode through K4 and K3 against the plain
+    path on the card."""
+    pc, pg, _ = make_flickr8k_mini(n_utterances=40, seed=23)
+    fc, fg, _ = phones_to_frames(pc, pg, feat_dim=12, noise=0.1, seed=23, device=dev)
+    p0 = hmm_gaussian.init_diagonal(fc, generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for use_kernels in (True, False):
+        p, lls = hmm_gaussian.train(p0, fc, 4, use_kernels=use_kernels, anneal=(0.25, 2))
+        runs[use_kernels] = (lls, hmm_gaussian.align(p, fc, use_kernels=use_kernels))
+    torch.testing.assert_close(runs[True][0], runs[False][0], rtol=1e-4, atol=0)
+    same = (runs[True][1] == runs[False][1])[fc.src_mask()].float().mean()
+    assert same >= 0.99

@@ -1,11 +1,12 @@
-"""K2's plain version and the plain E-step vs the JAX reference.
+"""K2's and K4's plain versions and the plain E-step vs the JAX reference.
 
 The same corpus (numpy generator, fixed seed, padded with zero-length
 utterances) and the same parameters (one JAX EM step from init, carried
-across with ``params_from_numpy``) go through the JAX fused Pallas pipeline
-in interpret mode, the JAX scan E-step, and the port.  Tolerances are the
+across with ``params_from_numpy``) go through the JAX Pallas kernels in
+interpret mode, the JAX scan E-step, and the port.  Tolerances are the
 reference's own (tests/test_hmm_estep_pallas.py): logZ rtol/atol 1e-4,
-counts atol 1e-4 x scale, widths rtol 1e-4 atol 1e-3, loglik rtol 1e-6.
+counts atol 1e-4 x scale, widths rtol 1e-4 atol 1e-3, loglik rtol 1e-6;
+for K4's gamma rtol 1e-3 atol 1e-4 and xi rtol 1e-3 atol 1e-3 (:74-80).
 """
 
 import numpy as np
@@ -27,12 +28,14 @@ CASES = {
     "S40": dict(n_utterances=8, n_concepts=200, min_concepts=17,
                 max_concepts=20, min_word_len=2, max_word_len=3, seed=21),
 }
+# K4 also runs outside K2's gate: S=128 is the discrete route's general case
+K4_CASES = dict(CASES, S128=dict(n_utterances=4, n_concepts=200, min_concepts=62,
+                                 max_concepts=64, min_word_len=2, max_word_len=3,
+                                 seed=21))
 N_EMPTY = 3
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def case(request):
-    kw = CASES[request.param]
+def _case(kw):
     jc, _, _ = jax_make(**kw)
     tc, _, _ = torch_make(**kw)
     jc, tc = jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
@@ -42,6 +45,16 @@ def case(request):
         jp.max_jump,
     )
     return jc, jp, tc, tp
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    return _case(CASES[request.param])
+
+
+@pytest.fixture(scope="module", params=sorted(K4_CASES))
+def k4_case(request):
+    return _case(K4_CASES[request.param])
 
 
 def _factored(tc, tp):
@@ -176,3 +189,51 @@ def test_forward_backward_match_jax(case):
     np.testing.assert_allclose(z.numpy(), np.asarray(z_w), rtol=1e-5, atol=1e-4)
     valid = np.asarray(b_w) > NEG_INF / 2
     np.testing.assert_allclose(b.numpy()[valid], np.asarray(b_w)[valid], rtol=1e-5, atol=1e-3)
+
+
+def test_plain_k4_matches_pallas_estep(k4_case):
+    """K4's plain version against the reference's general E-step kernel
+    (hmm_estep_pallas, interpret mode) at S=8, S=40 and S=128."""
+    jc, jp, tc, tp = k4_case
+    j_init = jcore.build_log_init(jp.log_p0, jc)
+    j_base, j_rowz, j_colmask = jcore.factor_log_trans(jp.log_jump, jp.log_p0, jc, jp.max_jump)
+    g_w, xi_w, logz_w = hmm_estep_pallas(
+        j_init, j_base, j_rowz, j_colmask, jhmm._log_emissions(jp, jc), jc.src_len,
+        interpret=True,
+    )
+    log_init, base, rowz, colmask = _factored(tc, tp)
+    before = k2.hmm_estep.launches
+    gamma, xi, logz = k2.hmm_estep(
+        log_init, base, rowz, colmask, thmm._log_emissions(tp, tc), tc.src_len
+    )
+    assert k2.hmm_estep.launches == before  # CPU tensors take the plain version
+    assert gamma.shape == (tc.n, tc.max_src_len, 2 * tc.max_trg_len)
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_w), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(logz.sum()), float(np.asarray(logz_w).sum()), rtol=1e-6)
+    np.testing.assert_allclose(gamma.numpy(), np.asarray(g_w), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(xi.numpy(), np.asarray(xi_w), rtol=1e-3, atol=1e-3)
+    assert torch.all(logz[-N_EMPTY:] == 0) and torch.all(gamma[-N_EMPTY:] == 0)
+
+
+def test_kernel_route_estep_matches_jax_scan_estep(k4_case):
+    """hmm_core.estep(use_kernels=True) -- K4's plain version on the CPU --
+    against the reference's scan E-step: gamma, jump widths and logZ."""
+    jc, jp, tc, tp = k4_case
+    g_w, wc_w, logz_w = jcore.estep(
+        jp.log_jump, jp.log_p0, jp.max_jump, jhmm._log_emissions(jp, jc), jc
+    )
+    g, wc, logz = tcore.estep(
+        tp.log_jump, tp.log_p0, tp.max_jump, thmm._log_emissions(tp, tc), tc,
+        use_kernels=True,
+    )
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_w), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_w), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(wc.numpy(), np.asarray(wc_w), rtol=1e-4, atol=1e-3)
+
+
+def test_posteriors_match_jax(k4_case):
+    jc, jp, tc, tp = k4_case
+    np.testing.assert_allclose(
+        thmm.posteriors(tp, tc).numpy(), np.asarray(jhmm.posteriors(jp, jc)),
+        rtol=1e-3, atol=1e-5,
+    )

@@ -36,13 +36,17 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.data.synthetic",
     "multimodalworddiscovery_tpu_torch.eval",
     "multimodalworddiscovery_tpu_torch.eval.metrics",
+    "multimodalworddiscovery_tpu_torch.frontend",
+    "multimodalworddiscovery_tpu_torch.frontend.vq",
     "multimodalworddiscovery_tpu_torch.models",
     "multimodalworddiscovery_tpu_torch.models.hmm",
     "multimodalworddiscovery_tpu_torch.models.hmm_core",
+    "multimodalworddiscovery_tpu_torch.models.hmm_gaussian",
     "multimodalworddiscovery_tpu_torch.ops",
     "multimodalworddiscovery_tpu_torch.ops._build",
     "multimodalworddiscovery_tpu_torch.ops.counts",
     "multimodalworddiscovery_tpu_torch.ops.hmm_fwdbwd",
+    "multimodalworddiscovery_tpu_torch.ops.viterbi",
     "multimodalworddiscovery_tpu_torch.segment",
     "chip_smoke",
 ]
@@ -158,27 +162,28 @@ def test_chip_smoke_refuses_without_gpu():
 
 def test_estep_route_gate():
     route = thmm.estep_route
-    assert route(12, 49, 61, False, "float32", "cuda") == "plain"
-    assert route(12, 49, 61, True, "float32", "cuda") == "fused"
-    assert route(64, 128, 256, True, "float32", "cuda") == "fused"
-    assert route(12, 49, 61, True, "float32", "cpu") == "fused"
-    # outside the gate: K4's plain version on the CPU, NotImplementedError on CUDA
-    assert route(66, 49, 61, True, "float32", "cpu") == "plain"
+    assert route(12, 49, 61, False, "float32") == "plain"
+    assert route(12, 49, 61, True, "float32") == "fused"
+    assert route(64, 128, 256, True, "float32") == "fused"
+    # outside the fused gate: K1 then K4, the general E-step kernel
     for s, v_src, v_trg in ((66, 49, 61), (12, 129, 61), (12, 49, 257)):
-        with pytest.raises(NotImplementedError, match="K4"):
-            route(s, v_src, v_trg, True, "float32", "cuda")
-    for dev in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            route(12, 49, 61, True, "bfloat16", dev)
-    assert route(12, 49, 61, False, "bfloat16", "cuda") == "plain"
+        assert route(s, v_src, v_trg, True, "float32") == "general"
+    with pytest.raises(NotImplementedError, match="bf16"):
+        route(12, 49, 61, True, "bfloat16")
+    assert route(12, 49, 61, False, "bfloat16") == "plain"
 
 
 def test_expected_counts_cpu_outside_gate_uses_plain_estep():
+    """Outside the fused gate a CPU corpus runs K4's plain version; it agrees
+    with the dense plain E-step within the reference's tolerances (counts
+    atol 1e-4 x scale, loglik rtol 1e-6, widths rtol 1e-4 atol 1e-3)."""
     corpus, _, _ = torch_make(n_utterances=6, n_concepts=200, min_concepts=33,
                               max_concepts=34, min_word_len=2, max_word_len=2, seed=1)
     assert 2 * corpus.max_trg_len > 64
     params = thmm.init(corpus)
     (ec, wc), ll = thmm.expected_counts(params, corpus, use_kernels=True)
     (ec_p, wc_p), ll_p = thmm.expected_counts(params, corpus, use_kernels=False)
-    torch.testing.assert_close(ec, ec_p)
-    torch.testing.assert_close(ll, ll_p)
+    scale = max(float(ec_p.max()), 1.0)
+    torch.testing.assert_close(ec, ec_p, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(wc, wc_p, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(ll, ll_p, rtol=1e-6, atol=0)
