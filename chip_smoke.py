@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives three paths once through the
+shapes the main paths give it, then drives four paths once through the
 kernels and once through the plain path on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
@@ -20,16 +20,26 @@ kernels and once through the plain path on the same card:
    and to that of K4's plain version in the kernel route;
 3. the stretch recipe as users run it: VQ teacher (k-means codebook, then
    discrete-HMM EM through K1 + K2), annealed Gaussian EM (K=2) through K4,
-   decode through K3, alignment and boundary F1.
+   decode through K3, alignment and boundary F1;
+4. config #4's waveform pipeline (``scripts/run_pipeline.run_pipeline`` at
+   N=2000 utterances, 12 EM iterations): synthetic waveforms, MFCCs
+   through K5, Gaussian EM (K=2) through K4, decode through K3,
+   segmentation, alignment P/R/F1 against the JAX reference's value for the
+   same initial parameters, word IoU, boundary F1 and purity.
 
 K1 and K2 are checked at the headline shape, at K2's gate edge and at the
 VQ teacher's shape (the recipe's code corpus: N=4000, Ts=401, S=64,
 V_src=64), where the teacher's EM trajectory is also held against the
-plain path's.
+plain path's.  K5 is checked at the pipeline's batch (N=2000 waveforms of
+28,160 samples, plus waveforms of 0, 399, 400 and 401 samples), for MFCCs
+and log-mels, and on 1000 frames; the ``extract_features speech`` command
+runs once on a small .npz under ``build/``.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after.  It then times kernels and paths against their plain versions with
-CUDA events and profiles one Gaussian EM iteration.
+CUDA events, computes each timed kernel call's bound (bytes over the
+memory rate or operations over the float32 rate), and profiles one
+Gaussian EM iteration and the waveform pipeline after synthesis.
 
 Exits nonzero, printing no result, when there is no CUDA device or any
 check fails.  On success the next-to-last line is a JSON object describing
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -73,6 +84,24 @@ REFERENCE_F1 = 0.9396
 # hmm_gaussian.align, on the CPU (P 0.42275, R 0.37392)
 REFERENCE_GAUSS_F1 = 0.3968
 REFERENCE_GAUSS_LL = -37503604.5  # its loglik at the 10th iteration
+PIPELINE_N = 2000  # configs/pipeline_full.py:19
+PIPELINE_ITERS = 12  # scripts/run_pipeline.py:30
+# alignment F1 of the JAX reference for the waveform pipeline: the JAX
+# package's steps of scripts/run_pipeline.py (features from its K5,
+# extract_pallas in interpret mode), started from the port's initial
+# parameters (run_pipeline.init_params on those features, CPU generator
+# with seed 0) carried across as numpy arrays, on the CPU:
+# tests/pipeline_reference.py --utterances 2000 --iters 12 (P 0.77181,
+# R 0.59372)
+REFERENCE_PIPELINE_F1 = 0.6711
+REFERENCE_PIPELINE_LL = -4057964.25  # its loglik at the 12th iteration
+EDGE_WAV_LENS = (0, 399, 400, 401)  # samples: 0, 0, 1 and 1 frames
+MFCC_TOL = dict(rtol=1e-3, atol=2e-3)  # K5's bound, tests/test_mfcc_pallas.py:33
+# one NVIDIA H100 SXM at its full 700 W (data sheet, dense rates): device
+# memory rate, and the float32 rate outside the tensor cores (every kernel
+# here computes in float32 FMAs)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 # the JAX package's documented F1 of the stretch recipe at N=4000
 # (docs/PERFORMANCE.md:457-461); it draws other random numbers, so only
 # printed beside this run's value
@@ -131,6 +160,43 @@ def _reset(*wrappers) -> None:
         w.launches = 0
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _recursion_ops(src_len, s: int, per_step: int) -> float:
+    """Operations of an HMM recursion over this batch's valid time steps:
+    ``per_step`` x S^2 per utterance-step (the E-step's forward product,
+    backward product and xi accumulation are 2 + 2 + 3; Viterbi's add and
+    max are 2)."""
+    return float(per_step * s * s * int(src_len.sum()))
+
+
+def _mfcc_ops(cfg, kind: str, n_frames: int, n_samples: int) -> float:
+    """Operations the MFCC function needs, with its DFT counted as a real
+    FFT (2.5 n log2(n) / 2 for n = n_fft; K5's direct DFT does about 20x
+    more): pre-emphasis (2 a sample), the window (1 a frame sample), the
+    FFT, power (3 a bin), the mel sums over each filter's nonzero bins (2 a
+    weight), the log, and the DCT."""
+    from multimodalworddiscovery_tpu_torch.frontend import speech
+
+    n_bins = cfg.n_fft // 2 + 1
+    fft = 2.5 * cfg.n_fft * math.log2(cfg.n_fft) / 2
+    weights = int((speech.mel_filterbank(cfg) != 0).sum())
+    dct = 2 * cfg.n_mels * cfg.n_mfcc if kind == "mfcc" else 0
+    per_frame = cfg.win_length + fft + 3 * n_bins + 2 * weights + cfg.n_mels + dct
+    return float(per_frame * n_frames + 2 * n_samples)
+
+
 def _estep_inputs(params, corpus):
     """(state concepts, (log_init, base, rowz, colmask)) for the E-step."""
     from multimodalworddiscovery_tpu_torch.models import hmm_core
@@ -156,7 +222,7 @@ def parity(name, corpus, max_jump: int = 3) -> dict:
 
     corpus = corpus.pad_to(corpus.n + ZERO_LENGTH_PAD)
     params = hmm.init(corpus, max_jump=max_jump)
-    params, _ = hmm.em_step(params, corpus)  # non-uniform parameters
+    params, _ = hmm.em_step(params, corpus, use_kernels=False)  # non-uniform parameters
     v_src, v_trg = params.log_emit.shape
     concepts, (log_init, base, rowz, colmask) = _estep_inputs(params, corpus)
     n, ts, s = corpus.n, corpus.max_src_len, concepts.shape[1]
@@ -189,7 +255,7 @@ def parity(name, corpus, max_jump: int = 3) -> dict:
     # and against the dense plain E-step (the use_kernels=False route)
     gamma, wc_d, logz_d = hmm_core.estep(
         params.log_jump, params.log_p0, params.max_jump,
-        hmm._log_emissions(params, corpus, concepts), corpus,
+        hmm._log_emissions(params, corpus, concepts), corpus, use_kernels=False,
     )
     counts_d = pair_counts(gamma, corpus.src, concepts, v_src, v_trg)
     wc = hmm_core.project_widths(xi, corpus.max_trg_len, params.max_jump)
@@ -225,10 +291,11 @@ def k4_parity(name, inputs, reps: int) -> dict:
     _check(abs(ll - ll_p) <= 1e-6 * abs(ll_p), f"K4 total loglik rtol 1e-6 ({ll} vs {ll_p})")
     _check(torch.allclose(gamma, gamma_p, rtol=1e-3, atol=1e-4), "K4 gamma rtol 1e-3 atol 1e-4")
     _check(torch.allclose(xi, xi_p, rtol=1e-3, atol=1e-3), "K4 xi rtol 1e-3 atol 1e-3")
+    bound = _bound(_nbytes(*inputs, gamma, xi, logz), _recursion_ops(inputs[5], s, 7))
     del gamma, gamma_p
     ms = _gpu_ms(lambda: k4.hmm_estep(*inputs), reps)
     plain_ms = _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), max(reps // 10, 1))
-    return {"err": max(errs.values()), "ms": ms, "plain_ms": plain_ms}
+    return {"err": max(errs.values()), "ms": ms, "plain_ms": plain_ms} | bound
 
 
 def k3_parity(name, inputs, reps: int) -> dict:
@@ -254,7 +321,8 @@ def k3_parity(name, inputs, reps: int) -> dict:
     _check(torch.allclose(score, score_p, rtol=1e-5, atol=1e-3), "K3 path scores rtol 1e-5 atol 1e-3")
     ms = _gpu_ms(lambda: k3.viterbi(*inputs), reps)
     plain_ms = _gpu_ms(lambda: k3.viterbi_plain(*inputs), max(reps // 10, 1))
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    return ({"err": err, "ms": ms, "plain_ms": plain_ms}
+            | _bound(_nbytes(*inputs, path), _recursion_ops(src_len, s, 2)))
 
 
 def teacher_phase(fc, card: str) -> dict:
@@ -362,24 +430,24 @@ def gaussian_path(corpus, gold, params, use_kernels: bool):
     }
 
 
-def _profile_gaussian_em(params, corpus, card: str) -> None:
-    """Device time by kernel family and device idle share of one Gaussian
-    EM iteration through the kernels (torch.profiler)."""
+def _profile(fn, what: str, card: str) -> None:
+    """Device time by kernel family and device idle share of ``fn()``
+    (torch.profiler), after one run outside the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from multimodalworddiscovery_tpu_torch.models import hmm_gaussian
-
-    hmm_gaussian.em_step(params, corpus, use_kernels=True)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        hmm_gaussian.em_step(params, corpus, use_kernels=True)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"K4 forward": ("mwd_hmm_fwd",), "K4 backward": ("mwd_hmm_bwd",),
-                "matmul": ("gemm", "cutlass", "xmma"), "softmax": ("softmax",),
-                "reductions": ("reduce",), "elementwise": ("elementwise", "vectorized")}
+    families = {"K5 mfcc": ("mwd_mfcc",), "K4 forward": ("mwd_hmm_fwd",),
+                "K4 backward": ("mwd_hmm_bwd",), "K3 viterbi": ("mwd_viterbi",),
+                "fft": ("fft",), "matmul": ("gemm", "cutlass", "xmma"),
+                "softmax": ("softmax",), "reductions": ("reduce",),
+                "elementwise": ("elementwise", "vectorized")}
     sums = {k: 0.0 for k in (*families, "other")}
     busy, kernels = 0.0, 0
     for e in prof.key_averages():
@@ -392,19 +460,167 @@ def _profile_gaussian_em(params, corpus, card: str) -> None:
         fam = next((f for f, tags in families.items() if any(t in key for t in tags)), "other")
         sums[fam] += ms
     if busy == 0.0:
-        print(f"  [{card}] profile of one Gaussian EM iteration: no device time in the "
-              f"trace (not measured)")
+        print(f"  [{card}] profile of {what}: no device time in the trace (not measured)")
         return
-    print(f"  [{card}] profile of one Gaussian EM iteration (kernel path, profiler on): "
+    print(f"  [{card}] profile of {what} (kernel path, profiler on): "
           f"wall {wall_ms:.4f} ms, device busy {busy:.4f} ms in {kernels} kernels, "
           f"idle share {1 - busy / wall_ms:.4f}")
     for fam, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
-        print(f"    {fam}: {ms:.4f} ms ({ms / busy:.4f} of busy)")
+        if ms > 0:
+            print(f"    {fam}: {ms:.4f} ms ({ms / busy:.4f} of busy)")
     top = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"    top kernel: {e.self_device_time_total / 1e3:.4f} ms x{e.count} {e.key[:90]}")
+
+
+def k5_phase(card: str, synth) -> dict:
+    """K5 against its plain version on the card at the pipeline's batch
+    (``synth``, from ``run_pipeline.synthesize``, with the edge waveforms
+    appended), for MFCCs and log-mels, and on 1000 frames (not a multiple
+    of the kernel's 64-frame tile); then both timed at the pipeline's batch,
+    and the bound of that call."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.frontend import speech
+    from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
+    from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
+
+    dev = torch.device("cuda", 0)
+    cfg = rp.MFCC
+    _, _, wavs, lens = synth
+    rng = np.random.default_rng(SEED)
+    extra = np.zeros((len(EDGE_WAV_LENS), wavs.shape[1]), np.float32)
+    for i, n in enumerate(EDGE_WAV_LENS):
+        extra[i, :n] = 0.3 * rng.standard_normal(n)
+    wav = torch.as_tensor(np.concatenate([wavs, extra]), device=dev)
+    wav_len = torch.as_tensor(np.concatenate([lens, np.asarray(EDGE_WAV_LENS, np.int32)]),
+                              device=dev)
+    print(f"K5 parity at the pipeline's batch: N={PIPELINE_N} + {len(EDGE_WAV_LENS)} "
+          f"waveforms of {EDGE_WAV_LENS} samples, L={wav.shape[1]}, "
+          f"F={speech.num_frames(wav.shape[1], cfg)}")
+    errs = {}
+    for kind in speech.KINDS:
+        got, fl = k5.extract(wav, wav_len, cfg, kind)
+        want, fl_p = k5.extract_plain(wav, wav_len, cfg, kind)
+        torch.cuda.synchronize()
+        _check(torch.equal(fl, fl_p) and fl[-len(EDGE_WAV_LENS):].tolist() == [0, 0, 1, 1],
+               f"K5 {kind}: frame lengths equal to the plain version's, 0 0 1 1 at the edges")
+        valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+        errs[kind] = _max_abs(got[valid], want[valid])
+        _check(torch.allclose(got[valid], want[valid], **MFCC_TOL),
+               f"K5 {kind} {tuple(got.shape)}: valid frames within rtol 1e-3 atol 2e-3 of "
+               f"plain (max abs err {errs[kind]})")
+        del got, want
+    pre = speech.preemphasize(wav[:6], cfg.preemphasis)
+    frames = speech.frame_signal(pre, cfg).reshape(-1, cfg.win_length)[:1000].contiguous()
+    for kind in speech.KINDS:
+        got = k5.mfcc_from_frames(frames, cfg, kind)
+        want = k5.mfcc_from_frames_plain(frames, cfg, kind)
+        err = _max_abs(got, want)
+        errs[f"frames {kind}"] = err
+        _check(torch.allclose(got, want, **MFCC_TOL),
+               f"K5 mfcc_from_frames {kind} at M=1000: within rtol 1e-3 atol 2e-3 of plain "
+               f"(max abs err {err})")
+
+    wav, wav_len = wav[:PIPELINE_N], wav_len[:PIPELINE_N]
+    feats, fl = k5.extract(wav, wav_len, cfg)
+    r = {"err": max(errs.values()),
+         "ms": _gpu_ms(lambda: k5.extract(wav, wav_len, cfg), 10),
+         "plain_ms": _gpu_ms(lambda: k5.extract_plain(wav, wav_len, cfg), 3)}
+    r |= _bound(_nbytes(wav, wav_len, feats, fl),
+                _mfcc_ops(cfg, "mfcc", feats.shape[0] * feats.shape[1], wav.numel()))
+    m = feats.shape[0] * feats.shape[1]
+    print(f"  [{card}] K5 extract at N={PIPELINE_N}, L={wav.shape[1]} ({m} frames, mfcc): "
+          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+          f"ms ({r['bound_by']})")
+    return r
+
+
+def pipeline_phase(card: str, counters, synth) -> dict:
+    """Path 4: run_pipeline at full width on the synthesized corpus
+    ``synth`` through the kernels (the default on the card) and through the
+    plain path; then the device part of the kernel path profiled."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
+
+    runs = {}
+    for use_kernels in (None, False):
+        _reset(*counters)
+        out = rp.run_pipeline(n_utterances=PIPELINE_N, iters=PIPELINE_ITERS, device="cuda",
+                              use_kernels=use_kernels, data=synth)
+        out["launches"] = {w.__name__: w.launches for w in counters}
+        runs["kernel" if use_kernels is None else "plain"] = out
+    k, p = runs["kernel"], runs["plain"]
+    print(f"waveform pipeline: shape {k['shape']}, {PIPELINE_ITERS} EM iterations")
+    for name, r in runs.items():
+        print(f"  {name} path loglik per iteration: {r['loglik']}")
+        print(f"  {name} path alignment {r['alignment']}, word IoU {r['word_iou']}, "
+              f"boundary {r['boundary']}, purity {r['purity']}")
+        print(f"  [{card}] {name} path stage ms (host clock, each stage ends in a "
+              f"synchronize): {r['stage_ms']}")
+    launches = k["launches"]
+    print(f"  kernel launches on the waveform pipeline path: {launches}")
+    _check(launches["extract"] >= 1 and launches["hmm_estep"] == PIPELINE_ITERS
+           and launches["viterbi"] >= 1,
+           "K5 launched, K4 once per EM iteration and K3 on the pipeline path")
+    _check(not any(p["launches"].values()), "no kernel launched on the plain path")
+    lw = np.asarray(k["loglik"])
+    _check(bool(np.all(np.isfinite(lw))) and lw[-1] > lw[0], "pipeline loglik finite, improving")
+    ll, ll_p = float(lw[-1]), float(p["loglik"][-1])
+    _check(abs(ll - ll_p) <= 1e-3 * abs(ll_p),
+           f"pipeline final loglik within rtol 1e-3 of plain ({ll} vs {ll_p}, rel "
+           f"{(ll - ll_p) / abs(ll_p):+.3e}; JAX reference {REFERENCE_PIPELINE_LL})")
+    f1, f1_p = k["alignment"]["f1"], p["alignment"]["f1"]
+    _check(abs(f1 - f1_p) <= 0.002, f"pipeline F1 within 0.002 of plain ({f1:.5f} vs {f1_p:.5f})")
+    _check(abs(f1 - REFERENCE_PIPELINE_F1) <= 0.005,
+           f"pipeline F1 within 0.005 of the JAX reference {REFERENCE_PIPELINE_F1} ({f1:.5f})")
+
+    phone_corpus, gold, wavs, wav_lens = synth
+    wav, wav_len = torch.as_tensor(wavs, device="cuda"), torch.as_tensor(wav_lens, device="cuda")
+
+    def after_synthesis():
+        feats, frame_lens = rp.frontend(wav, wav_len)
+        rp.fit_and_score(feats, frame_lens, phone_corpus, gold, PIPELINE_ITERS)
+
+    _profile(after_synthesis, f"the waveform pipeline after synthesis (frontend, "
+                              f"{PIPELINE_ITERS} EM iterations, decode, metrics)", card)
+    return k
+
+
+def extract_features_phase(here: str) -> None:
+    """``extract_features speech`` on the card: ragged waveforms in an .npz
+    under build/, features back in an .npz, against the plain version on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.frontend import speech
+    from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
+    from multimodalworddiscovery_tpu_torch.scripts import extract_features
+
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    wavs = {f"arr_{i}": (0.2 * rng.standard_normal(n)).astype(np.float32)
+            for i, n in enumerate((16000, 399, 401, 5000, 28160))}
+    src, dst = os.path.join(out_dir, "wavs.npz"), os.path.join(out_dir, "feats.npz")
+    np.savez(src, **wavs)
+    before = k5.extract.launches
+    extract_features.main(["speech", "--input", src, "--output", dst, "--batch-size", "2"])
+    _check(k5.extract.launches == before + 3, "extract_features speech: 3 batches through K5")
+    cfg = speech.MfccConfig()
+    with np.load(dst) as z:
+        _check(sorted(z.files) == sorted(wavs), "extract_features speech: one entry per input")
+        for key, w in wavs.items():
+            want = speech.extract(torch.as_tensor(w[None]), None, cfg)[0][0].numpy()
+            _check(z[key].shape == want.shape and np.allclose(z[key], want, **MFCC_TOL),
+                   f"extract_features speech {key}: {z[key].shape} within rtol 1e-3 atol 2e-3 "
+                   f"of the plain version on the CPU")
 
 
 def main() -> int:
@@ -429,6 +645,7 @@ def main() -> int:
     from multimodalworddiscovery_tpu_torch.ops import _build
     from multimodalworddiscovery_tpu_torch.ops import counts as k1
     from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
+    from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
     from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
 
     t_start = time.perf_counter()
@@ -442,16 +659,17 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
-    kernels_all = (k1.table_lookup, k24.hmm_estep_counts, k24.hmm_estep, k3.viterbi)
+    kernels_all = (k1.table_lookup, k24.hmm_estep_counts, k24.hmm_estep, k3.viterbi,
+                   k5.extract, k5.mfcc_from_frames)
 
     def elapsed() -> str:
         return f"[{time.perf_counter() - t_start:.1f} s]"
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    libs = _build.build()
     _build.load()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(lib_path, here)}")
+          f"{', '.join(os.path.relpath(p, here) for p in libs)}")
     print(_run([_build.find_nvcc(), "--version"]).splitlines()[-1])
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -518,14 +736,25 @@ def main() -> int:
             corpus.src_len, corpus.src_vocab, corpus.trg_vocab)
     k1_ms = _gpu_ms(lambda: k1.table_lookup(params.log_emit, corpus.src, concepts), 50)
     k1_plain_ms = _gpu_ms(lambda: k1.table_lookup_plain(params.log_emit, corpus.src, concepts), 50)
+    # the one PyTorch call that computes K1's gather (without its masking
+    # of padded states); timed only, the port never calls it
+    k1_library_ms = _gpu_ms(lambda: params.log_emit[corpus.src[..., None],
+                                                    concepts[:, None, :]], 50)
+    k1_bound = _bound(_nbytes(params.log_emit, corpus.src, concepts, emit), 0)
     k2_ms = _gpu_ms(lambda: k24.hmm_estep_counts(*args), 20)
     k2_plain_ms = _gpu_ms(lambda: k24.hmm_estep_counts_plain(*args), 5)
-    print(f"  [{card}] K1 table_lookup: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
-    print(f"  [{card}] K2 hmm_estep_counts: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
+    k2_bound = _bound(_nbytes(*args[:8], *k24.hmm_estep_counts(*args)),
+                      _recursion_ops(corpus.src_len, concepts.shape[1], 7))
+    print(f"  [{card}] K1 table_lookup: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
+          f"library gather {k1_library_ms:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms "
+          f"({k1_bound['bound_by']})")
+    print(f"  [{card}] K2 hmm_estep_counts: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, "
+          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
     k3_s12 = k3_parity("headline shape (S=12)", (log_init, base, rowz, colmask, emit,
                                                  corpus.src_len), 20)
     print(f"  [{card}] K3 viterbi at S=12: kernel {k3_s12['ms']:.4f} ms, "
-          f"plain {k3_s12['plain_ms']:.4f} ms")
+          f"plain {k3_s12['plain_ms']:.4f} ms, bound {k3_s12['bound_ms']:.4f} ms "
+          f"({k3_s12['bound_by']})")
     del corpus, kern, plain, emit, args
     print(elapsed())
 
@@ -561,7 +790,8 @@ def main() -> int:
     k3_128 = k3_parity("discrete route outside the gate (S=128)", inputs128, 10)
     for name, r in (("K4 hmm_estep at S=64", k4_stretch), ("K4 hmm_estep at S=128", k4_128),
                     ("K3 viterbi at S=64", k3_stretch), ("K3 viterbi at S=128", k3_128)):
-        print(f"  [{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print(f"  [{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     del c128, inputs128
     print(elapsed())
 
@@ -609,7 +839,7 @@ def main() -> int:
     # 1e-4 below the dense route (PERF.md, Findings), so the bounds are
     # rtol 1e-3 and kernel against dense plain is printed, not held.
     fc64 = dataclasses.replace(fc, src=fc.src.double())
-    ll64 = hmm_gaussian.train(_as_float64(p_diag), fc64, EM_ITERS,
+    ll64 = hmm_gaussian.train(_as_float64(p_diag), fc64, EM_ITERS, use_kernels=False,
                               anneal=ANNEAL)[1].cpu().numpy()
     del fc64
     with mock.patch.object(k24, "hmm_estep", k24.hmm_estep_plain):
@@ -651,7 +881,8 @@ def main() -> int:
     }, reps=2, rounds=2)
     print(f"  [{card}] Gaussian decode (align, stretch shape) ms, median of 4 runs: "
           f"through K3 {dec['kernels']:.4f}, plain decoder {dec['plain']:.4f}")
-    _profile_gaussian_em(p_fit, fc, card)
+    _profile(lambda: hmm_gaussian.em_step(p_fit, fc, use_kernels=True),
+             "one Gaussian EM iteration", card)
     del g_kern, g_plain, p_fit
     print(elapsed())
 
@@ -694,34 +925,60 @@ def main() -> int:
                        f"{DOCUMENTED_RECIPE_F1} for this config at N=4000)")
     print(f"  recipe boundary F1 (tolerance 1): kernel path {r_k['boundary']['f1']:.4f}, "
           f"plain path {r_p['boundary']['f1']:.4f}")
+    del fc, fg, recipe, r_k, r_p
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- K5 parity and times at the pipeline's batch (one synthesis, used
+    # by K5's phase and path 4) ---
+    from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
+
+    synth = rp.synthesize(PIPELINE_N, dev)
+    print(f"pipeline corpus synthesized {elapsed()}")
+    k5_r = k5_phase(card, synth)
+    print(elapsed())
+
+    # --- path 4: the waveform pipeline, kernels then plain ---
+    pipe = pipeline_phase(card, kernels_all, synth)["launches"]
+    extract_features_phase(here)
     print(elapsed())
 
     launches = {name: launches_headline[name] + launches_gauss[name] + teach[name]
-                + gauss[name] for name in launches_headline}
-    print(f"kernel launches, summed over the three paths' kernel runs: {launches}")
+                + gauss[name] + pipe[name] for name in launches_headline}
+    print(f"kernel launches, summed over the four paths' kernel runs: {launches}")
     kernels = [
         {"name": "table_lookup", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/counts.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/counts_pallas.py:92",
          "launches": launches["table_lookup"],
          "max_abs_err": max(errs["k1_err"], teacher["k1_err"]),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, **k1_bound, "library_ms": k1_library_ms},
         {"name": "hmm_estep_counts", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:758",
          "launches": launches["hmm_estep_counts"],
          "max_abs_err": max(errs["k2_err"], teacher["k2_err"]),
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None},
         {"name": "viterbi", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/viterbi.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/viterbi_pallas.py:162",
          "launches": launches["viterbi"], "max_abs_err": k3_stretch["err"],
-         "ms": k3_stretch["ms"], "plain_ms": k3_stretch["plain_ms"]},
+         "ms": k3_stretch["ms"], "plain_ms": k3_stretch["plain_ms"],
+         "bound_ms": k3_stretch["bound_ms"], "bound_by": k3_stretch["bound_by"],
+         "library_ms": None},
         {"name": "hmm_estep", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",
          "launches": launches["hmm_estep"], "max_abs_err": k4_stretch["err"],
-         "ms": k4_stretch["ms"], "plain_ms": k4_stretch["plain_ms"]},
+         "ms": k4_stretch["ms"], "plain_ms": k4_stretch["plain_ms"],
+         "bound_ms": k4_stretch["bound_ms"], "bound_by": k4_stretch["bound_by"],
+         "library_ms": None},
+        {"name": "mfcc", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/mfcc.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/mfcc_pallas.py:93",
+         "launches": launches["extract"] + launches["mfcc_from_frames"],
+         "max_abs_err": k5_r["err"], "ms": k5_r["ms"], "plain_ms": k5_r["plain_ms"],
+         "bound_ms": k5_r["bound_ms"], "bound_by": k5_r["bound_by"], "library_ms": None},
     ]
     print(f"total {elapsed()}")
     print(json.dumps({"kernels": kernels}))

@@ -10,19 +10,28 @@ version beside it in the same ``ops`` module.
 This package imports torch, numpy and the standard library only — never
 jax, flax, optax, orbax or the reference package.
 
+Entry points that build tensors put them on ``device="cuda"`` unless the
+caller names another device, and model entry points take
+``use_kernels=None``: the kernels on a CUDA corpus, their plain versions on
+a CPU corpus.
+
 Ported so far (slice 1, the headline discrete-HMM path; slice 2, the
-Gaussian-HMM aligner of the stretch config):
+Gaussian-HMM aligner of the stretch config; slice 3, the speech frontend
+and config #4's waveform pipeline):
 
 core      NEG_INF log-semiring helpers, masking, gather/scatter counts
 data      torch ``Corpus`` (ids or frames), ``GoldAnnotations``,
-          ``make_flickr8k_mini``, ``phones_to_frames``
-ops       K1 emission lookup, K2 fused E-step, K4 general E-step and K3
-          Viterbi decode (CUDA) + plain versions
+          ``make_flickr8k_mini``, ``phones_to_frames``, the waveform
+          synthesizers and ``expand_gold_to_frames``
+ops       K1 emission lookup, K2 fused E-step, K4 general E-step, K3
+          Viterbi decode and K5 fused MFCC (CUDA) + plain versions
 models    hmm_core (state space, fwd/bwd, Viterbi), hmm (discrete EM,
           align) and hmm_gaussian (GMM emissions, VQ teacher, annealed EM)
-frontend  vq (k-means frame quantizer)
+frontend  speech (MFCC / log-mel, deltas, CMVN), vq (k-means quantizer)
 segment   alignment -> word units, boundaries
 eval      alignment, word IoU, boundary, purity and NMI metrics
+scripts   run_pipeline (config #4), extract_features (speech)
+utils     audio (WAV read and write)
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,22 @@
-"""Data layer: torch corpus and the synthetic flickr8k-mini generator."""
+"""Data layer: torch corpus and the synthetic flickr8k-mini generators."""
 
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus, GoldAnnotations
 from multimodalworddiscovery_tpu_torch.data.synthetic import (
+    expand_gold_to_frames,
     make_flickr8k_mini,
+    phone_templates,
     phones_to_frames,
+    phones_to_waveforms,
+    phones_to_waveforms_batched,
 )
 
-__all__ = ["Corpus", "GoldAnnotations", "make_flickr8k_mini", "phones_to_frames"]
+__all__ = [
+    "Corpus",
+    "GoldAnnotations",
+    "expand_gold_to_frames",
+    "make_flickr8k_mini",
+    "phone_templates",
+    "phones_to_frames",
+    "phones_to_waveforms",
+    "phones_to_waveforms_batched",
+]

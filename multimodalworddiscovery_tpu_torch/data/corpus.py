@@ -2,7 +2,8 @@
 
 Counterpart of ``multimodalworddiscovery_tpu/data/corpus.py``: one padded
 batch of the whole corpus, so every EM step is a batched call over all
-utterances.  Tensors live wherever the caller puts them (``.to(device)``).
+utterances.  The constructors from host arrays put the tensors on ``device``,
+"cuda" unless the caller names another; a corpus moves with ``.to``.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ class Corpus:
         trg_len: np.ndarray,
         src_vocab: int = 0,
         trg_vocab: int = 0,
-        device=None,
+        device="cuda",
     ) -> "Corpus":
         """Build from padded host arrays.  Integer ids become int32 and
         anything else float32, as in the reference.  Ids are checked against
@@ -135,7 +136,7 @@ class Corpus:
         trg_vocab: int = 0,
         max_src_len: int | None = None,
         max_trg_len: int | None = None,
-        device=None,
+        device="cuda",
     ) -> "Corpus":
         src, src_len = pad_and_stack(src_seqs, max_len=max_src_len)
         trg, trg_len = pad_and_stack(trg_seqs, max_len=max_trg_len)

@@ -1,11 +1,15 @@
 """Deterministic synthetic corpus with known gold alignments.
 
 Counterpart of ``multimodalworddiscovery_tpu/data/synthetic.py``
-(``make_flickr8k_mini`` only).  The generator is numpy and consumes its
+(``make_flickr8k_mini``, ``phones_to_frames`` and the waveform renderers of
+config #4's pipeline).  The generators are numpy and consume their
 ``default_rng(seed)`` in exactly the reference's order, so the same seed and
 settings give identical arrays and gold annotations: each "image" is a bag
 of concepts, its spoken caption the concatenation of the concepts' phone
 words in a shuffled order, with optional NULL-aligned filler phones.
+
+Entry points that build tensors put them on ``device``, "cuda" unless the
+caller names another; there is no silent CPU default.
 """
 
 from __future__ import annotations
@@ -89,9 +93,9 @@ def make_flickr8k_mini(
     max_concepts: int = 4,
     p_filler: float = 0.15,
     seed: int = 0,
-    device=None,
+    device="cuda",
 ) -> tuple[Corpus, GoldAnnotations, SyntheticMeta]:
-    """Build the synthetic paired corpus (tensors on ``device``, default CPU).
+    """Build the synthetic paired corpus (tensors on ``device``).
 
     Phone id 0 is reserved as padding; real phones are 1..n_phones.
     Concept id 0 is reserved as padding/NULL; real concepts are 1..n_concepts.
@@ -123,6 +127,145 @@ def make_flickr8k_mini(
     return corpus, gold, _meta(lexicon, n_concepts, n_phones)
 
 
+def phones_to_waveforms(
+    corpus: Corpus,
+    gold: GoldAnnotations,
+    sample_rate: int = 16000,
+    phone_ms: int = 80,
+    noise: float = 0.02,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray, GoldAnnotations]:
+    """Render the phone corpus as raw audio for end-to-end pipeline runs.
+
+    Each phone id gets a fixed mixture of 2 sinusoids (a crude formant
+    pair); each phone token renders ``phone_ms`` of it under a Hann
+    envelope, plus noise.  Draws in the reference's order, so the samples
+    equal the reference's bit for bit.  Returns (wavs [N, L] float32,
+    wav_lens [N] int32, the phone-level gold: frame-level gold comes after
+    the frontend from ``expand_gold_to_frames``).
+    """
+    rng = np.random.default_rng(seed)
+    v = corpus.src_vocab
+    f1 = rng.uniform(200, 1200, size=v)
+    f2 = rng.uniform(1400, 3800, size=v)
+    spp = int(sample_rate * phone_ms / 1000)  # samples per phone
+
+    src = corpus.src.cpu().numpy()
+    src_len = corpus.src_len.cpu().numpy()
+    max_len = int(src_len.max()) * spp
+    wavs = np.zeros((corpus.n, max_len), np.float32)
+    lens = np.zeros((corpus.n,), np.int32)
+    t = np.arange(spp) / sample_rate
+    env = np.hanning(spp)  # soften phone boundaries
+    for i in range(corpus.n):
+        pos = 0
+        for k in range(int(src_len[i])):
+            ph = int(src[i, k])
+            seg = 0.4 * (np.sin(2 * np.pi * f1[ph] * t) + 0.6 * np.sin(2 * np.pi * f2[ph] * t))
+            wavs[i, pos : pos + spp] = seg * env
+            pos += spp
+        wavs[i, :pos] += noise * rng.normal(size=pos)
+        lens[i] = pos
+    return wavs, lens, gold
+
+
+def phone_templates(
+    src_vocab: int, sample_rate: int = 16000, phone_ms: int = 80, seed: int = 0,
+) -> np.ndarray:
+    """[V, spp] per-phone-id waveform templates (Hann-enveloped formant
+    pairs): the same formant draws as ``phones_to_waveforms`` (one
+    ``default_rng(seed)`` consuming f1 then f2).  Row 0 (the padding id) is
+    present and masked out by every consumer."""
+    rng = np.random.default_rng(seed)
+    f1 = rng.uniform(200, 1200, size=src_vocab)
+    f2 = rng.uniform(1400, 3800, size=src_vocab)
+    spp = int(sample_rate * phone_ms / 1000)
+    t = np.arange(spp) / sample_rate
+    env = np.hanning(spp)
+    return (
+        0.4 * (np.sin(2 * np.pi * f1[:, None] * t)
+               + 0.6 * np.sin(2 * np.pi * f2[:, None] * t)) * env
+    ).astype(np.float32)
+
+
+def phones_to_waveforms_batched(
+    corpus: Corpus,
+    sample_rate: int = 16000,
+    phone_ms: int = 80,
+    noise: float = 0.02,
+    seed: int = 0,
+    pad_phones: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized ``phones_to_waveforms``: each phone id's waveform is a
+    template and a whole batch assembles as one fancy index and reshape.
+    Equal to the reference's batched renderer at every setting, and to
+    the scalar renderer at ``noise=0``; with noise the draw order differs.
+
+    ``pad_phones`` fixes the output width to ``pad_phones * spp`` samples
+    whatever the batch's longest utterance.  Returns (wavs [N, L],
+    wav_lens [N]).
+    """
+    rng = np.random.default_rng(seed)
+    # consume f1 / f2 as phone_templates does, so the noise draws below start
+    # at the reference's stream position
+    templates = phone_templates(corpus.src_vocab, sample_rate, phone_ms, seed)
+    spp = int(sample_rate * phone_ms / 1000)
+    rng.uniform(200, 1200, size=corpus.src_vocab)
+    rng.uniform(1400, 3800, size=corpus.src_vocab)
+
+    src = corpus.src.cpu().numpy()
+    src_len = corpus.src_len.cpu().numpy()
+    n, s = src.shape
+    s_out = int(pad_phones) if pad_phones is not None else int(src_len.max())
+    if s_out < s:
+        src = src[:, :s_out]
+    elif s_out > s:
+        src = np.pad(src, ((0, 0), (0, s_out - s)))
+    wavs = templates[src].reshape(n, s_out * spp)
+    lens = (src_len * spp).astype(np.int32)
+    valid = np.arange(s_out * spp)[None, :] < lens[:, None]
+    wavs = np.where(valid, wavs, np.float32(0.0))
+    if noise:
+        wavs += np.float32(noise) * rng.standard_normal(
+            wavs.shape, dtype=np.float32
+        ) * valid
+    return wavs, lens
+
+
+def expand_gold_to_frames(
+    gold: GoldAnnotations,
+    src_len: np.ndarray,
+    frame_lens: np.ndarray,
+    phone_ms: int = 80,
+    hop_ms: int = 10,
+) -> GoldAnnotations:
+    """Phone-level gold -> frame-level gold after the MFCC frontend.
+
+    Frame t (hop h ms) overlaps phone k = floor(t*h / phone_ms) (window-start
+    convention).
+    """
+    n, _ = gold.alignment.shape
+    max_f = int(frame_lens.max())
+    frames_per_phone = phone_ms // hop_ms
+    alignment = np.zeros((n, max_f), np.int32)
+    segments: list[list[tuple[int, int, int]]] = []
+    for i in range(n):
+        fl = int(frame_lens[i])
+        ph_idx = np.minimum(np.arange(fl) // frames_per_phone, int(src_len[i]) - 1)
+        alignment[i, :fl] = gold.alignment[i, ph_idx]
+        segs = [
+            (
+                int(s * frames_per_phone),
+                int(min(e * frames_per_phone, fl)),
+                c,
+            )
+            for (s, e, c) in gold.segments[i]
+            if s * frames_per_phone < fl
+        ]
+        segments.append(segs)
+    return GoldAnnotations(alignment=alignment, segments=segments)
+
+
 def phones_to_frames(
     corpus: Corpus,
     gold: GoldAnnotations,
@@ -131,7 +274,7 @@ def phones_to_frames(
     max_frames: int = 4,
     noise: float = 0.15,
     seed: int = 0,
-    device=None,
+    device="cuda",
 ) -> tuple[Corpus, GoldAnnotations, np.ndarray]:
     """Expand a discrete phone corpus into continuous acoustic frames.
 

@@ -1,1 +1,2 @@
-"""Feature frontends (ported so far: ``vq``, the k-means frame quantizer)."""
+"""Feature frontends (ported so far: ``speech``, MFCC / log-mel features,
+deltas and CMVN, and ``vq``, the k-means frame quantizer)."""

@@ -57,5 +57,6 @@ def save_codebook(path: str | Path, codebook: torch.Tensor) -> None:
     os.replace(tmp, path)
 
 
-def load_codebook(path: str | Path, device=None) -> torch.Tensor:
+def load_codebook(path: str | Path, device="cuda") -> torch.Tensor:
+    """The saved codebook, on ``device``."""
     return torch.as_tensor(np.load(Path(path)), device=device)

@@ -5,7 +5,8 @@ the paired image's concepts (plus paired NULL states), emissions are
 multinomial over phones, transitions are Vogel-style jump-width weights;
 trained with batched forward-backward EM and decoded with Viterbi.
 
-One EM step on the kernel route (``use_kernels=True``) inside the fused
+One EM step on the kernel route (``use_kernels=True``, the default for a
+CUDA corpus: None resolves to ``corpus.device.type == "cuda"``) inside the fused
 gate is the K1 lookup kernel (ops/counts.py) followed by the K2 fused
 E-step kernel (ops/hmm_fwdbwd.py), which hands back the pooled emission
 counts and transition posteriors; then one projection onto jump widths and
@@ -26,7 +27,7 @@ from multimodalworddiscovery_tpu_torch.core.counts import pair_counts, table_loo
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm_core
 from multimodalworddiscovery_tpu_torch.ops import counts as counts_ops
-from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd
+from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd, kernels_for
 
 # The fused route's gate, as in the reference (models/hmm.py:110-115).
 FUSED_MAX_STATES = 64
@@ -65,9 +66,10 @@ def init(corpus: Corpus, max_jump: int = 3) -> HMMParams:
 
 
 def params_from_numpy(
-    log_emit, log_jump, log_p0, max_jump: int = 3, device=None
+    log_emit, log_jump, log_p0, max_jump: int = 3, device="cuda"
 ) -> HMMParams:
-    """Carry parameters across from host arrays (e.g. the JAX reference's)."""
+    """Carry parameters across from host arrays (e.g. the JAX reference's)
+    onto ``device``."""
     def t(x):
         return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
@@ -130,7 +132,7 @@ def estep_route(
 def expected_counts(
     params: HMMParams,
     corpus: Corpus,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     dot_dtype: str = "float32",
 ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """E-step only: ((emission counts [V, V], jump-width counts [W+2]), loglik).
@@ -138,11 +140,14 @@ def expected_counts(
     Counts are additive across corpus shards.  ``use_kernels`` mirrors the
     reference's ``use_pallas``: inside the gate (S <= 64, V_src <= 128,
     V_trg <= 256) the step runs through K1 and K2, outside it through K1
-    and K4.
+    and K4.  None means True on a CUDA corpus, so there
+    ``dot_dtype="bfloat16"`` raises NotImplementedError unless
+    ``use_kernels=False`` is passed: K2's bf16 variant is not yet ported.
     """
     v_src, v_trg = params.log_emit.shape
     concepts = hmm_core.state_concepts(corpus)  # [N, S]
-    route = estep_route(concepts.shape[1], v_src, v_trg, use_kernels, dot_dtype)
+    route = estep_route(concepts.shape[1], v_src, v_trg,
+                        kernels_for(use_kernels, corpus.device), dot_dtype)
     if route == "fused":
         return _expected_counts_fused(params, corpus, concepts)
     if route == "general":
@@ -202,7 +207,7 @@ def em_step(
     params: HMMParams,
     corpus: Corpus,
     smoothing: float = 1e-8,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     dot_dtype: str = "float32",
 ) -> tuple[HMMParams, dict[str, torch.Tensor]]:
     """One batched forward-backward EM iteration."""
@@ -215,7 +220,7 @@ def train(
     corpus: Corpus,
     num_iterations: int,
     smoothing: float = 1e-8,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     dot_dtype: str = "float32",
 ) -> tuple[HMMParams, torch.Tensor]:
     """``num_iterations`` EM steps -> (params, per-iteration logliks).
@@ -235,11 +240,11 @@ def train(
 
 
 def align(
-    params: HMMParams, corpus: Corpus, use_kernels: bool = False
+    params: HMMParams, corpus: Corpus, use_kernels: bool | None = None
 ) -> torch.Tensor:
     """Viterbi decode -> [N, Ts] int32 alignment (0 = NULL, else 1-based
     trg position), through the factored-transition decoder (K3 with
-    ``use_kernels=True``)."""
+    ``use_kernels=True``, the default on a CUDA corpus)."""
     base, rowz, colmask = hmm_core.factor_log_trans(
         params.log_jump, params.log_p0, corpus, params.max_jump
     )

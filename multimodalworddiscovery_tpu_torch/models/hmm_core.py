@@ -15,6 +15,11 @@ Transitions are parameterized by jump width between underlying positions
 (log_jump[w + max_jump], |w| <= max_jump) plus a null weight log_p0; rows
 are normalized over the utterance's valid states.  A state path decodes to
 an alignment with 0 for null states and pos + 1 for real states.
+
+Every entry point that takes ``use_kernels`` defaults it to None, which
+resolves to whether the data lies on a CUDA device (``ops.kernels_for``): a
+corpus on the card runs the kernels, a CPU corpus their plain versions.
+An explicit False keeps the plain path on the card (for comparisons).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from multimodalworddiscovery_tpu_torch.core.logsemiring import (
 )
 from multimodalworddiscovery_tpu_torch.core.masking import lengths_to_mask
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
-from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd
+from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd, kernels_for
 from multimodalworddiscovery_tpu_torch.ops import viterbi as viterbi_ops
 
 
@@ -154,7 +159,7 @@ def estep(
     max_jump: int,
     log_emit: torch.Tensor,
     corpus: Corpus,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared HMM E-step for every Vogel-transition aligner (discrete,
     Gaussian, DNN-hybrid emissions differ only in ``log_emit``).
@@ -164,10 +169,10 @@ def estep(
 
     ``use_kernels=True`` routes through K4, the general E-step kernel
     (``ops/hmm_fwdbwd.hmm_estep``: its plain version on a CPU corpus); the
-    dense plain path below is its oracle.  All outputs are additive across
-    corpus shards.
+    dense plain path below is its oracle.  None means True on a CUDA corpus.
+    All outputs are additive across corpus shards.
     """
-    if use_kernels:
+    if kernels_for(use_kernels, corpus.device):
         base, rowz, colmask = factor_log_trans(log_jump, log_p0, corpus, max_jump)
         gamma, xi_pooled, logz = hmm_fwdbwd.hmm_estep(
             build_log_init(log_p0, corpus), base, rowz, colmask, log_emit,
@@ -241,14 +246,18 @@ def viterbi_factored(
     colmask: torch.Tensor,   # [N, S]
     log_emit: torch.Tensor,  # [N, Ts, S]
     src_len: torch.Tensor,   # [N]
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
 ) -> torch.Tensor:
     """Viterbi decode from factored transitions -> state path [N, Ts] int32
     (frozen-carry states past src_len).  ``use_kernels=True`` routes through
-    K3 (``ops/viterbi.viterbi``: its plain version on a CPU corpus); the
-    plain decoder never builds the [N, S, S] transition tensor outside one
-    step.  Ties resolve to the lowest state index, as in the reference."""
-    decode = viterbi_ops.viterbi if use_kernels else viterbi_ops.viterbi_plain
+    K3 (``ops/viterbi.viterbi``: its plain version on a CPU corpus), and
+    None means True on CUDA tensors; the plain decoder never builds the
+    [N, S, S] transition tensor outside one step.  Ties resolve to the
+    lowest state index, as in the reference."""
+    if kernels_for(use_kernels, log_emit.device):
+        decode = viterbi_ops.viterbi
+    else:
+        decode = viterbi_ops.viterbi_plain
     return decode(log_init, base, rowz, colmask, log_emit, src_len)
 
 

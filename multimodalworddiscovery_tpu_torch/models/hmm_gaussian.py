@@ -15,7 +15,8 @@ then a logsumexp over components with the mixture weights.  The M-step's
 sufficient statistics are the transposed products of the combined (HMM
 gamma x component responsibility) posteriors.  These products are plain
 float32 matmuls (the reference leaves them to XLA); the E-step itself runs
-through K4 and decode through K3 with ``use_kernels=True``.  Keep
+through K4 and decode through K3 with ``use_kernels=True``, the default
+(None) on a CUDA corpus.  Keep
 ``torch.backends.cuda.matmul.allow_tf32`` off (its default): the products
 feed logs and exps.
 
@@ -58,9 +59,10 @@ class GaussianHMMParams:
 
 
 def params_from_numpy(
-    means, log_vars, log_mix, log_jump, log_p0, max_jump: int = 3, device=None
+    means, log_vars, log_mix, log_jump, log_p0, max_jump: int = 3, device="cuda"
 ) -> GaussianHMMParams:
-    """Carry parameters across from host arrays (e.g. the JAX reference's)."""
+    """Carry parameters across from host arrays (e.g. the JAX reference's)
+    onto ``device``."""
     def t(x):
         return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
@@ -296,7 +298,7 @@ def _sufficient_stats(
 def expected_counts(
     params: GaussianHMMParams,
     corpus: Corpus,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     emit_scale: float = 1.0,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """E-step sufficient statistics, all additive across corpus shards:
@@ -305,7 +307,8 @@ def expected_counts(
       width [W+2]               expected jump counts
       fsum/fsq [D], fcnt []     global feature moments (for the var floor)
 
-    ``use_kernels=True`` runs the forward-backward through K4.
+    ``use_kernels=True`` runs the forward-backward through K4 (None: on a
+    CUDA corpus).
     ``emit_scale`` < 1 is a deterministic-annealing E-step: the emission
     log-likelihoods are scaled by beta (``train``'s ``anneal`` ramps it).
     """
@@ -357,7 +360,7 @@ def em_step(
     smoothing: float = 1e-6,
     var_floor: float = 1e-4,
     var_floor_rel: float = 1e-3,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     emit_scale: float = 1.0,
 ) -> tuple[GaussianHMMParams, dict[str, torch.Tensor]]:
     """One EM iteration (expected_counts + m_step)."""
@@ -385,7 +388,7 @@ def train(
     params: GaussianHMMParams,
     corpus: Corpus,
     num_iterations: int,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     anneal: tuple[float, int] | None = None,
 ) -> tuple[GaussianHMMParams, torch.Tensor]:
     """``num_iterations`` EM steps -> (params, per-iteration logliks).
@@ -401,10 +404,11 @@ def train(
 
 
 def align(
-    params: GaussianHMMParams, corpus: Corpus, use_kernels: bool = False
+    params: GaussianHMMParams, corpus: Corpus, use_kernels: bool | None = None
 ) -> torch.Tensor:
     """Viterbi decode -> [N, Ts] int32 alignment (0 = NULL, else 1-based
-    trg position), through K3 with ``use_kernels=True``."""
+    trg position), through K3 with ``use_kernels=True`` (None: on a CUDA
+    corpus)."""
     base, rowz, colmask = hmm_core.factor_log_trans(
         params.log_jump, params.log_p0, corpus, params.max_jump
     )
@@ -566,7 +570,7 @@ def init_vq_teacher(
     n_codes: int = 64,
     teacher_iters: int = 10,
     seed_rounds: int = 3,
-    use_kernels: bool = False,
+    use_kernels: bool | None = None,
     chunks: int = 1,
 ) -> GaussianHMMParams:
     """Seed the Gaussian HMM from a VQ + discrete-HMM teacher:

@@ -4,8 +4,21 @@ counts       K1 emission-table lookup    (csrc/counts.cu)
 hmm_fwdbwd   K2 fused E-step with counts (csrc/hmm_fwdbwd.cu)
              K4 general E-step -> gamma  (csrc/hmm_fwdbwd.cu)
 viterbi      K3 Viterbi decode           (csrc/viterbi.cu)
+mfcc         K5 fused MFCC / log-mels    (csrc/mfcc.cu)
 _build       nvcc build at first use + ctypes binding
 
 A wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in ``.launches``.
+Callers that choose between a kernel and its plain version take
+``use_kernels=None`` and resolve it with ``kernels_for``.
 """
+
+from __future__ import annotations
+
+import torch
+
+
+def kernels_for(use_kernels: bool | None, device: torch.device) -> bool:
+    """``use_kernels`` as given, or for None whether ``device`` is a CUDA
+    device."""
+    return device.type == "cuda" if use_kernels is None else bool(use_kernels)

@@ -1,16 +1,18 @@
 """Build the CUDA kernels in ``csrc/`` at first use and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into a shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+Each ``csrc/*.cu`` file compiles to its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), one ``nvcc`` per
+source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o build/mwd_kernels/libmwd_kernels-<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas=-v -o build/mwd_kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-``<hash>`` covers the sources and the flags, so an edited source rebuilds.
-The library lands under the repository's ``build/`` directory (ignored by
-git), written to a temporary name and renamed, so concurrent first uses do
-not see a half-written file.  Nothing is downloaded; a missing ``nvcc`` or a
-failed build raises with the compiler's output.
+``<hash>`` covers the flags, the source and the shared headers, so an edited
+source rebuilds.  The libraries land under the repository's ``build/``
+directory (ignored by git), each written to a temporary name and renamed, so
+concurrent first uses do not see a half-written file.  Nothing is
+downloaded; a missing ``nvcc`` or a failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "mwd_kernels"
@@ -40,23 +43,22 @@ SIGNATURES = {
     "mwd_hmm_bwd_gamma": [_P] * 9 + [_I] * 3 + [_P],
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
     "mwd_viterbi_bp_in_smem": [_I, _I],
+    "mwd_mfcc": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
 build_log = ""  # compiler output of this process's build ("" if cached)
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_DIR / f"libmwd_kernels-{h.hexdigest()[:16]}.so"
+def library_paths() -> dict[pathlib.Path, pathlib.Path]:
+    """{source: its library} for every csrc/*.cu."""
+    shared = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    paths = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + shared + src.read_bytes())
+        paths[src] = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    return paths
 
 
 def find_nvcc() -> str:
@@ -76,40 +78,45 @@ def find_nvcc() -> str:
     )
 
 
-def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless a library for these sources exists."""
+def build() -> list[pathlib.Path]:
+    """Compile every csrc/*.cu whose library does not exist yet, one nvcc
+    per source, all started together; the libraries."""
     global build_log
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    build_log = proc.stdout + proc.stderr
-    return path
+    paths = library_paths()
+    todo = {src: lib for src, lib in paths.items() if not lib.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        tmps = {src: lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so") for src, lib in todo.items()}
+        cmds = [[nvcc, *NVCC_FLAGS, "-o", str(tmps[src]), str(src)] for src in todo]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                for tmp in tmps.values():
+                    tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        for src, lib in todo.items():
+            os.replace(tmps[src], lib)
+        build_log = "".join(logs)
+    return list(paths.values())
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built and loaded once per process."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C entry points (as attributes), built and loaded once
+    per process."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
+            libs = [ctypes.CDLL(str(p)) for p in build()]
+            fns = {}
+            for name, argtypes in {**SIGNATURES, "mwd_error_string": [_I]}.items():
+                fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.mwd_error_string.argtypes = [_I]
-            lib.mwd_error_string.restype = ctypes.c_char_p
-            _lib = lib
+                fn.restype = ctypes.c_char_p if name == "mwd_error_string" else ctypes.c_int
+                fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

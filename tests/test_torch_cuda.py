@@ -6,15 +6,19 @@ without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+from multimodalworddiscovery_tpu_torch.frontend import speech
 from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_gaussian
 from multimodalworddiscovery_tpu_torch.ops import counts as k1
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
 from multimodalworddiscovery_tpu_torch.ops import _build
+from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
 from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
+from multimodalworddiscovery_tpu_torch.scripts import run_pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -187,3 +191,108 @@ def test_gaussian_kernel_route_matches_plain(dev):
     torch.testing.assert_close(runs[True][0], runs[False][0], rtol=1e-4, atol=0)
     same = (runs[True][1] == runs[False][1])[fc.src_mask()].float().mean()
     assert same >= 0.99
+
+
+# K5 against its plain version: the JAX package's K5 bound
+# (tests/test_mfcc_pallas.py:33) on valid frames
+MFCC_TOL = dict(rtol=1e-3, atol=2e-3)
+
+
+def _waveforms(dev, lens, length):
+    rng = np.random.default_rng(len(lens))
+    wav = np.zeros((len(lens), length), np.float32)
+    t = np.arange(length) / 16000
+    for i, n in enumerate(lens):
+        wav[i, :n] = (0.1 * rng.standard_normal(n) + 0.3 * np.sin(2 * np.pi * (300 + 150 * i)
+                                                                 * t[:n]))
+    return (torch.as_tensor(wav, device=dev),
+            torch.as_tensor(np.asarray(lens, np.int32), device=dev))
+
+
+@pytest.mark.parametrize("kind", ["mfcc", "fbank"])
+def test_k5_extract_matches_plain(dev, kind):
+    """Utterances of 8000, 6000, 3000 samples and the edge lengths 0, 399,
+    400 and 401 in one batch."""
+    wav, lens = _waveforms(dev, [8000, 6000, 3000, 0, 399, 400, 401], 8000)
+    cfg = speech.MfccConfig()
+    before = k5.extract.launches
+    got, fl = k5.extract(wav, lens, cfg, kind)
+    assert k5.extract.launches == before + 1
+    want, fl_p = k5.extract_plain(wav, lens, cfg, kind)
+    assert torch.equal(fl, fl_p) and fl[-4:].tolist() == [0, 0, 1, 1]
+    assert got.shape == want.shape == (7, 48, 26 if kind == "fbank" else 13)
+    valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+    torch.testing.assert_close(got[valid], want[valid], **MFCC_TOL)
+
+
+@pytest.mark.parametrize("m", [0, 1, 63, 65, 1000])
+def test_k5_frames_matches_plain(dev, m):
+    """Frame counts around and off the kernel's 64-frame tile; M = 0
+    launches nothing."""
+    cfg = speech.MfccConfig(n_mfcc=13, n_mels=26)
+    gen = torch.Generator().manual_seed(m)
+    frames = (0.2 * torch.randn(m, cfg.win_length, generator=gen)).to(dev)
+    before = k5.mfcc_from_frames.launches
+    for kind, n_out in (("mfcc", 13), ("fbank", 26)):
+        got = k5.mfcc_from_frames(frames, cfg, kind)
+        assert got.shape == (m, n_out)
+        torch.testing.assert_close(got, k5.mfcc_from_frames_plain(frames, cfg, kind),
+                                   **MFCC_TOL)
+    assert k5.mfcc_from_frames.launches == before + (2 if m else 0)
+
+
+def test_k5_short_batch_has_no_frames(dev):
+    wav, lens = _waveforms(dev, [0, 399], 399)
+    got, fl = k5.extract(wav, lens)
+    assert got.shape == (2, 0, 13) and fl.tolist() == [0, 0]
+
+
+def test_k5_wrappers_validate_inputs(dev):
+    wav, lens = _waveforms(dev, [8000, 3000], 8000)
+    with pytest.raises(ValueError, match="cpu"):
+        k5.extract(wav, lens.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        k5.extract(wav.double(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.extract(wav[:, ::2], lens)
+    frames = torch.zeros((10, 400), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        k5.mfcc_from_frames(frames.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.mfcc_from_frames(torch.zeros((400, 10), device=dev).t())
+    with pytest.raises(ValueError, match="shape"):
+        k5.mfcc_from_frames(frames[:, :399].contiguous())
+    with pytest.raises(ValueError, match="n_fft"):
+        k5.mfcc_from_frames(torch.zeros((10, 1000), device=dev),
+                            speech.MfccConfig(win_length=1000, n_fft=1024))
+
+
+def test_entry_points_default_to_the_card(dev):
+    """With no device named, the data and parameter entry points build on
+    cuda:0."""
+    corpus, gold, _ = make_flickr8k_mini(n_utterances=4, seed=1)
+    assert corpus.src.device == dev and corpus.trg_len.device == dev
+    fc, _, _ = phones_to_frames(corpus, gold, feat_dim=4)
+    assert fc.src.device == dev
+    p = hmm.params_from_numpy(np.zeros((3, 2), np.float32), np.zeros(7, np.float32),
+                              np.float32(-1.0))
+    assert p.log_emit.device == dev
+
+
+def test_models_default_to_the_kernels_on_the_card(dev):
+    """With no use_kernels, a CUDA corpus goes through the kernels: the
+    discrete EM through K1 and K2, the Gaussian EM through K4, decode
+    through K3, and the waveform pipeline through K5 as well."""
+    corpus, _, _ = make_flickr8k_mini(**CASES["S12"])
+    counters = (k1.table_lookup, k2.hmm_estep_counts, k2.hmm_estep, k3.viterbi, k5.extract)
+    for w in counters:
+        w.launches = 0
+    hmm.train(hmm.init(corpus), corpus, 1)
+    hmm.align(hmm.init(corpus), corpus)
+    assert k1.table_lookup.launches > 0 and k2.hmm_estep_counts.launches > 0
+    assert k3.viterbi.launches > 0
+    for w in counters:
+        w.launches = 0
+    out = run_pipeline.run_pipeline(n_utterances=16, iters=2)
+    assert k5.extract.launches == 1 and k2.hmm_estep.launches == 2 and k3.viterbi.launches == 1
+    assert np.all(np.isfinite(out["loglik"]))

@@ -24,7 +24,7 @@ SETTINGS = {
 def test_make_flickr8k_mini_identical_to_jax(seed, setting):
     kw = dict(SETTINGS[setting], seed=seed)
     jc, jg, jm = jax_make(**kw)
-    tc, tg, tm = torch_make(**kw)
+    tc, tg, tm = torch_make(**kw, device="cpu")
     for field in ("src", "src_len", "trg", "trg_len"):
         want = np.asarray(getattr(jc, field))
         got = getattr(tc, field).numpy()
@@ -40,7 +40,7 @@ def test_make_flickr8k_mini_identical_to_jax(seed, setting):
 
 def test_corpus_pad_to_and_masks_match_jax():
     jc, _, _ = jax_make(n_utterances=20, seed=5)
-    tc, _, _ = torch_make(n_utterances=20, seed=5)
+    tc, _, _ = torch_make(n_utterances=20, seed=5, device="cpu")
     jp, tp = jc.pad_to(24), tc.pad_to(24)
     assert tp.n == 24 and tp.max_src_len == jp.max_src_len
     for field in ("src", "src_len", "trg", "trg_len"):
@@ -56,13 +56,13 @@ def test_corpus_pad_to_and_masks_match_jax():
 def test_corpus_to_and_from_ragged():
     src = [np.array([3, 1, 2]), np.array([4])]
     trg = [np.array([1, 2]), np.array([2])]
-    c = Corpus.from_ragged(src, trg, src_vocab=5, trg_vocab=3)
+    c = Corpus.from_ragged(src, trg, src_vocab=5, trg_vocab=3, device="cpu")
     assert c.src.dtype == torch.int32 and c.src.shape == (2, 3)
     np.testing.assert_array_equal(c.src_len.numpy(), [3, 1])
     moved = c.to("cpu")
     assert moved.device.type == "cpu" and moved.src_vocab == 5
     with pytest.raises(ValueError, match="src ids"):
-        Corpus.from_ragged([np.array([7])], trg[:1], src_vocab=5, trg_vocab=3)
+        Corpus.from_ragged([np.array([7])], trg[:1], src_vocab=5, trg_vocab=3, device="cpu")
 
 
 def test_masking_helpers_match_jax():
@@ -77,3 +77,31 @@ def test_masking_helpers_match_jax():
         tmasking.lengths_to_mask(torch.as_tensor(lens), 5).numpy(),
         np.asarray(jmasking.lengths_to_mask(lens, 5)),
     )
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    """With no device named, the data and parameter entry points build on
+    the card: on a host without CUDA they raise instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from multimodalworddiscovery_tpu_torch.data import phones_to_frames
+    from multimodalworddiscovery_tpu_torch.frontend import vq
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_gaussian
+
+    no_cuda = pytest.raises((AssertionError, RuntimeError), match="CUDA")
+    with no_cuda:
+        torch_make(n_utterances=2)
+    with no_cuda:
+        Corpus.from_ragged([np.array([3, 1])], [np.array([1])], src_vocab=5, trg_vocab=3)
+    corpus, gold, _ = torch_make(n_utterances=2, device="cpu")
+    with no_cuda:
+        phones_to_frames(corpus, gold, feat_dim=4)
+    with no_cuda:
+        hmm.params_from_numpy(np.zeros((3, 2)), np.zeros(7), -1.0)
+    with no_cuda:
+        hmm_gaussian.params_from_numpy(*(np.zeros(s) for s in ((2, 1, 3), (2, 1, 3), (2, 1),
+                                                                (7,), ())))
+    np.save(tmp_path / "cb.npy", np.zeros((4, 3), np.float32))
+    with no_cuda:
+        vq.load_codebook(tmp_path / "cb.npy")

@@ -53,7 +53,8 @@ def _np(x):
 
 
 def _to_torch(jp):
-    return tg.params_from_numpy(*(_np(getattr(jp, f)) for f in FIELDS), jp.max_jump)
+    return tg.params_from_numpy(*(_np(getattr(jp, f)) for f in FIELDS), jp.max_jump,
+                                device="cpu")
 
 
 def _close_params(tp, jp, rtol, atol):
@@ -65,9 +66,9 @@ def _close_params(tp, jp, rtol, atol):
 @pytest.fixture(scope="module")
 def frames():
     pc_j, pg_j, _ = jax_make(**GEN)
-    pc_t, pg_t, _ = torch_make(**GEN)
+    pc_t, pg_t, _ = torch_make(**GEN, device="cpu")
     jc, jgold, _ = jax_frames(pc_j, pg_j, **FRAMES)
-    tc, tgold, _ = torch_frames(pc_t, pg_t, **FRAMES)
+    tc, tgold, _ = torch_frames(pc_t, pg_t, **FRAMES, device="cpu")
     jc, tc = jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
     gold = np.zeros((tc.n, tc.max_src_len), np.int32)
     gold[: jgold.alignment.shape[0]] = jgold.alignment
@@ -89,9 +90,9 @@ def test_frame_corpus_identical_to_jax(seed):
     """phones_to_frames gives the reference's frames, gold and phone means,
     with float32 frames (the corpus used to cast every src to int32)."""
     pc_j, pg_j, _ = jax_make(n_utterances=12, seed=seed)
-    pc_t, pg_t, _ = torch_make(n_utterances=12, seed=seed)
+    pc_t, pg_t, _ = torch_make(n_utterances=12, seed=seed, device="cpu")
     jc, jgold, jmeans = jax_frames(pc_j, pg_j, feat_dim=6, seed=seed)
-    tc, tgold, tmeans = torch_frames(pc_t, pg_t, feat_dim=6, seed=seed)
+    tc, tgold, tmeans = torch_frames(pc_t, pg_t, feat_dim=6, seed=seed, device="cpu")
     for field in ("src", "src_len", "trg", "trg_len"):
         want, got = _np(getattr(jc, field)), getattr(tc, field).numpy()
         assert got.dtype == want.dtype, field
@@ -109,12 +110,12 @@ def test_from_ragged_keeps_float_frames():
     seqs = [rng.normal(size=(k, 3)).astype(np.float32) for k in (4, 2)]
     trg = [np.array([1, 2]), np.array([3])]
     want = JCorpus.from_ragged(seqs, trg, trg_vocab=4)
-    got = Corpus.from_ragged(seqs, trg, trg_vocab=4)
+    got = Corpus.from_ragged(seqs, trg, trg_vocab=4, device="cpu")
     assert got.src.dtype == torch.float32 and got.trg.dtype == torch.int32
     np.testing.assert_array_equal(got.src.numpy(), _np(want.src))
     np.testing.assert_array_equal(got.pad_to(3).src.numpy(), _np(want.pad_to(3).src))
     with pytest.raises(ValueError, match="trg ids"):
-        Corpus.from_ragged(seqs, [np.array([1, 9]), np.array([3])], trg_vocab=4)
+        Corpus.from_ragged(seqs, [np.array([1, 9]), np.array([3])], trg_vocab=4, device="cpu")
 
 
 @pytest.mark.parametrize("k", [3, 40])
@@ -260,7 +261,7 @@ def test_quantize_frames_codebook_round_trip(frames, tmp_path):
     cb = tvq.fit_codebook(tc, n_codes=16, generator=torch.Generator().manual_seed(4))
     assert torch.equal(tvq.quantize(tc, cb).src, cc.src)
     tvq.save_codebook(tmp_path / "cb.npy", cb)
-    assert torch.equal(tvq.load_codebook(tmp_path / "cb.npy"), cb)
+    assert torch.equal(tvq.load_codebook(tmp_path / "cb.npy", device="cpu"), cb)
     with pytest.raises(ValueError, match="real frames"):
         tg.fit_frame_codebook(tc, n_codes=10**6)
 
@@ -273,7 +274,8 @@ def test_seed_from_teacher_matches_jax(frames, params):
     jcc = jg.quantize_frames(jc, n_codes=16, key=jax.random.PRNGKey(4))
     tcc = dataclasses.replace(tc, src=torch.tensor(_np(jcc.src)), src_vocab=16)
     jt, _ = jhmm.train(jhmm.init(jcc), jcc, 3)
-    tt = thmm.params_from_numpy(_np(jt.log_emit), _np(jt.log_jump), _np(jt.log_p0), jt.max_jump)
+    tt = thmm.params_from_numpy(_np(jt.log_emit), _np(jt.log_jump), _np(jt.log_p0), jt.max_jump,
+                                device="cpu")
     want = jg.seed_from_teacher(jp0, jc, jcc, jt, seed_rounds=2)
     got = tg.seed_from_teacher(tp0, tc, tcc, tt, seed_rounds=2)
     _close_params(got, want, rtol=1e-4, atol=1e-4)

@@ -29,14 +29,14 @@ def _np(x):
 
 def _to_torch(jp):
     return thmm.params_from_numpy(
-        _np(jp.log_emit), _np(jp.log_jump), _np(jp.log_p0), jp.max_jump
+        _np(jp.log_emit), _np(jp.log_jump), _np(jp.log_p0), jp.max_jump, device="cpu"
     )
 
 
 @pytest.fixture(scope="module")
 def corpora():
     jc, _, _ = jax_make(**GEN)
-    tc, _, _ = torch_make(**GEN)
+    tc, _, _ = torch_make(**GEN, device="cpu")
     return jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
 
 
@@ -58,7 +58,7 @@ def test_params_from_numpy_round_trip():
     rng = np.random.default_rng(0)
     emit = rng.normal(size=(7, 5)).astype(np.float32)
     jump = rng.normal(size=(9,)).astype(np.float32)
-    p = thmm.params_from_numpy(emit, jump, np.float32(-1.5), max_jump=4)
+    p = thmm.params_from_numpy(emit, jump, np.float32(-1.5), max_jump=4, device="cpu")
     np.testing.assert_array_equal(p.log_emit.numpy(), emit)
     np.testing.assert_array_equal(p.log_jump.numpy(), jump)
     assert p.log_p0.shape == () and float(p.log_p0) == -1.5 and p.max_jump == 4

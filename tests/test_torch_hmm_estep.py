@@ -37,12 +37,12 @@ N_EMPTY = 3
 
 def _case(kw):
     jc, _, _ = jax_make(**kw)
-    tc, _, _ = torch_make(**kw)
+    tc, _, _ = torch_make(**kw, device="cpu")
     jc, tc = jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
     jp, _ = jhmm.em_step(jhmm.init(jc), jc)
     tp = thmm.params_from_numpy(
         np.asarray(jp.log_emit), np.asarray(jp.log_jump), np.asarray(jp.log_p0),
-        jp.max_jump,
+        jp.max_jump, device="cpu",
     )
     return jc, jp, tc, tp
 

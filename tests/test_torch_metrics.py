@@ -30,7 +30,7 @@ GOLDEN = json.loads((Path(__file__).parent / "golden_metrics.json").read_text())
 @pytest.fixture(scope="module")
 def segs():
     jc, jgold, _ = jax_make(n_utterances=60, seed=0)
-    tc, _, _ = torch_make(n_utterances=60, seed=0)
+    tc, _, _ = torch_make(n_utterances=60, seed=0, device="cpu")
     rng = np.random.default_rng(0)
     sl, tl = np.asarray(jc.src_len), np.asarray(jc.trg_len)
     pred = jgold.alignment.copy()
@@ -113,7 +113,7 @@ def test_golden_metrics_hmm():
     """The discrete HMM's train -> align -> segment -> evaluate loop on the
     frozen corpus of tests/test_golden_metrics.py reproduces the committed
     metrics."""
-    corpus, gold, _ = torch_make(n_utterances=100, seed=42)
+    corpus, gold, _ = torch_make(n_utterances=100, seed=42, device="cpu")
     p, _ = thmm.train(thmm.init(corpus), corpus, 12, use_kernels=True)
     al = thmm.align(p, corpus, use_kernels=True)
     ga = torch.as_tensor(gold.alignment)

@@ -15,6 +15,7 @@ from multimodalworddiscovery_tpu import segment as jsegment
 from multimodalworddiscovery_tpu.data import make_flickr8k_mini as jax_make
 from multimodalworddiscovery_tpu.eval import metrics as jmetrics
 from multimodalworddiscovery_tpu.models import hmm as jhmm
+from multimodalworddiscovery_tpu_torch import ops as tops
 from multimodalworddiscovery_tpu_torch import segment as tsegment
 from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini as torch_make
 from multimodalworddiscovery_tpu_torch.eval import metrics as tmetrics
@@ -37,6 +38,7 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.eval",
     "multimodalworddiscovery_tpu_torch.eval.metrics",
     "multimodalworddiscovery_tpu_torch.frontend",
+    "multimodalworddiscovery_tpu_torch.frontend.speech",
     "multimodalworddiscovery_tpu_torch.frontend.vq",
     "multimodalworddiscovery_tpu_torch.models",
     "multimodalworddiscovery_tpu_torch.models.hmm",
@@ -46,8 +48,14 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.ops._build",
     "multimodalworddiscovery_tpu_torch.ops.counts",
     "multimodalworddiscovery_tpu_torch.ops.hmm_fwdbwd",
+    "multimodalworddiscovery_tpu_torch.ops.mfcc",
     "multimodalworddiscovery_tpu_torch.ops.viterbi",
+    "multimodalworddiscovery_tpu_torch.scripts",
+    "multimodalworddiscovery_tpu_torch.scripts.extract_features",
+    "multimodalworddiscovery_tpu_torch.scripts.run_pipeline",
     "multimodalworddiscovery_tpu_torch.segment",
+    "multimodalworddiscovery_tpu_torch.utils",
+    "multimodalworddiscovery_tpu_torch.utils.audio",
     "chip_smoke",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodalworddiscovery_tpu")
@@ -56,7 +64,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodalworddiscovery
 @pytest.fixture(scope="module")
 def slice_runs():
     jc, jg, _ = jax_make(**GEN)
-    tc, tg, _ = torch_make(**GEN)
+    tc, tg, _ = torch_make(**GEN, device="cpu")
     jc, tc = jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
     gold = np.zeros((tc.n, tc.max_src_len), np.int32)
     gold[: jg.n] = jg.alignment
@@ -178,7 +186,8 @@ def test_expected_counts_cpu_outside_gate_uses_plain_estep():
     with the dense plain E-step within the reference's tolerances (counts
     atol 1e-4 x scale, loglik rtol 1e-6, widths rtol 1e-4 atol 1e-3)."""
     corpus, _, _ = torch_make(n_utterances=6, n_concepts=200, min_concepts=33,
-                              max_concepts=34, min_word_len=2, max_word_len=2, seed=1)
+                              max_concepts=34, min_word_len=2, max_word_len=2, seed=1,
+                              device="cpu")
     assert 2 * corpus.max_trg_len > 64
     params = thmm.init(corpus)
     (ec, wc), ll = thmm.expected_counts(params, corpus, use_kernels=True)
@@ -187,3 +196,14 @@ def test_expected_counts_cpu_outside_gate_uses_plain_estep():
     torch.testing.assert_close(ec, ec_p, rtol=0, atol=1e-4 * scale)
     torch.testing.assert_close(wc, wc_p, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(ll, ll_p, rtol=1e-6, atol=0)
+
+
+def test_use_kernels_none_follows_the_device():
+    """use_kernels=None means the kernels on a CUDA tensor and their plain
+    versions on a CPU tensor; an explicit value is kept."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    assert tops.kernels_for(None, cpu) is False
+    assert tops.kernels_for(None, cuda) is True
+    for dev in (cpu, cuda):
+        assert tops.kernels_for(False, dev) is False
+        assert tops.kernels_for(True, dev) is True

@@ -39,13 +39,14 @@ N_EMPTY = 3
 def case(request):
     kw = CASES[request.param]
     jc, _, _ = jax_make(**kw)
-    tc, _, _ = torch_make(**kw)
+    tc, _, _ = torch_make(**kw, device="cpu")
     jc, tc = jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
     jp = jhmm.init(jc)
     for _ in range(3):
         jp, _ = jhmm.em_step(jp, jc)
     tp = thmm.params_from_numpy(
-        np.asarray(jp.log_emit), np.asarray(jp.log_jump), np.asarray(jp.log_p0), jp.max_jump
+        np.asarray(jp.log_emit), np.asarray(jp.log_jump), np.asarray(jp.log_p0), jp.max_jump,
+        device="cpu",
     )
     j_args = (jcore.build_log_init(jp.log_p0, jc),
               *jcore.factor_log_trans(jp.log_jump, jp.log_p0, jc, jp.max_jump),
