@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives four paths once through the
-kernels and once through the plain path on the same card:
+shapes the main paths give it, then drives seven paths through the kernels
+(the first four, and path 6, also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
    N=8000 utterances, S=12 states): 10 EM iterations through K1 + K2, then
@@ -25,12 +25,29 @@ kernels and once through the plain path on the same card:
    N=2000 utterances, 12 EM iterations): synthetic waveforms, MFCCs
    through K5, Gaussian EM (K=2) through K4, decode through K3,
    segmentation, alignment P/R/F1 against the JAX reference's value for the
-   same initial parameters, word IoU, boundary F1 and purity.
+   same initial parameters, word IoU, boundary F1 and purity;
+5. path 1's EM at ``dot_dtype="bfloat16"``: K1, K2-bf16, K3;
+6. ``configs/hmm_crf_frames.py`` at full width (N=400 utterances of 12-dim
+   frames, S=8, hidden 256): 10 iterations of the end-to-end CRF aligner
+   (``hmm_crf.train``: 4 Adam steps a iteration with the MLP's gradient
+   through K4's gamma, then a closed-form M-step), decode through K3,
+   alignment F1 and positional accuracy against the JAX reference's values
+   for the same initial parameters; through K4, through the plain path and
+   through K4-bf16; and ``hmm_dnn.train`` (the generalized-EM DNN-HMM) on
+   the same corpus;
+7. ``configs/hmm_crf_e2e.py``: the same corpus, 20 iterations with the
+   transitions learned through the CRF moment gradient.
 
 K1 and K2 are checked at the headline shape, at K2's gate edge and at the
 VQ teacher's shape (the recipe's code corpus: N=4000, Ts=401, S=64,
 V_src=64), where the teacher's EM trajectory is also held against the
-plain path's.  K5 is checked at the pipeline's batch (N=2000 waveforms of
+plain path's; K2-bf16 at the headline shape and at K2's gate edge.  K4,
+K4-bf16 and K6 (the remat E-step, reached through its entry point
+``hmm_estep(remat=True)``, which no model path calls) are checked at the
+stretch shape and at S=128, K6 at two chunk lengths and against K4; each
+bf16 kernel is also shown to round (closer to its plain bf16 version than
+to the float32 kernel, and not equal to the latter).  K5 is
+checked at the pipeline's batch (N=2000 waveforms of
 28,160 samples, plus waveforms of 0, 399, 400 and 401 samples), for MFCCs
 and log-mels, and on 1000 frames; the ``extract_features speech`` command
 runs once on a small .npz under ``build/``.
@@ -38,7 +55,7 @@ runs once on a small .npz under ``build/``.
 Each path's kernel launch counts are set to 0 just before it and read just
 after.  It then times kernels and paths against their plain versions with
 CUDA events, computes each timed kernel call's bound (bytes over the
-memory rate or operations over the float32 rate), and profiles one
+memory rate or operations over the peak rate for their type), and profiles one
 Gaussian EM iteration and the waveform pipeline after synthesis.
 
 Exits nonzero, printing no result, when there is no CUDA device or any
@@ -98,15 +115,49 @@ REFERENCE_PIPELINE_LL = -4057964.25  # its loglik at the 12th iteration
 EDGE_WAV_LENS = (0, 399, 400, 401)  # samples: 0, 0, 1 and 1 frames
 MFCC_TOL = dict(rtol=1e-3, atol=2e-3)  # K5's bound, tests/test_mfcc_pallas.py:33
 # one NVIDIA H100 SXM at its full 700 W (data sheet, dense rates): device
-# memory rate, and the float32 rate outside the tensor cores (every kernel
-# here computes in float32 FMAs)
+# memory rate, the float32 rate outside the tensor cores, and the bf16
+# tensor-core rate.  The bf16 variants' products take bf16 operands and sum
+# in float32, which the card runs at the bf16 rate (the kernels here run
+# them on float32 FMAs all the same); their xi update's multiply by the
+# float32 exp(base0) stays at the float32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # the JAX package's documented F1 of the stretch recipe at N=4000
 # (docs/PERFORMANCE.md:457-461); it draws other random numbers, so only
 # printed beside this run's value
 DOCUMENTED_RECIPE_F1 = 0.431
 ZERO_LENGTH_PAD = 4  # zero-length utterances appended in the parity phases
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 against f32, tests/test_hmm_estep_pallas.py:222
+# A bf16 kernel against its plain bf16 version is held to the float32
+# kernel's bounds, except K4-bf16's gamma and xi at the stretch shape.
+# There the products are exact in float32 on both sides, but the float32
+# operands entering each bf16 rounding differ in their last bits (another
+# summation order, another exp), so now and then one rounds the other way,
+# 2^-8 relative, and shifts that utterance's posteriors.  Those two are held
+# to the float32 bounds on all but FLIP_SHARE of their elements (rounded
+# up), and every element to 2^-7 of their scale, two such ulps; the
+# elements (and utterances) outside the float32 bounds are counted and
+# printed.  logZ and the total loglik keep the float32 bounds everywhere.
+BF16_FLIP = 2.0**-7
+FLIP_SHARE = 1e-3
+K6_CHUNKS = (32, 7)  # K6's default chunk and a second one; neither divides Ts=401 or 181
+# configs/hmm_crf_frames.py and configs/hmm_crf_e2e.py (on core/config.py's
+# base_config: seed 0, max_jump 3), copied here: configs/ imports the JAX
+# package.  The corpus as the CLI's _load_data builds it.
+CRF_CORPUS = dict(n_utterances=400, n_concepts=40, n_phones=48, min_concepts=2,
+                  max_concepts=4, seed=0)
+CRF_FRAMES = dict(feat_dim=12, seed=0)
+CRF_MODEL = dict(max_jump=3, hidden=256, learning_rate=1e-3, n_sgd=4)
+CRF_ITERS, CRF_E2E_ITERS, DNN_ITERS = 10, 20, 10
+# alignment F1 and positional accuracy of the JAX reference on the CPU from
+# this script's initial parameters (hmm_dnn.init / hmm_crf.init_e2e with a
+# CPU generator seeded 0), carried across as numpy arrays with fresh Adam
+# states: tests/crf_reference.py
+REFERENCE_CRF_F1 = 0.95053  # hmm_crf_frames (P 0.93659, R 0.96489)
+REFERENCE_CRF_ACC = 0.96489
+REFERENCE_CRF_E2E_F1 = 0.96064  # hmm_crf_e2e (P 0.94561, R 0.97615)
+REFERENCE_DNN_F1 = 0.94252  # hmm_dnn on the hmm_crf_frames corpus (P 0.93188, R 0.95341)
 
 
 def _run(cmd: list[str]) -> str:
@@ -155,20 +206,45 @@ def _alternate(fns: dict, reps: int, rounds: int) -> dict[str, float]:
     return {k: float(np.median(v)) for k, v in ms.items()} | {"runs": ms}
 
 
-def _reset(*wrappers) -> None:
-    for w in wrappers:
-        w.launches = 0
+def _counters():
+    """(name, wrapper, attribute) of every kernel's launch count: each
+    wrapper adds one to the attribute where it launches that kernel."""
+    from multimodalworddiscovery_tpu_torch.ops import counts as k1
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
+    from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
+    from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
+
+    return (("table_lookup", k1.table_lookup, "launches"),
+            ("hmm_estep_counts", k24.hmm_estep_counts, "launches"),
+            ("hmm_estep_counts_bf16", k24.hmm_estep_counts, "launches_bf16"),
+            ("hmm_estep", k24.hmm_estep, "launches"),
+            ("hmm_estep_bf16", k24.hmm_estep, "launches_bf16"),
+            ("hmm_estep_remat", k24.hmm_estep, "launches_remat"),
+            ("viterbi", k3.viterbi, "launches"),
+            ("extract", k5.extract, "launches"),
+            ("mfcc_from_frames", k5.mfcc_from_frames, "launches"))
+
+
+def _reset(counters) -> None:
+    for _, w, attr in counters:
+        setattr(w, attr, 0)
+
+
+def _counts(counters) -> dict[str, int]:
+    return {name: getattr(w, attr) for name, w, attr in counters}
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+    operations (float32 ``ops`` over the float32 rate plus ``bf16_ops``,
+    products of bf16 operands summed in float32, over the bf16 tensor-core
+    rate), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -179,6 +255,16 @@ def _recursion_ops(src_len, s: int, per_step: int) -> float:
     backward product and xi accumulation are 2 + 2 + 3; Viterbi's add and
     max are 2)."""
     return float(per_step * s * s * int(src_len.sum()))
+
+
+def _estep_bound(nbytes: float, src_len, s: int, bf16: bool) -> dict:
+    """The E-step's bound: 7 S^2 float32 operations per valid
+    utterance-step; in bf16 the 6 of them in the three products (2 + 2 + 2:
+    forward, backward, xi's outer product) take bf16 operands and only xi's
+    multiply by the float32 exp(base0) stays float32."""
+    if not bf16:
+        return _bound(nbytes, _recursion_ops(src_len, s, 7))
+    return _bound(nbytes, _recursion_ops(src_len, s, 1), _recursion_ops(src_len, s, 6))
 
 
 def _mfcc_ops(cfg, kind: str, n_frames: int, n_samples: int) -> float:
@@ -209,10 +295,68 @@ def _estep_inputs(params, corpus):
     return concepts, (log_init, base, rowz, colmask)
 
 
-def parity(name, corpus, max_jump: int = 3) -> dict:
+def _posterior_check(what, name, got, want, bounds: dict, flips: bool = False) -> None:
+    """``got`` within ``bounds`` (allclose's rtol and atol) of ``want``; with
+    ``flips`` (see BF16_FLIP) only all but FLIP_SHARE of its elements, and
+    all within BF16_FLIP x its scale, printing how many elements, and of
+    gamma [N, Ts, S] how many utterances, lie outside ``bounds``."""
+    import torch
+
+    close = torch.isclose(got, want, **bounds)
+    tol = f"rtol {bounds['rtol']:g} atol {bounds['atol']:g}"
+    if not flips:
+        _check(bool(close.all()), f"{what} {name} {tol}")
+        return
+    out = ~close
+    n_out, allowed = int(out.sum()), math.ceil(FLIP_SHARE * out.numel())
+    where = (f" in {int(out.flatten(1).any(dim=1).sum())} of {got.shape[0]} utterances"
+             if got.dim() == 3 else "")
+    _check(n_out <= allowed, f"{what} {name}: {n_out} of {out.numel()} elements{where} "
+                             f"outside the float32 kernel's bounds ({tol}), at most {allowed}")
+    scale = max(float(want.abs().max()), 1.0)
+    _check(_max_abs(got, want) <= BF16_FLIP * scale, f"{what} {name} atol 2^-7 x {scale}")
+
+
+def _rounding_check(what, pairs) -> None:
+    """A bf16 kernel rounds: each (name, kernel output, its plain bf16
+    version, the float32 kernel's output) differs from float32 and lies
+    closer to the plain bf16 version than to float32."""
+    import torch
+
+    for name, got, plain_bf16, f32 in pairs:
+        d_plain, d_f32 = _max_abs(got, plain_bf16), _max_abs(got, f32)
+        _check(not torch.equal(got, f32) and d_plain < d_f32,
+               f"{what} {name} rounds in bf16: max abs err {d_plain} against its plain bf16 "
+               f"version, {d_f32} against the float32 kernel")
+
+
+def _k2_checks(what, out, want, n_pad: int) -> dict:
+    """K2's checks of one kernel run ``out`` against its plain version's
+    ``want``, both (counts, xi, logz): the max abs errors."""
+    import torch
+
+    counts, xi, logz = out
+    counts_p, xi_p, logz_p = want
+    errs = {"logz": _max_abs(logz, logz_p), "counts": _max_abs(counts, counts_p),
+            "xi": _max_abs(xi, xi_p)}
+    print(f"  {what} max abs err vs plain: {errs}")
+    _check(torch.allclose(logz, logz_p, rtol=1e-4, atol=1e-4), f"{what} logZ rtol 1e-4 atol 1e-4")
+    _check(bool((logz[-n_pad:] == 0).all()), f"{what} logZ = 0 on zero-length utterances")
+    ll, ll_p = float(logz.sum()), float(logz_p.sum())
+    _check(abs(ll - ll_p) <= 1e-6 * abs(ll_p),
+           f"{what} total loglik rtol 1e-6 ({ll} vs {ll_p})")
+    scale = max(float(counts_p.max()), 1.0)
+    _posterior_check(what, "emission counts", counts, counts_p,
+                     dict(rtol=0.0, atol=1e-4 * scale))
+    _posterior_check(what, "xi", xi, xi_p, dict(rtol=1e-4, atol=1e-3))
+    return errs
+
+
+def parity(name, corpus, max_jump: int = 3, bf16: bool = True) -> dict:
     """K1 and K2 against their plain versions on the card at the shape of
     the discrete ``corpus`` (on the card), with ZERO_LENGTH_PAD empty
-    utterances appended."""
+    utterances appended; with ``bf16`` also K2-bf16 against its plain bf16
+    version (K2's bounds) and against K2."""
     import torch
 
     from multimodalworddiscovery_tpu_torch.core.counts import pair_counts
@@ -238,19 +382,23 @@ def parity(name, corpus, max_jump: int = 3) -> dict:
     args = (log_init, base, rowz, colmask, emit, corpus.src, concepts,
             corpus.src_len, v_src, v_trg)
     counts, xi, logz = k2.hmm_estep_counts(*args)
-    counts_p, xi_p, logz_p = k2.hmm_estep_counts_plain(*args)
-    torch.cuda.synchronize()
-    errs = {"logz": _max_abs(logz, logz_p), "counts": _max_abs(counts, counts_p),
-            "xi": _max_abs(xi, xi_p)}
-    print(f"  K2 max abs err vs plain: {errs}")
-    _check(torch.allclose(logz, logz_p, rtol=1e-4, atol=1e-4), "K2 logZ rtol 1e-4 atol 1e-4")
-    _check(bool((logz[-ZERO_LENGTH_PAD:] == 0).all()), "K2 logZ = 0 on zero-length utterances")
-    ll, ll_p = float(logz.sum()), float(logz_p.sum())
-    _check(abs(ll - ll_p) <= 1e-6 * abs(ll_p),
-           f"K2 total loglik rtol 1e-6 ({ll} vs {ll_p})")
-    scale = max(float(counts_p.max()), 1.0)
-    _check(errs["counts"] <= 1e-4 * scale, f"K2 emission counts atol 1e-4 x {scale}")
-    _check(torch.allclose(xi, xi_p, rtol=1e-4, atol=1e-3), "K2 xi rtol 1e-4 atol 1e-3")
+    errs = _k2_checks("K2", (counts, xi, logz), k2.hmm_estep_counts_plain(*args),
+                      ZERO_LENGTH_PAD)
+    out = {"k1_err": k1_err, "k2_err": errs["logz"]}
+    if bf16:
+        got = k2.hmm_estep_counts(*args, dot_dtype="bfloat16")
+        want = k2.hmm_estep_counts_plain(*args, dot_dtype="bfloat16")
+        errs_bf = _k2_checks("K2-bf16", got, want, ZERO_LENGTH_PAD)
+        _rounding_check("K2-bf16", (("logZ", got[2], want[2], logz),
+                                    ("emission counts", got[0], want[0], counts)))
+        scale = max(float(counts.max()), 1.0)
+        print(f"  K2-bf16 against K2: max abs err logZ {_max_abs(got[2], logz)}, counts "
+              f"{_max_abs(got[0], counts)} (scale {scale})")
+        _check(torch.allclose(got[2], logz, **BF16_TOL), "K2-bf16 logZ within rtol 2e-2 "
+                                                         "atol 2e-2 of K2")
+        _check(torch.allclose(got[0], counts, rtol=2e-2, atol=2e-2 * scale),
+               "K2-bf16 counts within rtol 2e-2, atol 2e-2 x scale of K2's")
+        out["k2bf_err"] = errs_bf["logz"]
 
     # and against the dense plain E-step (the use_kernels=False route)
     gamma, wc_d, logz_d = hmm_core.estep(
@@ -263,39 +411,101 @@ def parity(name, corpus, max_jump: int = 3) -> dict:
     scale = max(float(counts_d.max()), 1.0)
     _check(_max_abs(counts, counts_d) <= 1e-4 * scale, "K2 counts vs dense fwd-bwd")
     _check(torch.allclose(wc, wc_d, rtol=1e-4, atol=1e-3), "K2 width counts vs dense fwd-bwd")
-    return {"k1_err": k1_err, "k2_err": errs["logz"]}
+    return out
 
 
-def k4_parity(name, inputs, reps: int) -> dict:
-    """K4 against its plain version on the card, and both timed.
-    ``inputs`` = (log_init, base, rowz, colmask, log_emit, src_len) with
-    ZERO_LENGTH_PAD empty utterances last.  Tolerances of
-    tests/test_hmm_estep_pallas.py:74-80."""
+def _k4_checks(what, out, want, n_pad: int, flips: bool = False) -> dict:
+    """K4's checks (tolerances of tests/test_hmm_estep_pallas.py:74-80) of
+    one kernel run ``out`` against ``want``, both (gamma, xi, logz); with
+    ``flips`` gamma and xi as BF16_FLIP says."""
+    import torch
+
+    gamma, xi, logz = out
+    gamma_p, xi_p, logz_p = want
+    errs = {"logz": _max_abs(logz, logz_p), "gamma": _max_abs(gamma, gamma_p),
+            "xi": _max_abs(xi, xi_p)}
+    print(f"  {what} max abs err vs plain: {errs}")
+    _check(torch.allclose(logz, logz_p, rtol=1e-4, atol=1e-4), f"{what} logZ rtol 1e-4 atol 1e-4")
+    _check(bool((logz[-n_pad:] == 0).all() and (gamma[-n_pad:] == 0).all()),
+           f"{what} logZ = 0 and gamma = 0 on zero-length utterances")
+    ll, ll_p = float(logz.sum()), float(logz_p.sum())
+    _check(abs(ll - ll_p) <= 1e-6 * abs(ll_p), f"{what} total loglik rtol 1e-6 ({ll} vs {ll_p})")
+    _posterior_check(what, "gamma", gamma, gamma_p, dict(rtol=1e-3, atol=1e-4), flips)
+    _posterior_check(what, "xi", xi, xi_p, dict(rtol=1e-3, atol=1e-3), flips)
+    return errs
+
+
+def k4_parity(name, inputs, reps: int, bf16_flips: bool = False) -> dict:
+    """K4, K4-bf16 and K6 against their plain versions on the card (K4-bf16's
+    gamma and xi as BF16_FLIP says with ``bf16_flips``), K4-bf16 against K4
+    (rtol 2e-2 atol 2e-2) and K6 against K4 at K6_CHUNKS (the reference's
+    remat bounds, tests/test_hmm_estep_pallas.py:241-261), and each timed
+    with its plain version.  ``inputs`` = (log_init, base, rowz, colmask,
+    log_emit, src_len) with ZERO_LENGTH_PAD empty utterances last."""
     import torch
 
     from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k4
 
     n, ts, s = inputs[4].shape
     print(f"K4 parity at {name}: N={n} (incl. {ZERO_LENGTH_PAD} empty), Ts={ts}, S={s}")
-    gamma, xi, logz = k4.hmm_estep(*inputs)
-    gamma_p, xi_p, logz_p = k4.hmm_estep_plain(*inputs)
-    torch.cuda.synchronize()
-    errs = {"logz": _max_abs(logz, logz_p), "gamma": _max_abs(gamma, gamma_p),
-            "xi": _max_abs(xi, xi_p)}
-    print(f"  K4 max abs err vs plain: {errs}")
-    _check(torch.allclose(logz, logz_p, rtol=1e-4, atol=1e-4), "K4 logZ rtol 1e-4 atol 1e-4")
-    _check(bool((logz[-ZERO_LENGTH_PAD:] == 0).all()
-                and (gamma[-ZERO_LENGTH_PAD:] == 0).all()),
-           "K4 logZ = 0 and gamma = 0 on zero-length utterances")
-    ll, ll_p = float(logz.sum()), float(logz_p.sum())
-    _check(abs(ll - ll_p) <= 1e-6 * abs(ll_p), f"K4 total loglik rtol 1e-6 ({ll} vs {ll_p})")
-    _check(torch.allclose(gamma, gamma_p, rtol=1e-3, atol=1e-4), "K4 gamma rtol 1e-3 atol 1e-4")
-    _check(torch.allclose(xi, xi_p, rtol=1e-3, atol=1e-3), "K4 xi rtol 1e-3 atol 1e-3")
-    bound = _bound(_nbytes(*inputs, gamma, xi, logz), _recursion_ops(inputs[5], s, 7))
-    del gamma, gamma_p
-    ms = _gpu_ms(lambda: k4.hmm_estep(*inputs), reps)
-    plain_ms = _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), max(reps // 10, 1))
-    return {"err": max(errs.values()), "ms": ms, "plain_ms": plain_ms} | bound
+    out = k4.hmm_estep(*inputs)
+    errs = _k4_checks("K4", out, k4.hmm_estep_plain(*inputs), ZERO_LENGTH_PAD)
+    gamma, xi, logz = out
+    nbytes = _nbytes(*inputs, gamma, xi, logz)
+    bound = _estep_bound(nbytes, inputs[5], s, bf16=False)
+    bound_bf = _estep_bound(nbytes, inputs[5], s, bf16=True)
+
+    bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16")
+    want = k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16")
+    errs_bf = _k4_checks("K4-bf16", bf, want, ZERO_LENGTH_PAD, flips=bf16_flips)
+    _rounding_check("K4-bf16", (("logZ", bf[2], want[2], logz),
+                                ("gamma", bf[0], want[0], gamma)))
+    del want
+    print(f"  K4-bf16 against K4: max abs err logZ {_max_abs(bf[2], logz)}, gamma "
+          f"{_max_abs(bf[0], gamma)}")
+    _check(torch.allclose(bf[2], logz, **BF16_TOL)
+           and torch.allclose(bf[0], gamma, **BF16_TOL),
+           "K4-bf16 logZ and gamma within rtol 2e-2 atol 2e-2 of K4's")
+    del bf
+
+    errs_k6, same = {}, []
+    for tc in K6_CHUNKS:
+        k6 = k4.hmm_estep(*inputs, remat=True, chunk_t=tc)
+        e = _k4_checks(f"K6 (chunk {tc})", k6,
+                       k4.hmm_estep_remat_plain(*inputs, chunk_t=tc), ZERO_LENGTH_PAD)
+        errs_k6 = {k: max(v, errs_k6.get(k, 0.0)) for k, v in e.items()}
+        g6, xi6, z6 = k6
+        bits = (torch.equal(z6, logz), torch.equal(g6, gamma))
+        same.append(bits)
+        print(f"  K6 (chunk {tc}) against K4: max abs err logZ {_max_abs(z6, logz)}, gamma "
+              f"{_max_abs(g6, gamma)}, xi {_max_abs(xi6, xi)}; logZ bit-identical {bits[0]}, "
+              f"gamma bit-identical {bits[1]}")
+        _check(torch.allclose(z6, logz, rtol=1e-5, atol=0)
+               and torch.allclose(g6, gamma, rtol=1e-4, atol=1e-5)
+               and torch.allclose(xi6, xi, rtol=1e-4, atol=1e-4),
+               f"K6 (chunk {tc}) against K4: logZ rtol 1e-5, gamma rtol 1e-4 atol 1e-5, "
+               f"xi rtol 1e-4 atol 1e-4")
+        del k6, g6
+    g6bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16", remat=True, chunk_t=K6_CHUNKS[1])
+    g4bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16")
+    _check(torch.allclose(g6bf[2], g4bf[2], rtol=1e-5, atol=0)
+           and torch.allclose(g6bf[0], g4bf[0], rtol=1e-4, atol=1e-5),
+           f"K6 in bf16 (chunk {K6_CHUNKS[1]}) against K4-bf16: logZ rtol 1e-5, gamma rtol "
+           f"1e-4 atol 1e-5")
+    del gamma, out, g6bf, g4bf
+    times = {
+        "ms": _gpu_ms(lambda: k4.hmm_estep(*inputs), reps),
+        "plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), max(reps // 10, 1)),
+        "bf16_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, dot_dtype="bfloat16"), reps),
+        "bf16_plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16"),
+                                 max(reps // 10, 1)),
+        "k6_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, remat=True), reps),
+        "k6_plain_ms": _gpu_ms(lambda: k4.hmm_estep_remat_plain(*inputs),
+                               max(reps // 10, 1)),
+    }
+    return {"err": max(errs.values()), "bf16_err": max(errs_bf.values()),
+            "k6_err": max(errs_k6.values()), "k6_bit_identical": same,
+            "bf16_bound": bound_bf} | times | bound
 
 
 def k3_parity(name, inputs, reps: int) -> dict:
@@ -340,7 +550,7 @@ def teacher_phase(fc, card: str) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     hmm_gaussian.init(fc, max_jump=MAX_JUMP, n_components=2, generator=gen)  # the jitter
     codes = hmm_gaussian.quantize_frames(fc, n_codes=N_CODES, generator=gen)
-    errs = parity("VQ teacher shape", codes, max_jump=MAX_JUMP)
+    errs = parity("VQ teacher shape", codes, max_jump=MAX_JUMP, bf16=False)
 
     p0 = hmm.init(codes, max_jump=MAX_JUMP)
     lw = hmm.train(p0, codes, EM_ITERS, use_kernels=True)[1].cpu().numpy()
@@ -380,7 +590,7 @@ def _as_float64(params):
         for f in dataclasses.fields(params) if f.name != "max_jump"})
 
 
-def headline_path(corpus, gold, use_kernels: bool):
+def headline_path(corpus, gold, use_kernels: bool, dot_dtype: str = "float32"):
     import torch
 
     from multimodalworddiscovery_tpu_torch.eval.metrics import alignment_prf
@@ -388,7 +598,8 @@ def headline_path(corpus, gold, use_kernels: bool):
     from multimodalworddiscovery_tpu_torch.segment import segment_corpus
 
     params = hmm.init(corpus)
-    params, lls = hmm.train(params, corpus, EM_ITERS, use_kernels=use_kernels)
+    params, lls = hmm.train(params, corpus, EM_ITERS, use_kernels=use_kernels,
+                            dot_dtype=dot_dtype)
     alignment = hmm.align(params, corpus, use_kernels=use_kernels)
     segs, seg_mask = segment_corpus(alignment, corpus)
     gold_t = torch.as_tensor(gold.alignment, device=corpus.device)
@@ -428,6 +639,136 @@ def gaussian_path(corpus, gold, params, use_kernels: bool):
         "prf": {k: float(v) for k, v in prf.items()},
         "boundary": {k: float(v) for k, v in bf.items()},
     }
+
+
+def crf_run(name: str, fc, fg, params, iters: int, use_kernels: bool,
+            dot_dtype: str = "float32") -> dict:
+    """Train ``params`` on the frame corpus ``fc`` with the aligner of
+    ``name`` (hmm_crf_frames, hmm_crf_e2e or hmm_dnn), decode through K3
+    (plain decoder with ``use_kernels=False``), and score; ms per iteration
+    by CUDA events around the training loop."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.eval.metrics import alignment_prf
+    from multimodalworddiscovery_tpu_torch.models import hmm_crf, hmm_dnn
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    if name == "hmm_dnn":
+        params, lls = hmm_dnn.train(params, fc, iters, use_kernels=use_kernels,
+                                    dot_dtype=dot_dtype)
+    else:
+        params, lls = hmm_crf.train(params, fc, iters, use_kernels=use_kernels,
+                                    dot_dtype=dot_dtype,
+                                    learn_transitions=name == "hmm_crf_e2e")
+    end.record()
+    alignment = hmm_crf.align(params, fc, use_kernels=use_kernels)
+    gold_t = torch.as_tensor(fg.alignment, device=fc.device)
+    prf = alignment_prf(alignment, gold_t, fc.src_mask())
+    mask = fc.src_mask() & (gold_t > 0)
+    acc = float((alignment == gold_t)[mask].float().mean())
+    torch.cuda.synchronize()
+    return {"lls": lls.cpu().numpy(), "prf": {k: float(v) for k, v in prf.items()},
+            "acc": acc, "ms_per_iter": start.elapsed_time(end) / iters,
+            "alignment": alignment}
+
+
+def _crf_grads(params, fc, use_kernels: bool):
+    """The MLP's gradient of the CRF's first Adam step: -logZ / frames
+    through ``logmarginal``."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.models import hmm_crf
+
+    n_frames = torch.clamp(fc.src_mask().sum(), min=1).to(torch.float32)
+    log_emit = hmm_crf._log_emit_from_mlp(params.mlp, fc)
+    loss = -hmm_crf.logmarginal(params.max_jump, use_kernels, "float32", params.log_jump,
+                                params.log_p0, log_emit, fc) / n_frames
+    return torch.autograd.grad(loss, list(params.mlp.parameters()))
+
+
+def crf_phase(card: str, counters, dev) -> dict:
+    """Paths 6 and 7 and hmm_dnn on configs/hmm_crf_frames.py's corpus: the
+    counted launches of each kernel run, and ms per iteration."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.models import hmm_crf, hmm_dnn
+
+    pc, pg, _ = make_flickr8k_mini(**CRF_CORPUS, device=dev)
+    fc, fg, _ = phones_to_frames(pc, pg, **CRF_FRAMES, device=dev)
+    print(f"CRF corpus (configs/hmm_crf_frames.py): N={fc.n}, Ts={fc.max_src_len}, "
+          f"S={2 * fc.max_trg_len}, C={fc.trg_vocab}, D={fc.src.shape[-1]}; model {CRF_MODEL}")
+
+    def initial(e2e: bool = False):
+        init = hmm_crf.init_e2e if e2e else hmm_dnn.init
+        return init(fc, **CRF_MODEL, generator=torch.Generator().manual_seed(SEED))
+
+    # the first Adam step's MLP gradient through K4 and through the plain path
+    p0 = initial()
+    g_k, g_p = _crf_grads(p0, fc, True), _crf_grads(p0, fc, False)
+    rel = max(_max_abs(a, b) / float(b.abs().max()) for a, b in zip(g_k, g_p))
+    print(f"  first Adam step's MLP gradient, K4 against plain: max abs err / max |grad| "
+          f"per tensor, largest {rel:.3e}")
+    _check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+               for a, b in zip(g_k, g_p)),
+           "first Adam step's MLP gradients through K4 within rtol 1e-4 (atol 1e-4 x the "
+           "tensor's largest entry) of the plain path's")
+
+    runs, launches = {}, {}
+    for key, name, iters, use_kernels, dot_dtype in (
+            ("crf K4", "hmm_crf_frames", CRF_ITERS, True, "float32"),
+            ("crf plain", "hmm_crf_frames", CRF_ITERS, False, "float32"),
+            ("crf K4-bf16", "hmm_crf_frames", CRF_ITERS, True, "bfloat16"),
+            ("dnn K4", "hmm_dnn", DNN_ITERS, True, "float32"),
+            ("e2e K4", "hmm_crf_e2e", CRF_E2E_ITERS, True, "float32")):
+        _reset(counters)
+        r = crf_run(name, fc, fg, initial(name == "hmm_crf_e2e"), iters, use_kernels, dot_dtype)
+        launches[key] = _counts(counters)
+        runs[key] = r
+        print(f"  {key} ({name}, {iters} iterations): loglik {r['lls'].tolist()}")
+        print(f"    alignment {r['prf']}, positional accuracy {r['acc']:.5f}, launches "
+              f"{launches[key]}")
+        print(f"    [{card}] {key}: {r['ms_per_iter']:.4f} ms per iteration (CUDA events)")
+        _check(bool(np.all(np.isfinite(r["lls"]))), f"{key} loglik finite")
+    n_sgd = CRF_MODEL["n_sgd"]
+    _check(launches["crf K4"]["hmm_estep"] == (n_sgd + 1) * CRF_ITERS
+           and launches["crf K4"]["viterbi"] == 1,
+           f"path 6: K4 launched {n_sgd + 1} times an iteration and K3 once")
+    _check(not any(launches["crf plain"].values()), "no kernel launched on the plain path")
+    _check(launches["crf K4-bf16"]["hmm_estep_bf16"] == (n_sgd + 1) * CRF_ITERS
+           and launches["crf K4-bf16"]["hmm_estep"] == 0,
+           f"path 6 in bf16: K4-bf16 launched {n_sgd + 1} times an iteration, K4 never")
+    _check(launches["dnn K4"]["hmm_estep"] == DNN_ITERS, "hmm_dnn: K4 once an iteration")
+    _check(launches["e2e K4"]["hmm_estep"] == (n_sgd + 1) * CRF_E2E_ITERS,
+           f"path 7: K4 launched {n_sgd + 1} times an iteration")
+    f1 = {k: r["prf"]["f1"] for k, r in runs.items()}
+    _check(abs(f1["crf K4"] - REFERENCE_CRF_F1) <= 0.01,
+           f"path 6 F1 within 0.01 of the JAX reference {REFERENCE_CRF_F1} ({f1['crf K4']:.5f})")
+    _check(abs(f1["crf K4"] - f1["crf plain"]) <= 0.01,
+           f"path 6 F1 within 0.01 of the plain path ({f1['crf K4']:.5f} vs "
+           f"{f1['crf plain']:.5f})")
+    _check(runs["crf K4"]["acc"] >= 0.90,
+           f"path 6 positional accuracy >= 0.90 ({runs['crf K4']['acc']:.5f}; JAX reference "
+           f"{REFERENCE_CRF_ACC})")
+    _check(abs(f1["crf K4-bf16"] - f1["crf K4"]) <= 0.01,
+           f"path 6 in bf16: F1 within 0.01 of float32 ({f1['crf K4-bf16']:.5f} vs "
+           f"{f1['crf K4']:.5f})")
+    _check(abs(f1["dnn K4"] - REFERENCE_DNN_F1) <= 0.01,
+           f"hmm_dnn F1 within 0.01 of the JAX reference {REFERENCE_DNN_F1} "
+           f"({f1['dnn K4']:.5f})")
+    _check(abs(f1["e2e K4"] - REFERENCE_CRF_E2E_F1) <= 0.01,
+           f"path 7 F1 within 0.01 of the JAX reference {REFERENCE_CRF_E2E_F1} "
+           f"({f1['e2e K4']:.5f})")
+    lls = runs["e2e K4"]["lls"]
+    _check(lls[-1] > lls[0], f"path 7 loglik rises from the first iteration to the last "
+                             f"({lls[0]} -> {lls[-1]})")
+    p_fit = initial()
+    _profile(lambda: hmm_crf.em_step(p_fit, fc), "one CRF iteration (hmm_crf_frames, "
+                                                 "4 Adam steps through K4, then the M-step)",
+             card)
+    return {"launches": launches, "ms": {k: r["ms_per_iter"] for k, r in runs.items()}}
 
 
 def _profile(fn, what: str, card: str) -> None:
@@ -550,10 +891,10 @@ def pipeline_phase(card: str, counters, synth) -> dict:
 
     runs = {}
     for use_kernels in (None, False):
-        _reset(*counters)
+        _reset(counters)
         out = rp.run_pipeline(n_utterances=PIPELINE_N, iters=PIPELINE_ITERS, device="cuda",
                               use_kernels=use_kernels, data=synth)
-        out["launches"] = {w.__name__: w.launches for w in counters}
+        out["launches"] = _counts(counters)
         runs["kernel" if use_kernels is None else "plain"] = out
     k, p = runs["kernel"], runs["plain"]
     print(f"waveform pipeline: shape {k['shape']}, {PIPELINE_ITERS} EM iterations")
@@ -659,8 +1000,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
-    kernels_all = (k1.table_lookup, k24.hmm_estep_counts, k24.hmm_estep, k3.viterbi,
-                   k5.extract, k5.mfcc_from_frames)
+    kernels_all = _counters()
 
     def elapsed() -> str:
         return f"[{time.perf_counter() - t_start:.1f} s]"
@@ -677,7 +1017,7 @@ def main() -> int:
 
     # --- K1 / K2 parity at the headline shape and at the K2 gate edge ---
     errs = parity("headline shape", make_flickr8k_mini(**HEADLINE)[0].to(dev))
-    parity("K2 gate edge (S=64)", make_flickr8k_mini(**GATE_EDGE)[0].to(dev))
+    errs_edge = parity("K2 gate edge (S=64)", make_flickr8k_mini(**GATE_EDGE)[0].to(dev))
     print(elapsed())
 
     # --- path 1: the headline discrete EM, kernels then plain ---
@@ -685,9 +1025,9 @@ def main() -> int:
     print(f"headline path: N={corpus.n}, Ts={corpus.max_src_len}, "
           f"S={2 * corpus.max_trg_len}, V_src={corpus.src_vocab}, "
           f"V_trg={corpus.trg_vocab}, {EM_ITERS} EM iterations")
-    _reset(*kernels_all)
+    _reset(kernels_all)
     kern = headline_path(corpus, gold, use_kernels=True)
-    launches_headline = {w.__name__: w.launches for w in kernels_all}
+    launches_headline = _counts(kernels_all)
     plain = headline_path(corpus, gold, use_kernels=False)
 
     lw = kern["lls"]
@@ -696,8 +1036,7 @@ def main() -> int:
     print(f"  kernel launches on the headline path: {launches_headline}")
     print(f"  kernel path alignment: {kern['prf']}")
     print(f"  plain path alignment:  {plain['prf']}")
-    _check(all(launches_headline[w.__name__] > 0 for w in (k1.table_lookup,
-                                                           k24.hmm_estep_counts, k3.viterbi)),
+    _check(all(launches_headline[w] > 0 for w in ("table_lookup", "hmm_estep_counts", "viterbi")),
            "K1, K2 and K3 launched on the headline path")
     _check(bool(np.all(np.isfinite(lw))), "loglik finite")
     _check(bool(np.all(np.diff(lw) > -1e-3 * np.abs(lw[:-1]))) and lw[-1] > lw[0],
@@ -743,8 +1082,9 @@ def main() -> int:
     k1_bound = _bound(_nbytes(params.log_emit, corpus.src, concepts, emit), 0)
     k2_ms = _gpu_ms(lambda: k24.hmm_estep_counts(*args), 20)
     k2_plain_ms = _gpu_ms(lambda: k24.hmm_estep_counts_plain(*args), 5)
-    k2_bound = _bound(_nbytes(*args[:8], *k24.hmm_estep_counts(*args)),
-                      _recursion_ops(corpus.src_len, concepts.shape[1], 7))
+    k2_bytes = _nbytes(*args[:8], *k24.hmm_estep_counts(*args))
+    k2_bound = _estep_bound(k2_bytes, corpus.src_len, concepts.shape[1], bf16=False)
+    k2bf_bound = _estep_bound(k2_bytes, corpus.src_len, concepts.shape[1], bf16=True)
     print(f"  [{card}] K1 table_lookup: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
           f"library gather {k1_library_ms:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms "
           f"({k1_bound['bound_by']})")
@@ -755,7 +1095,37 @@ def main() -> int:
     print(f"  [{card}] K3 viterbi at S=12: kernel {k3_s12['ms']:.4f} ms, "
           f"plain {k3_s12['plain_ms']:.4f} ms, bound {k3_s12['bound_ms']:.4f} ms "
           f"({k3_s12['bound_by']})")
-    del corpus, kern, plain, emit, args
+    k2bf_ms = _gpu_ms(lambda: k24.hmm_estep_counts(*args, dot_dtype="bfloat16"), 20)
+    k2bf_plain_ms = _gpu_ms(lambda: k24.hmm_estep_counts_plain(*args, dot_dtype="bfloat16"), 5)
+    print(f"  [{card}] K2-bf16 hmm_estep_counts(dot_dtype='bfloat16'): kernel {k2bf_ms:.4f} ms, "
+          f"plain {k2bf_plain_ms:.4f} ms, bound {k2bf_bound['bound_ms']:.4f} ms "
+          f"({k2bf_bound['bound_by']}; its products at the bf16 rate)")
+    del emit, args
+    print(elapsed())
+
+    # --- path 5: the headline EM at dot_dtype="bfloat16" (K1, K2-bf16, K3) ---
+    _reset(kernels_all)
+    kern_bf = headline_path(corpus, gold, use_kernels=True, dot_dtype="bfloat16")
+    launches_bf16 = _counts(kernels_all)
+    lb = kern_bf["lls"]
+    print(f"path 5 (headline EM, dot_dtype='bfloat16'): loglik per iteration {lb.tolist()}")
+    print(f"  alignment {kern_bf['prf']}; launches {launches_bf16}")
+    _check(launches_bf16["hmm_estep_counts_bf16"] == EM_ITERS
+           and launches_bf16["hmm_estep_counts"] == 0
+           and launches_bf16["table_lookup"] > 0 and launches_bf16["viterbi"] > 0,
+           "path 5: K1 and K3 launched, K2-bf16 on every EM iteration, K2 never")
+    _check(bool(np.all(np.isfinite(lb))), "path 5 loglik finite")
+    rel = (float(lb[-1]) - float(lw[-1])) / abs(float(lw[-1]))
+    _check(abs(rel) <= 1e-3, f"path 5 final loglik within rtol 1e-3 of the float32 kernel "
+                             f"path ({lb[-1]} vs {lw[-1]}, rel {rel:+.3e})")
+    f1_bf, f1_k = kern_bf["prf"]["f1"], kern["prf"]["f1"]
+    _check(abs(f1_bf - f1_k) <= 0.005, f"path 5 F1 within 0.005 of the float32 kernel path "
+                                       f"({f1_bf:.5f} vs {f1_k:.5f})")
+    em_bf = _gpu_ms(lambda: hmm.train(p0, corpus, EM_ITERS, use_kernels=True,
+                                      dot_dtype="bfloat16"), 2) / EM_ITERS
+    print(f"  [{card}] path 5 EM ms/iter (CUDA events, mean of 2 runs of {EM_ITERS} "
+          f"iterations): {em_bf:.4f}")
+    del corpus, kern, kern_bf, plain
     print(elapsed())
 
     # --- the stretch corpus (frames) ---
@@ -774,9 +1144,17 @@ def main() -> int:
                                         generator=torch.Generator().manual_seed(SEED))
     padded = fc.pad_to(fc.n + ZERO_LENGTH_PAD)
     _, fact = _estep_inputs(p_diag, padded)
-    k4_stretch = k4_parity("stretch shape (S=64)",
-                           (*fact, hmm_gaussian._log_emissions(p_diag, padded),
-                            padded.src_len), 5)
+    inputs64 = (*fact, hmm_gaussian._log_emissions(p_diag, padded), padded.src_len)
+    k4_stretch = k4_parity("stretch shape (S=64)", inputs64, 5, bf16_flips=True)
+    # K6 through its entry point, the way a caller reaches it (no model path
+    # passes remat=True): one E-step of these Gaussian emissions, counted
+    _reset(kernels_all)
+    k24.hmm_estep(*inputs64, remat=True)
+    torch.cuda.synchronize()
+    launches_k6 = _counts(kernels_all)
+    _check(launches_k6["hmm_estep_remat"] == 1 and launches_k6["hmm_estep"] == 0,
+           "K6 launched through hmm_estep(remat=True) at the stretch shape")
+    del inputs64
     _, fact = _estep_inputs(p_diag, fc)
     k3_stretch = k3_parity("stretch shape (S=64)",
                            (*fact, hmm_gaussian._log_emissions(p_diag, fc), fc.src_len), 10)
@@ -792,15 +1170,24 @@ def main() -> int:
                     ("K3 viterbi at S=64", k3_stretch), ("K3 viterbi at S=128", k3_128)):
         print(f"  [{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for s_, r in ((64, k4_stretch), (128, k4_128)):
+        b = r["bf16_bound"]
+        print(f"  [{card}] K4-bf16 hmm_estep(dot_dtype='bfloat16') at S={s_}: kernel "
+              f"{r['bf16_ms']:.4f} ms, plain {r['bf16_plain_ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; its products at the bf16 rate); K6 "
+              f"hmm_estep(remat=True, chunk_t=32) at S={s_}: kernel {r['k6_ms']:.4f} ms, plain "
+              f"{r['k6_plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"K4's); K6 logZ and gamma bit-identical to K4's at chunks {K6_CHUNKS}: "
+              f"{r['k6_bit_identical']}")
     del c128, inputs128
     print(elapsed())
 
     # --- path 2: the Gaussian parity run, kernels then plain ---
     print(f"Gaussian parity run: init_diagonal(max_jump={MAX_JUMP}, n_components=1), "
           f"{EM_ITERS} EM iterations, anneal={ANNEAL}")
-    _reset(*kernels_all)
+    _reset(kernels_all)
     g_kern = gaussian_path(fc, fg, p_diag, use_kernels=True)
-    launches_gauss = {w.__name__: w.launches for w in kernels_all}
+    launches_gauss = _counts(kernels_all)
     g_plain = gaussian_path(fc, fg, p_diag, use_kernels=False)
     lw = g_kern["lls"]
     print(f"  kernel-path loglik per iteration: {lw.tolist()}")
@@ -892,7 +1279,7 @@ def main() -> int:
           f"anneal={ANNEAL}")
     recipe = {}
     for use_kernels in (True, False):
-        _reset(*kernels_all)
+        _reset(kernels_all)
         t0 = time.perf_counter()
         pv = hmm_gaussian.init_vq_teacher(
             fc, max_jump=MAX_JUMP, n_components=2,
@@ -900,13 +1287,13 @@ def main() -> int:
             teacher_iters=EM_ITERS, seed_rounds=3, use_kernels=use_kernels,
         )
         torch.cuda.synchronize()
-        teacher_launches = {w.__name__: w.launches for w in kernels_all}
+        teacher_launches = _counts(kernels_all)
         t_seed = time.perf_counter() - t0
-        _reset(*kernels_all)
+        _reset(kernels_all)
         t0 = time.perf_counter()
         run = gaussian_path(fc, fg, pv, use_kernels=use_kernels)
         run["seconds"] = (t_seed, time.perf_counter() - t0)
-        run["launches"] = (teacher_launches, {w.__name__: w.launches for w in kernels_all})
+        run["launches"] = (teacher_launches, _counts(kernels_all))
         recipe[use_kernels] = run
         print(f"  {'kernel' if use_kernels else 'plain'} path: seeding {t_seed:.2f} s, "
               f"EM + decode {run['seconds'][1]:.2f} s, loglik {run['lls'].tolist()}")
@@ -941,11 +1328,19 @@ def main() -> int:
     # --- path 4: the waveform pipeline, kernels then plain ---
     pipe = pipeline_phase(card, kernels_all, synth)["launches"]
     extract_features_phase(here)
+    del synth
+    torch.cuda.empty_cache()
     print(elapsed())
 
-    launches = {name: launches_headline[name] + launches_gauss[name] + teach[name]
-                + gauss[name] + pipe[name] for name in launches_headline}
-    print(f"kernel launches, summed over the four paths' kernel runs: {launches}")
+    # --- paths 6 and 7: the DNN-HMM and CRF aligners ---
+    crf = crf_phase(card, kernels_all, dev)
+    print(elapsed())
+
+    runs = (launches_headline, launches_gauss, teach, gauss, pipe, launches_bf16, launches_k6,
+            *crf["launches"].values())
+    launches = {name: sum(r[name] for r in runs) for name in launches_headline}
+    print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run): "
+          f"{launches}")
     kernels = [
         {"name": "table_lookup", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/counts.cu",
@@ -959,6 +1354,12 @@ def main() -> int:
          "launches": launches["hmm_estep_counts"],
          "max_abs_err": max(errs["k2_err"], teacher["k2_err"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None},
+        {"name": "hmm_estep_counts_bf16", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:758",
+         "launches": launches["hmm_estep_counts_bf16"],
+         "max_abs_err": max(errs["k2bf_err"], errs_edge["k2bf_err"]),
+         "ms": k2bf_ms, "plain_ms": k2bf_plain_ms, **k2bf_bound, "library_ms": None},
         {"name": "viterbi", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/viterbi.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/viterbi_pallas.py:162",
@@ -973,12 +1374,25 @@ def main() -> int:
          "ms": k4_stretch["ms"], "plain_ms": k4_stretch["plain_ms"],
          "bound_ms": k4_stretch["bound_ms"], "bound_by": k4_stretch["bound_by"],
          "library_ms": None},
+        {"name": "hmm_estep_bf16", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",
+         "launches": launches["hmm_estep_bf16"], "max_abs_err": k4_stretch["bf16_err"],
+         "ms": k4_stretch["bf16_ms"], "plain_ms": k4_stretch["bf16_plain_ms"],
+         **k4_stretch["bf16_bound"], "library_ms": None},
         {"name": "mfcc", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/mfcc.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/mfcc_pallas.py:93",
          "launches": launches["extract"] + launches["mfcc_from_frames"],
          "max_abs_err": k5_r["err"], "ms": k5_r["ms"], "plain_ms": k5_r["plain_ms"],
          "bound_ms": k5_r["bound_ms"], "bound_by": k5_r["bound_by"], "library_ms": None},
+        {"name": "hmm_estep_remat", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",
+         "launches": launches["hmm_estep_remat"], "max_abs_err": k4_stretch["k6_err"],
+         "ms": k4_stretch["k6_ms"], "plain_ms": k4_stretch["k6_plain_ms"],
+         "bound_ms": k4_stretch["bound_ms"], "bound_by": k4_stretch["bound_by"],
+         "library_ms": None},
     ]
     print(f"total {elapsed()}")
     print(json.dumps({"kernels": kernels}))

@@ -17,16 +17,20 @@ a CPU corpus.
 
 Ported so far (slice 1, the headline discrete-HMM path; slice 2, the
 Gaussian-HMM aligner of the stretch config; slice 3, the speech frontend
-and config #4's waveform pipeline):
+and config #4's waveform pipeline; slice 4, the DNN-HMM and end-to-end CRF
+aligners and the bf16 and remat E-step variants):
 
 core      NEG_INF log-semiring helpers, masking, gather/scatter counts
 data      torch ``Corpus`` (ids or frames), ``GoldAnnotations``,
           ``make_flickr8k_mini``, ``phones_to_frames``, the waveform
           synthesizers and ``expand_gold_to_frames``
-ops       K1 emission lookup, K2 fused E-step, K4 general E-step, K3
-          Viterbi decode and K5 fused MFCC (CUDA) + plain versions
+ops       K1 emission lookup, K2 fused E-step, K4 general E-step (both
+          also in bf16), K6 remat E-step, K3 Viterbi decode and K5 fused
+          MFCC (CUDA) + plain versions
 models    hmm_core (state space, fwd/bwd, Viterbi), hmm (discrete EM,
-          align) and hmm_gaussian (GMM emissions, VQ teacher, annealed EM)
+          align), hmm_gaussian (GMM emissions, VQ teacher, annealed EM),
+          hmm_dnn (MLP emissions, generalized EM with Adam) and hmm_crf
+          (gradients through the E-step, CRF transition moments)
 frontend  speech (MFCC / log-mel, deltas, CMVN), vq (k-means quantizer)
 segment   alignment -> word units, boundaries
 eval      alignment, word IoU, boundary, purity and NMI metrics

@@ -5,6 +5,8 @@
   align(params, corpus) -> [N, Ts] int32   # 0 = NULL, else 1-based trg position
   loglik(params, corpus) -> scalar
 
-Ported so far: ``hmm`` (discrete HMM) and ``hmm_gaussian`` (Gaussian /
-GMM-emission HMM) on ``hmm_core``.
+Ported so far, on ``hmm_core``: ``hmm`` (discrete HMM), ``hmm_gaussian``
+(Gaussian / GMM-emission HMM), ``hmm_dnn`` (DNN-HMM hybrid, generalized EM)
+and ``hmm_crf`` (its end-to-end differentiable variant, optionally learning
+the transitions).
 """

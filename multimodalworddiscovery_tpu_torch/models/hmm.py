@@ -11,7 +11,8 @@ gate is the K1 lookup kernel (ops/counts.py) followed by the K2 fused
 E-step kernel (ops/hmm_fwdbwd.py), which hands back the pooled emission
 counts and transition posteriors; then one projection onto jump widths and
 the M-step.  Outside the gate it is K1, then K4, the general E-step kernel,
-then a scatter-add of its posteriors.  ``use_kernels=False`` runs the plain
+then a scatter-add of its posteriors.  ``dot_dtype="bfloat16"`` runs the
+bf16 variants of K2 and K4.  ``use_kernels=False`` runs the plain
 dense fwd-bwd (hmm_core.estep) and the same scatter-add.  Decode with
 ``use_kernels=True`` runs K3 (ops/viterbi.py).
 """
@@ -106,20 +107,13 @@ def estep_route(
     s: int, v_src: int, v_trg: int, use_kernels: bool, dot_dtype: str,
 ) -> str:
     """Which E-step runs: "fused" (K1 + K2), "general" (K1 + K4, then the
-    plain count scatter) or "plain" (hmm_core.estep).
-
-    Raises NotImplementedError for the bf16 variant, whose kernel is not
-    yet ported, instead of dropping silently to the plain path.
-    """
+    plain count scatter) or "plain" (hmm_core.estep, which ignores
+    ``dot_dtype``).  The kernel routes run in ``dot_dtype``: "bfloat16"
+    takes K2-bf16 or K4-bf16."""
     if not use_kernels:
         return "plain"
-    if dot_dtype == "bfloat16":
-        raise NotImplementedError(
-            "dot_dtype='bfloat16': the bf16 variant of the K2 E-step kernel "
-            "is not yet ported"
-        )
-    if dot_dtype != "float32":
-        raise ValueError(f"dot_dtype must be 'float32' or 'bfloat16', got {dot_dtype!r}")
+    if dot_dtype not in hmm_fwdbwd.DOT_DTYPES:
+        raise ValueError(f"dot_dtype must be one of {hmm_fwdbwd.DOT_DTYPES}, got {dot_dtype!r}")
     if (
         s <= FUSED_MAX_STATES
         and v_src <= FUSED_MAX_SRC_VOCAB
@@ -140,30 +134,30 @@ def expected_counts(
     Counts are additive across corpus shards.  ``use_kernels`` mirrors the
     reference's ``use_pallas``: inside the gate (S <= 64, V_src <= 128,
     V_trg <= 256) the step runs through K1 and K2, outside it through K1
-    and K4.  None means True on a CUDA corpus, so there
-    ``dot_dtype="bfloat16"`` raises NotImplementedError unless
-    ``use_kernels=False`` is passed: K2's bf16 variant is not yet ported.
+    and K4 (their bf16 variants with ``dot_dtype="bfloat16"``).  None means
+    True on a CUDA corpus.
     """
     v_src, v_trg = params.log_emit.shape
     concepts = hmm_core.state_concepts(corpus)  # [N, S]
     route = estep_route(concepts.shape[1], v_src, v_trg,
                         kernels_for(use_kernels, corpus.device), dot_dtype)
     if route == "fused":
-        return _expected_counts_fused(params, corpus, concepts)
+        return _expected_counts_fused(params, corpus, concepts, dot_dtype)
     if route == "general":
         log_emit = counts_ops.table_lookup(params.log_emit, corpus.src, concepts)
     else:
         log_emit = _log_emissions(params, corpus, concepts)
     gamma, width_counts, logz = hmm_core.estep(
         params.log_jump, params.log_p0, params.max_jump, log_emit, corpus,
-        use_kernels=route == "general",
+        use_kernels=route == "general", dot_dtype=dot_dtype,
     )
     emit_counts = pair_counts(gamma, corpus.src, concepts, v_src, v_trg)
     return (emit_counts, width_counts), logz.sum()
 
 
 def _expected_counts_fused(
-    params: HMMParams, corpus: Corpus, concepts: torch.Tensor
+    params: HMMParams, corpus: Corpus, concepts: torch.Tensor,
+    dot_dtype: str = "float32",
 ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Kernel E-step: K1 lookup -> K2 fwd-bwd with fused counts.  gamma
     never exists in device memory; only the small [N, S] factored-transition
@@ -176,7 +170,7 @@ def _expected_counts_fused(
     log_init = hmm_core.build_log_init(params.log_p0, corpus)
     emit_counts, xi_pooled, logz = hmm_fwdbwd.hmm_estep_counts(
         log_init, base, rowz, colmask, emit, corpus.src, concepts,
-        corpus.src_len, v_src, v_trg,
+        corpus.src_len, v_src, v_trg, dot_dtype,
     )
     width_counts = hmm_core.project_widths(
         xi_pooled, corpus.max_trg_len, params.max_jump

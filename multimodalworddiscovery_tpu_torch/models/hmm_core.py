@@ -160,6 +160,7 @@ def estep(
     log_emit: torch.Tensor,
     corpus: Corpus,
     use_kernels: bool | None = None,
+    dot_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared HMM E-step for every Vogel-transition aligner (discrete,
     Gaussian, DNN-hybrid emissions differ only in ``log_emit``).
@@ -168,15 +169,17 @@ def estep(
     expected jump counts (..., p0 slot, impossible slot), logz [N]).
 
     ``use_kernels=True`` routes through K4, the general E-step kernel
-    (``ops/hmm_fwdbwd.hmm_estep``: its plain version on a CPU corpus); the
-    dense plain path below is its oracle.  None means True on a CUDA corpus.
-    All outputs are additive across corpus shards.
+    (``ops/hmm_fwdbwd.hmm_estep``: its plain version on a CPU corpus), in
+    ``dot_dtype`` (``"bfloat16"``: K4-bf16); the dense plain path below is
+    its oracle and, like the reference's scan path, ignores ``dot_dtype``.
+    None means True on a CUDA corpus.  All outputs are additive across
+    corpus shards.
     """
     if kernels_for(use_kernels, corpus.device):
         base, rowz, colmask = factor_log_trans(log_jump, log_p0, corpus, max_jump)
         gamma, xi_pooled, logz = hmm_fwdbwd.hmm_estep(
             build_log_init(log_p0, corpus), base, rowz, colmask, log_emit,
-            corpus.src_len,
+            corpus.src_len, dot_dtype,
         )
         return gamma, project_widths(xi_pooled, corpus.max_trg_len, max_jump), logz
 

@@ -300,6 +300,7 @@ def expected_counts(
     corpus: Corpus,
     use_kernels: bool | None = None,
     emit_scale: float = 1.0,
+    dot_dtype: str = "float32",
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """E-step sufficient statistics, all additive across corpus shards:
 
@@ -308,7 +309,7 @@ def expected_counts(
       fsum/fsq [D], fcnt []     global feature moments (for the var floor)
 
     ``use_kernels=True`` runs the forward-backward through K4 (None: on a
-    CUDA corpus).
+    CUDA corpus), in ``dot_dtype`` ("bfloat16": K4-bf16).
     ``emit_scale`` < 1 is a deterministic-annealing E-step: the emission
     log-likelihoods are scaled by beta (``train``'s ``anneal`` ramps it).
     """
@@ -318,7 +319,7 @@ def expected_counts(
         log_emit = log_emit * emit_scale
     gamma, width_counts, logz = hmm_core.estep(
         params.log_jump, params.log_p0, params.max_jump, log_emit, corpus,
-        use_kernels=use_kernels,
+        use_kernels=use_kernels, dot_dtype=dot_dtype,
     )
     r = teacher_responsibilities(gamma, corpus)
     return _sufficient_stats(params, corpus, comp, r, width_counts), logz.sum()
@@ -362,10 +363,12 @@ def em_step(
     var_floor_rel: float = 1e-3,
     use_kernels: bool | None = None,
     emit_scale: float = 1.0,
+    dot_dtype: str = "float32",
 ) -> tuple[GaussianHMMParams, dict[str, torch.Tensor]]:
     """One EM iteration (expected_counts + m_step)."""
     counts, ll = expected_counts(
-        params, corpus, use_kernels=use_kernels, emit_scale=emit_scale
+        params, corpus, use_kernels=use_kernels, emit_scale=emit_scale,
+        dot_dtype=dot_dtype,
     )
     return m_step(params, counts, smoothing, var_floor, var_floor_rel), {"loglik": ll}
 
@@ -390,13 +393,15 @@ def train(
     num_iterations: int,
     use_kernels: bool | None = None,
     anneal: tuple[float, int] | None = None,
+    dot_dtype: str = "float32",
 ) -> tuple[GaussianHMMParams, torch.Tensor]:
     """``num_iterations`` EM steps -> (params, per-iteration logliks).
     ``anneal=(beta0, n_ramp)`` runs deterministic annealing (``anneal_scales``).
     The logliks stay on the device and are stacked once at the end."""
     lls = []
     for scale in anneal_scales(num_iterations, anneal):
-        params, stats = em_step(params, corpus, use_kernels=use_kernels, emit_scale=scale)
+        params, stats = em_step(params, corpus, use_kernels=use_kernels, emit_scale=scale,
+                                dot_dtype=dot_dtype)
         lls.append(stats["loglik"])
     if not lls:
         return params, torch.empty(0, device=corpus.device)

@@ -38,9 +38,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # each returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "mwd_table_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mwd_hmm_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mwd_hmm_bwd_counts": [_P] * 11 + [_I] * 5 + [_P],
-    "mwd_hmm_bwd_gamma": [_P] * 9 + [_I] * 3 + [_P],
+    "mwd_hmm_fwd": [_P] * 8 + [_I] * 4 + [_P],
+    "mwd_hmm_bwd_counts": [_P] * 11 + [_I] * 6 + [_P],
+    "mwd_hmm_bwd_gamma": [_P] * 9 + [_I] * 4 + [_P],
+    "mwd_hmm_fwd_ckpt": [_P] * 8 + [_I] * 5 + [_P],
+    "mwd_hmm_bwd_remat": [_P] * 10 + [_I] * 5 + [_P],
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
     "mwd_viterbi_bp_in_smem": [_I, _I],
     "mwd_mfcc": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],

@@ -6,13 +6,15 @@ without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
 from multimodalworddiscovery_tpu_torch.frontend import speech
-from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_gaussian
+from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_crf, hmm_dnn, hmm_gaussian
 from multimodalworddiscovery_tpu_torch.ops import counts as k1
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
 from multimodalworddiscovery_tpu_torch.ops import _build
@@ -97,12 +99,156 @@ def test_wrappers_validate_inputs(dev):
         k1.table_lookup(params.log_emit.t().contiguous().t(), corpus.src, concepts)
 
 
-def test_unported_route_raises_on_cuda(dev):
-    """K2's bf16 variant is not ported: asking for it raises on CUDA."""
-    corpus, _, _ = make_flickr8k_mini(**CASES["S12"], device=dev)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        hmm.expected_counts(hmm.init(corpus), corpus, use_kernels=True,
-                            dot_dtype="bfloat16")
+def test_bf16_routes_launch_the_bf16_kernels(dev):
+    """dot_dtype="bfloat16" on CUDA runs K2-bf16 inside the fused gate and
+    K4-bf16 outside it; an unknown dtype raises."""
+    for name, wrapper in (("S12", k2.hmm_estep_counts), ("S128", k2.hmm_estep)):
+        corpus, params, _, _ = _inputs(name, dev)
+        before = (wrapper.launches, wrapper.launches_bf16)
+        hmm.expected_counts(params, corpus, use_kernels=True, dot_dtype="bfloat16")
+        assert (wrapper.launches, wrapper.launches_bf16) == (before[0], before[1] + 1)
+    with pytest.raises(ValueError, match="dot_dtype"):
+        hmm.expected_counts(params, corpus, use_kernels=True, dot_dtype="float16")
+
+
+# A bf16 kernel against its plain bf16 version: the products are exact in
+# float32 on both sides, but the float32 operands entering each bf16
+# rounding differ in their last bits (another summation order, another
+# exp), so now and then one rounds the other way, 2^-8 relative, and shifts
+# that utterance's posteriors.  The posterior terms (counts, gamma, xi) are
+# held to the float32 kernel's bounds on all but FLIP_SHARE of their
+# elements (rounded up), and every element to 2^-7 of their scale, two such
+# ulps; logZ keeps the float32 bounds.
+BF16_FLIP = 2.0**-7
+FLIP_SHARE = 1e-3
+
+
+def _assert_close_but_flips(got, want, rtol, atol):
+    outside = int((~torch.isclose(got, want, rtol=rtol, atol=atol)).sum())
+    assert outside <= math.ceil(FLIP_SHARE * got.numel()), (outside, got.numel())
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=BF16_FLIP * scale)
+
+
+def _assert_rounds(got, plain_bf16, f32):
+    """A bf16 kernel's output shows its rounding: it differs from the
+    float32 kernel's and lies closer to its plain bf16 version than to it."""
+    d_plain = float((got - plain_bf16).abs().max())
+    d_f32 = float((got - f32).abs().max())
+    assert not torch.equal(got, f32) and d_plain < d_f32, (d_plain, d_f32)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k2_bf16_kernel_matches_plain(dev, name):
+    """K2-bf16 against its plain bf16 version with K2's bounds (the counts
+    and xi as FLIP_SHARE says), then against K2 in float32 within the
+    reference's bf16 bound, rtol 2e-2 atol 2e-2
+    (tests/test_hmm_estep_pallas.py:216-223), and closer to the plain bf16
+    version than to K2."""
+    corpus, params, concepts, (log_init, base, rowz, colmask) = _inputs(name, dev)
+    emit = k1.table_lookup(params.log_emit, corpus.src, concepts)
+    args = (log_init, base, rowz, colmask, emit, corpus.src, concepts,
+            corpus.src_len, *params.log_emit.shape)
+    before = k2.hmm_estep_counts.launches_bf16
+    counts, xi, logz = k2.hmm_estep_counts(*args, dot_dtype="bfloat16")
+    assert k2.hmm_estep_counts.launches_bf16 == before + 1
+    counts_p, xi_p, logz_p = k2.hmm_estep_counts_plain(*args, dot_dtype="bfloat16")
+    torch.testing.assert_close(logz, logz_p, rtol=1e-4, atol=1e-4)
+    assert torch.all(logz[-3:] == 0)
+    torch.testing.assert_close(logz.sum(), logz_p.sum(), rtol=1e-6, atol=0)
+    scale = max(float(counts_p.max()), 1.0)
+    _assert_close_but_flips(counts, counts_p, rtol=0, atol=1e-4 * scale)
+    _assert_close_but_flips(xi, xi_p, rtol=1e-4, atol=1e-3)
+    counts32, _, logz32 = k2.hmm_estep_counts(*args)
+    torch.testing.assert_close(logz, logz32, rtol=2e-2, atol=2e-2)
+    _assert_rounds(logz, logz_p, logz32)
+    _assert_rounds(counts, counts_p, counts32)
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_k4_bf16_kernel_matches_plain(dev, name):
+    """K4-bf16 against its plain bf16 version with K4's bounds (gamma and xi
+    as FLIP_SHARE says), against K4 within rtol 2e-2 atol 2e-2, and closer
+    to the plain bf16 version than to K4."""
+    corpus, params, concepts, (log_init, base, rowz, colmask) = _inputs(name, dev)
+    args = (log_init, base, rowz, colmask,
+            k1.table_lookup(params.log_emit, corpus.src, concepts), corpus.src_len)
+    before = k2.hmm_estep.launches_bf16
+    gamma, xi, logz = k2.hmm_estep(*args, dot_dtype="bfloat16")
+    assert k2.hmm_estep.launches_bf16 == before + 1
+    gamma_p, xi_p, logz_p = k2.hmm_estep_plain(*args, dot_dtype="bfloat16")
+    torch.testing.assert_close(logz, logz_p, rtol=1e-4, atol=1e-4)
+    assert torch.all(logz[-3:] == 0) and torch.all(gamma[-3:] == 0)
+    torch.testing.assert_close(logz.sum(), logz_p.sum(), rtol=1e-6, atol=0)
+    _assert_close_but_flips(gamma, gamma_p, rtol=1e-3, atol=1e-4)
+    _assert_close_but_flips(xi, xi_p, rtol=1e-3, atol=1e-3)
+    gamma32, _, logz32 = k2.hmm_estep(*args)
+    torch.testing.assert_close(logz, logz32, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(gamma, gamma32, rtol=2e-2, atol=2e-2)
+    _assert_rounds(logz, logz_p, logz32)
+    _assert_rounds(gamma, gamma_p, gamma32)
+
+
+@pytest.mark.parametrize("chunk_t", [11, 32])
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_k6_kernel_matches_plain_and_k4(dev, name, chunk_t):
+    """K6 (remat) against its plain version with K4's bounds (in bf16 as
+    FLIP_SHARE says, and closer to it than to K6 in float32), and against K4
+    in the same dtype with the reference's remat bounds (logZ rtol 1e-5,
+    gamma rtol 1e-4 atol 1e-5, xi rtol 1e-4 atol 1e-4;
+    tests/test_hmm_estep_pallas.py:241-261).  chunk_t = 11 divides none of
+    the cases' Ts (26, 60, 175)."""
+    corpus, params, concepts, (log_init, base, rowz, colmask) = _inputs(name, dev)
+    args = (log_init, base, rowz, colmask,
+            k1.table_lookup(params.log_emit, corpus.src, concepts), corpus.src_len)
+    assert corpus.max_src_len % 11 != 0
+    logz32 = None
+    for dot_dtype in ("float32", "bfloat16"):
+        before = k2.hmm_estep.launches_remat
+        gamma, xi, logz = k2.hmm_estep(*args, dot_dtype=dot_dtype, remat=True,
+                                       chunk_t=chunk_t)
+        assert k2.hmm_estep.launches_remat == before + 1
+        gamma_p, xi_p, logz_p = k2.hmm_estep_remat_plain(*args, dot_dtype, chunk_t)
+        torch.testing.assert_close(logz, logz_p, rtol=1e-4, atol=1e-4)
+        assert torch.all(logz[-3:] == 0) and torch.all(gamma[-3:] == 0)
+        if logz32 is None:
+            torch.testing.assert_close(gamma, gamma_p, rtol=1e-3, atol=1e-4)
+            torch.testing.assert_close(xi, xi_p, rtol=1e-3, atol=1e-3)
+            logz32 = logz
+        else:
+            _assert_close_but_flips(gamma, gamma_p, rtol=1e-3, atol=1e-4)
+            _assert_close_but_flips(xi, xi_p, rtol=1e-3, atol=1e-3)
+            _assert_rounds(logz, logz_p, logz32)
+        gamma4, xi4, logz4 = k2.hmm_estep(*args, dot_dtype=dot_dtype)
+        torch.testing.assert_close(logz, logz4, rtol=1e-5, atol=0)
+        torch.testing.assert_close(gamma, gamma4, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(xi, xi4, rtol=1e-4, atol=1e-4)
+
+
+def test_k6_rejects_a_chunk_longer_than_its_local_array(dev):
+    corpus, params, concepts, fact = _inputs("S12", dev)
+    args = (*fact, k1.table_lookup(params.log_emit, corpus.src, concepts), corpus.src_len)
+    with pytest.raises(ValueError, match="chunk_t"):
+        k2.hmm_estep(*args, remat=True, chunk_t=k2.MAX_CHUNK + 1)
+
+
+def test_crf_gradient_through_k4_matches_plain(dev):
+    """The CRF's MLP gradient through K4 (logmarginal on the card) against
+    the same gradient through the plain dense E-step: rtol 1e-4, with atol
+    1e-4 x the largest gradient entry for entries near 0."""
+    pc, pg, _ = make_flickr8k_mini(n_utterances=24, seed=31)
+    fc, _, _ = phones_to_frames(pc, pg, feat_dim=8, noise=0.1, seed=31, device=dev)
+    params = hmm_dnn.init(fc, hidden=32, n_sgd=3, generator=torch.Generator().manual_seed(0))
+    weights = list(params.mlp.parameters())
+    grads = {}
+    for use_kernels in (True, False):
+        before = k2.hmm_estep.launches
+        ll = hmm_crf.logmarginal(params.max_jump, use_kernels, "float32", params.log_jump,
+                                 params.log_p0, hmm_crf._log_emit_from_mlp(params.mlp, fc), fc)
+        grads[use_kernels] = torch.autograd.grad(ll, weights)
+        assert k2.hmm_estep.launches == before + int(use_kernels)
+    for g, g_p in zip(grads[True], grads[False]):
+        torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4 * float(g_p.abs().max()))
 
 
 @pytest.mark.parametrize("name", sorted(GENERAL_CASES))

@@ -237,3 +237,115 @@ def test_posteriors_match_jax(k4_case):
         thmm.posteriors(tp, tc).numpy(), np.asarray(jhmm.posteriors(jp, jc)),
         rtol=1e-3, atol=1e-5,
     )
+
+
+# --- the bf16 variants (K2-bf16, K4-bf16) and the remat E-step (K6) ---
+# Plain bf16 against the reference's bf16 kernels in interpret mode: both
+# round the same operands to bf16 and their products are exact in float32,
+# so K2's and K4's float32 tolerances above hold.  bf16 against float32:
+# the reference's bound, rtol 2e-2 atol 2e-2 (tests/test_hmm_estep_pallas.py
+# :216-223).  K6 against the reference's remat kernel and against the
+# streaming E-step: logZ rtol 1e-5, gamma rtol 1e-4 atol 1e-5, xi rtol 1e-4
+# atol 1e-4 (:241-261).
+
+
+def test_plain_k2_bf16_matches_fused_pallas_pipeline(case):
+    jc, jp, tc, tp = case
+    (ec_w, wc_w), ll_w = jhmm.expected_counts(jp, jc, use_pallas=True, interpret=True,
+                                              dot_dtype="bfloat16")
+    (ec_g, wc_g), ll_g = thmm.expected_counts(tp, tc, use_kernels=True, dot_dtype="bfloat16")
+    scale = max(float(np.max(ec_w)), 1.0)
+    np.testing.assert_allclose(ec_g.numpy(), np.asarray(ec_w), atol=1e-4 * scale)
+    np.testing.assert_allclose(wc_g.numpy(), np.asarray(wc_w), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(float(ll_g), float(ll_w), rtol=1e-6)
+
+
+def _jax_factored(jc, jp):
+    j_base, j_rowz, j_colmask = jcore.factor_log_trans(jp.log_jump, jp.log_p0, jc, jp.max_jump)
+    return (jcore.build_log_init(jp.log_p0, jc), j_base, j_rowz, j_colmask,
+            jhmm._log_emissions(jp, jc), jc.src_len)
+
+
+def test_plain_k4_bf16_matches_pallas_estep(k4_case):
+    jc, jp, tc, tp = k4_case
+    g_w, xi_w, logz_w = hmm_estep_pallas(*_jax_factored(jc, jp), dot_dtype="bfloat16",
+                                         interpret=True)
+    gamma, xi, logz = k2.hmm_estep(*_factored(tc, tp), thmm._log_emissions(tp, tc),
+                                   tc.src_len, dot_dtype="bfloat16")
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_w), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(logz.sum()), float(np.asarray(logz_w).sum()), rtol=1e-6)
+    np.testing.assert_allclose(gamma.numpy(), np.asarray(g_w), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(xi.numpy(), np.asarray(xi_w), rtol=1e-3, atol=1e-3)
+    assert torch.all(logz[-N_EMPTY:] == 0) and torch.all(gamma[-N_EMPTY:] == 0)
+
+
+def test_bf16_within_the_reference_bound_of_f32(k4_case):
+    jc, jp, tc, tp = k4_case
+    args = (*_factored(tc, tp), thmm._log_emissions(tp, tc), tc.src_len)
+    g32, _, z32 = k2.hmm_estep(*args)
+    g16, _, z16 = k2.hmm_estep(*args, dot_dtype="bfloat16")
+    assert not torch.equal(z16, z32)  # the variant really rounds
+    torch.testing.assert_close(z16, z32, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(g16, g32, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("chunk_t", [5, 11])
+def test_plain_k6_matches_pallas_remat_and_streaming(k4_case, chunk_t):
+    """chunk_t 11 divides none of the cases' Ts (18, 54, 175), 5 two of
+    them; the reference runs block_n=16, chunk_t=5 as its own test does."""
+    jc, jp, tc, tp = k4_case
+    g_w, xi_w, z_w = hmm_estep_pallas(*_jax_factored(jc, jp), remat=True, block_n=16,
+                                      chunk_t=5, interpret=True)
+    args = (*_factored(tc, tp), thmm._log_emissions(tp, tc), tc.src_len)
+    before = k2.hmm_estep.launches_remat
+    gamma, xi, logz = k2.hmm_estep(*args, remat=True, chunk_t=chunk_t)
+    assert k2.hmm_estep.launches_remat == before  # CPU tensors take the plain version
+    for want_g, want_xi, want_z in ((g_w, xi_w, z_w), k2.hmm_estep_plain(*args)):
+        np.testing.assert_allclose(logz.numpy(), np.asarray(want_z), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(gamma.numpy(), np.asarray(want_g), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(xi.numpy(), np.asarray(want_xi), rtol=1e-4, atol=1e-4)
+    assert torch.all(logz[-N_EMPTY:] == 0) and torch.all(gamma[-N_EMPTY:] == 0)
+
+
+def test_plain_k6_recomputes_the_streaming_alphas_bit_for_bit(k4_case):
+    """The remat plain version's chunk bookkeeping recomputes exactly the
+    streaming version's alphas, in float32 and in bf16, whether or not the
+    chunk divides Ts."""
+    _, _, tc, tp = k4_case
+    args = (*_factored(tc, tp), thmm._log_emissions(tp, tc), tc.src_len)
+    for dot_dtype in ("float32", "bfloat16"):
+        want = k2.hmm_estep_plain(*args, dot_dtype)
+        for chunk_t in (1, 4, 11, 64):
+            got = k2.hmm_estep_remat_plain(*args, dot_dtype, chunk_t)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (dot_dtype, chunk_t)
+
+
+def test_estep_options_are_validated(case):
+    _, _, tc, tp = case
+    args = (*_factored(tc, tp), thmm._log_emissions(tp, tc), tc.src_len)
+    with pytest.raises(ValueError, match="chunk_t"):
+        k2.hmm_estep(*args, remat=True, chunk_t=k2.MAX_CHUNK + 1)
+    with pytest.raises(ValueError, match="dot_dtype"):
+        k2.hmm_estep(*args, dot_dtype="float16")
+    with pytest.raises(ValueError, match="dot_dtype"):
+        thmm.expected_counts(tp, tc, use_kernels=True, dot_dtype="float16")
+
+
+def test_kernel_route_estep_threads_dot_dtype(k4_case):
+    """hmm_core.estep passes dot_dtype to K4's plain version on the kernel
+    route, and the plain dense route ignores it, as the reference's scan
+    path does."""
+    jc, jp, tc, tp = k4_case
+    emit = thmm._log_emissions(tp, tc)
+    g_w, wc_w, logz_w = jcore.estep(jp.log_jump, jp.log_p0, jp.max_jump,
+                                    jhmm._log_emissions(jp, jc), jc, use_pallas=True,
+                                    interpret=True, dot_dtype="bfloat16")
+    g, wc, logz = tcore.estep(tp.log_jump, tp.log_p0, tp.max_jump, emit, tc,
+                              use_kernels=True, dot_dtype="bfloat16")
+    np.testing.assert_allclose(logz.numpy(), np.asarray(logz_w), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_w), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(wc.numpy(), np.asarray(wc_w), rtol=1e-4, atol=1e-3)
+    dense = tcore.estep(tp.log_jump, tp.log_p0, tp.max_jump, emit, tc, use_kernels=False)
+    dense16 = tcore.estep(tp.log_jump, tp.log_p0, tp.max_jump, emit, tc, use_kernels=False,
+                          dot_dtype="bfloat16")
+    assert all(torch.equal(a, b) for a, b in zip(dense, dense16))

@@ -43,6 +43,8 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.models",
     "multimodalworddiscovery_tpu_torch.models.hmm",
     "multimodalworddiscovery_tpu_torch.models.hmm_core",
+    "multimodalworddiscovery_tpu_torch.models.hmm_crf",
+    "multimodalworddiscovery_tpu_torch.models.hmm_dnn",
     "multimodalworddiscovery_tpu_torch.models.hmm_gaussian",
     "multimodalworddiscovery_tpu_torch.ops",
     "multimodalworddiscovery_tpu_torch.ops._build",
@@ -58,7 +60,8 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.utils.audio",
     "chip_smoke",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodalworddiscovery_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_collections",
+             "multimodalworddiscovery_tpu")
 
 
 @pytest.fixture(scope="module")
@@ -176,9 +179,12 @@ def test_estep_route_gate():
     # outside the fused gate: K1 then K4, the general E-step kernel
     for s, v_src, v_trg in ((66, 49, 61), (12, 129, 61), (12, 49, 257)):
         assert route(s, v_src, v_trg, True, "float32") == "general"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        route(12, 49, 61, True, "bfloat16")
+    # dot_dtype="bfloat16" takes the same routes, through K2-bf16 / K4-bf16
+    assert route(12, 49, 61, True, "bfloat16") == "fused"
+    assert route(66, 49, 61, True, "bfloat16") == "general"
     assert route(12, 49, 61, False, "bfloat16") == "plain"
+    with pytest.raises(ValueError, match="dot_dtype"):
+        route(12, 49, 61, True, "float16")
 
 
 def test_expected_counts_cpu_outside_gate_uses_plain_estep():
