@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives seven paths through the kernels
-(the first four, and path 6, also through the plain path) on the same card:
+shapes the main paths give it, then drives nine paths through the kernels
+(paths 1-4, 6 and 8 also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
    N=8000 utterances, S=12 states): 10 EM iterations through K1 + K2, then
@@ -36,7 +36,19 @@ shapes the main paths give it, then drives seven paths through the kernels
    through K4-bf16; and ``hmm_dnn.train`` (the generalized-EM DNN-HMM) on
    the same corpus;
 7. ``configs/hmm_crf_e2e.py``: the same corpus, 20 iterations with the
-   transitions learned through the CRF moment gradient.
+   transitions learned through the CRF moment gradient;
+8. the dense-caption discrete HMM at the reference's S=128 row
+   (``scripts/bench_kernels.py:261-263``: N=512 utterances, Ts=181, S=128,
+   V_src=49, V_trg=401, outside K2's gate): 10 EM iterations through the
+   general route K1 -> K4 -> K7, decode through K3, segmentation and
+   alignment F1 against the JAX reference's value from the same
+   (deterministic) initial parameters, kernels and plain;
+9. the associative and blocked forward passes (``forward_associative``,
+   ``forward_blocked(block=16)``) with K8 as their combine, at
+   ``scripts/bench_assoc.py``'s S64 (N=256, Ts=147) and S128 (N=64, Ts=176)
+   shapes, held to the sequential plain forward and to K4's logZ; then the
+   port's ``scripts/bench_assoc.py`` and ``scripts/bench_kernels.py --only
+   counts log_matmul`` once each, with few repetitions.
 
 K1 and K2 are checked at the headline shape, at K2's gate edge and at the
 VQ teacher's shape (the recipe's code corpus: N=4000, Ts=401, S=64,
@@ -50,7 +62,14 @@ to the float32 kernel, and not equal to the latter).  K5 is
 checked at the pipeline's batch (N=2000 waveforms of
 28,160 samples, plus waveforms of 0, 399, 400 and 401 samples), for MFCCs
 and log-mels, and on 1000 frames; the ``extract_features speech`` command
-runs once on a small .npz under ``build/``.
+runs once on a small .npz under ``build/``.  K7 is checked on K4's
+posteriors at the headline shape and at path 8's; K8 at 512 x 512 and
+1024 x 1024 from 5 * normal, on the even / odd step-matrix slices that path
+9's scan hands it, on a synthetic row whose largest product lies 250 nats
+below its maximum (where the factored form underflows), and on the prefix
+products of path 9's step matrices (their widest row's span and the
+factored form's error there are printed); K8-bf16 against its plain bf16
+version, against K8 and as rounding.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after.  It then times kernels and paths against their plain versions with
@@ -158,6 +177,30 @@ REFERENCE_CRF_F1 = 0.95053  # hmm_crf_frames (P 0.93659, R 0.96489)
 REFERENCE_CRF_ACC = 0.96489
 REFERENCE_CRF_E2E_F1 = 0.96064  # hmm_crf_e2e (P 0.94561, R 0.97615)
 REFERENCE_DNN_F1 = 0.94252  # hmm_dnn on the hmm_crf_frames corpus (P 0.93188, R 0.95341)
+# path 8: the reference's dense-caption S=128 row (scripts/bench_kernels.py:
+# 261-263, docs/PERFORMANCE.md:115), outside K2's gate
+DENSE = dict(n_utterances=512, n_concepts=400, n_phones=48, min_concepts=48,
+             max_concepts=64, min_word_len=2, max_word_len=3, seed=2)
+# alignment F1 of the JAX reference on the CPU after 10 EM iterations from
+# hmm.init (deterministic, so the port starts from the same parameters) on
+# the DENSE corpus, its dense scan path, then hmm.align:
+# tests/discrete_reference.py (P 0.26373, R 0.27946)
+REFERENCE_DENSE_F1 = 0.27137
+REFERENCE_DENSE_LL = -287512.34  # its loglik at the 10th iteration
+K7_TOL = dict(rtol=1e-5)  # and atol 1e-4 x the largest count: atomics order the sums
+K8_SIZES = (512, 1024)  # scripts/bench_kernels.py:58's sizes where the library form fits
+K8_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_log_semiring_pallas.py:18
+K8_BF16_VS_F32 = 5e-2  # tests/test_log_semiring_pallas.py:67
+# K8-bf16 against its plain bf16 version: the two round exp(A - m_a) and
+# exp(B - m_b) to bf16 from float32 values whose last bits differ, so an
+# operand may round one bf16 ulp (<= 2^-7 relative) apart on each side of a
+# product: about 0.016 in log space
+K8_BF16_VS_PLAIN = 2e-2
+ASSOC_BLOCK = 16  # forward_blocked's default block
+# the exp rate of the special-function units: 16 a clock per SM against the
+# 128 fp32 FMAs (CUDA's throughput table for compute capability 9.0), an
+# eighth of the FMA rate, FP32_OPS_PER_S / 2 / 8
+EXP_PER_S = 67e12 / 2 / 8
 
 
 def _run(cmd: list[str]) -> str:
@@ -211,10 +254,14 @@ def _counters():
     wrapper adds one to the attribute where it launches that kernel."""
     from multimodalworddiscovery_tpu_torch.ops import counts as k1
     from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
+    from multimodalworddiscovery_tpu_torch.ops import log_semiring as k8
     from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
     from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
 
     return (("table_lookup", k1.table_lookup, "launches"),
+            ("pair_counts", k1.pair_counts, "launches"),
+            ("log_matmul", k8.log_matmul, "launches"),
+            ("log_matmul_bf16", k8.log_matmul, "launches_bf16"),
             ("hmm_estep_counts", k24.hmm_estep_counts, "launches"),
             ("hmm_estep_counts_bf16", k24.hmm_estep_counts, "launches_bf16"),
             ("hmm_estep", k24.hmm_estep, "launches"),
@@ -784,7 +831,9 @@ def _profile(fn, what: str, card: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"K5 mfcc": ("mwd_mfcc",), "K4 forward": ("mwd_hmm_fwd",),
+    families = {"K1 lookup": ("mwd_table_lookup",), "K7 pair counts": ("mwd_pair_counts",),
+                "K8 log_matmul": ("mwd_log_matmul",),
+                "K5 mfcc": ("mwd_mfcc",), "K4 forward": ("mwd_hmm_fwd",),
                 "K4 backward": ("mwd_hmm_bwd",), "K3 viterbi": ("mwd_viterbi",),
                 "fft": ("fft",), "matmul": ("gemm", "cutlass", "xmma"),
                 "softmax": ("softmax",), "reductions": ("reduce",),
@@ -964,6 +1013,321 @@ def extract_features_phase(here: str) -> None:
                    f"of the plain version on the CPU")
 
 
+def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict:
+    """K7 on K4's posteriors ``gamma`` against its plain version (rtol
+    1e-5, atol 1e-4 x the largest count) and the library scatter
+    (``torch.bincount`` on the pairs' flat ids, timed only as a yardstick;
+    the port never calls it); the three timed, and the bound of the call."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.ops import counts as k7
+
+    got = k7.pair_counts(gamma, src, concepts, f, e)
+    want = k7.pair_counts_plain(gamma, src, concepts, f, e)
+    flat = (src.long()[:, :, None] * e + concepts.long()[:, None, :]).reshape(-1)
+    weights = gamma.reshape(-1)
+    lib = torch.bincount(flat, weights=weights, minlength=f * e).reshape(f, e)
+    scale = float(want.max())
+    err = _max_abs(got, want)
+    nonzero = int((gamma != 0).sum())
+    print(f"K7 at {what}: gamma {tuple(gamma.shape)} ({nonzero} nonzero), counts [{f}, {e}]; "
+          f"max abs err vs plain {err} (largest count {scale}), vs bincount "
+          f"{_max_abs(got, lib)}")
+    _check(torch.allclose(got, want, atol=1e-4 * scale, **K7_TOL),
+           f"K7 at {what} within rtol 1e-5, atol 1e-4 x the largest count of plain")
+    r = {"err": err,
+         "ms": _gpu_ms(lambda: k7.pair_counts(gamma, src, concepts, f, e), reps),
+         "plain_ms": _gpu_ms(lambda: k7.pair_counts_plain(gamma, src, concepts, f, e), reps),
+         "library_ms": _gpu_ms(lambda: torch.bincount(flat, weights=weights,
+                                                      minlength=f * e), reps)}
+    # one add per element read; each input read once, the counts written once
+    return r | _bound(_nbytes(gamma, src, concepts, got), float(gamma.numel()))
+
+
+def _k8_bound(a, b, out, bf16: bool) -> dict:
+    """K8's bound: the bytes of a, b and out, or 2 I J K operations per
+    product (its terms' add and sum, a plain product's count) at the fp32
+    rate, or for the bf16 variant at the bf16 tensor-core rate; with the
+    exp-rate bound (one exp per term at EXP_PER_S) of the float32 kernel's
+    design beside it."""
+    nz = out.numel() // (out.shape[-1] * out.shape[-2])
+    terms = float(nz) * a.shape[-2] * a.shape[-1] * b.shape[-1]
+    ops = (0.0, 2 * terms) if bf16 else (2 * terms, 0.0)
+    return _bound(_nbytes(a, b, out), *ops) | {"exp_bound_ms": terms / EXP_PER_S * 1e3}
+
+
+def k8_check(what: str, a, b, want=None, bf16_too: bool = False, reps: int = 0,
+             library: bool = False) -> dict:
+    """K8 (and with ``bf16_too`` K8-bf16) against the plain versions on
+    ``a`` x ``b``: K8 within rtol 1e-4 atol 1e-4 of the broadcast oracle
+    (``want`` if given); K8-bf16 within 2e-2 of its plain bf16 version and
+    5e-2 of K8, and rounding.  With ``reps``, each timed with its plain
+    version and, with ``library``, the broadcast torch.logsumexp."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.ops import log_semiring as k8
+
+    got = k8.log_matmul(a, b)
+    if want is None:
+        want = k8.log_matmul_plain(a, b)
+    err = _max_abs(got, want)
+    live = want > -1e30 / 2
+    print(f"K8 at {what}: a {tuple(a.shape)} x b {tuple(b.shape)}; max abs err vs plain {err}; "
+          f"NEG_INF outputs {int((~live).sum())} of {want.numel()} (equal: "
+          f"{bool(torch.equal(got[~live], want[~live]))})")
+    _check(torch.allclose(got, want, **K8_TOL), f"K8 at {what} within rtol 1e-4 atol 1e-4 of "
+                                                f"the broadcast oracle")
+    r = {"err": err}
+    if bf16_too:
+        bf = k8.log_matmul(a, b, "bfloat16")
+        bf_plain = k8.log_matmul_plain(a, b, "bfloat16")
+        r["bf16_err"] = _max_abs(bf, bf_plain)
+        print(f"  K8-bf16: max abs err vs its plain bf16 version {r['bf16_err']}, vs K8 "
+              f"{_max_abs(bf, got)}")
+        _check(torch.allclose(bf, bf_plain, rtol=0, atol=K8_BF16_VS_PLAIN)
+               and torch.allclose(bf, got, rtol=0, atol=K8_BF16_VS_F32),
+               f"K8-bf16 at {what} within 2e-2 of its plain bf16 version and 5e-2 of K8")
+        _rounding_check(f"K8-bf16 at {what}", (("output", bf, bf_plain, got),))
+    if reps:
+        r |= {"ms": _gpu_ms(lambda: k8.log_matmul(a, b), reps),
+              "plain_ms": _gpu_ms(lambda: k8.log_matmul_plain(a, b), max(reps // 5, 1)),
+              "library_ms": (_gpu_ms(lambda: torch.logsumexp(a[..., :, :, None]
+                                                             + b[..., None, :, :], dim=-2),
+                                     max(reps // 5, 1)) if library else None)}
+        r |= _k8_bound(a, b, got, bf16=False)
+        if bf16_too:
+            r |= {"bf16_ms": _gpu_ms(lambda: k8.log_matmul(a, b, "bfloat16"), reps),
+                  "bf16_plain_ms": _gpu_ms(lambda: k8.log_matmul_plain(a, b, "bfloat16"),
+                                           max(reps // 5, 1)),
+                  "bf16_bound": _k8_bound(a, b, got, bf16=True)}
+    return r
+
+
+def _wide_range(dev):
+    """Row 0 of a spans 300 nats; its largest product a[0, k] + b[k, 0] is
+    -10, at k = 5, where a[0, 5] lies 250 nats below the row's maximum (the
+    factored form's exp(-250) is 0 in float32).  Other rows and columns are
+    5 * normal beside -300 entries."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    a = np.full((64, 96), -300.0, np.float32)
+    b = np.full((96, 48), -300.0, np.float32)
+    a[1:, :10] = 5 * rng.standard_normal((63, 10))
+    b[:10, 1:] = 5 * rng.standard_normal((10, 47))
+    a[0, 0], a[0, 5], b[0, 0], b[5, 0] = 0.0, -250.0, -400.0, 240.0
+    return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+
+
+def k8_phase(card: str, dev) -> dict:
+    """K8 and K8-bf16 at 512 and 1024 from 5 * normal (bench_kernels'
+    inputs) and on the synthetic wide-range rows; times and bounds at 1024,
+    the largest size where the broadcast library form fits."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    out = {}
+    for size in K8_SIZES:
+        a, b = (torch.as_tensor((5 * rng.standard_normal((size, size))).astype(np.float32),
+                                device=dev) for _ in range(2))
+        out[size] = k8_check(f"{size} x {size} (5 * normal)", a, b, bf16_too=True,
+                             reps=20 if size == K8_SIZES[-1] else 0, library=True)
+    a, b = _wide_range(dev)
+    want = torch.logsumexp(a.double()[:, :, None] + b.double()[None], dim=1).float()
+    _check(abs(float(want[0, 0]) + 10.0) < 1e-4, "wide-range input: its row 0's largest "
+                                                 "product is -10, 250 nats below a[0, 0]")
+    out["wide"] = k8_check("the synthetic wide-range rows (float64 oracle)", a, b, want=want)
+    r = out[K8_SIZES[-1]]
+    print(f"  [{card}] K8 log_matmul at {K8_SIZES[-1]}^3: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+          f"ms ({r['bound_by']}), exp-rate bound {r['exp_bound_ms']:.4f} ms")
+    b = r["bf16_bound"]
+    print(f"  [{card}] K8-bf16 log_matmul(dot_dtype='bfloat16') at {K8_SIZES[-1]}^3: kernel "
+          f"{r['bf16_ms']:.4f} ms, plain {r['bf16_plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']}; its products at the bf16 rate)")
+    return out
+
+
+def dense_phase(card: str, counters, dev) -> dict:
+    """Path 8: the dense-caption discrete EM through K1 -> K4 -> K7, decode
+    through K3, segmentation and F1, kernels then plain; K7 at this shape;
+    EM times and a profile of one iteration."""
+    import numpy as np
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm
+    from multimodalworddiscovery_tpu_torch.ops import counts as k1
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
+
+    corpus, gold, _ = make_flickr8k_mini(**DENSE, device=dev)
+    s, v_src, v_trg = 2 * corpus.max_trg_len, corpus.src_vocab, corpus.trg_vocab
+    route = hmm.estep_route(s, v_src, v_trg, True, "float32")
+    print(f"path 8 (dense-caption discrete EM): N={corpus.n}, Ts={corpus.max_src_len}, S={s}, "
+          f"V_src={v_src}, V_trg={v_trg}, {int(corpus.src_len.sum())} valid steps; E-step route "
+          f"{route!r}, {EM_ITERS} EM iterations")
+    _check(route == "general", "path 8 takes the general route (outside K2's gate)")
+    _reset(counters)
+    kern = headline_path(corpus, gold, use_kernels=True)
+    launches = _counts(counters)
+    plain = headline_path(corpus, gold, use_kernels=False)
+    lw, lp = kern["lls"], plain["lls"]
+    print(f"  kernel-path loglik per iteration: {lw.tolist()}")
+    print(f"  plain-path loglik per iteration:  {lp.tolist()}")
+    print(f"  kernel launches on path 8: {launches}")
+    print(f"  kernel path alignment: {kern['prf']}")
+    print(f"  plain path alignment:  {plain['prf']}")
+    _check(launches["pair_counts"] == EM_ITERS and launches["hmm_estep"] == EM_ITERS
+           and launches["table_lookup"] == EM_ITERS and launches["viterbi"] == 1
+           and launches["hmm_estep_counts"] == 0 and launches["hmm_estep_counts_bf16"] == 0,
+           f"path 8: K1, K4 and K7 launched once per EM iteration ({EM_ITERS} K7 launches), K3 "
+           f"once, K2 never")
+    _check(bool(np.all(np.isfinite(lw))), "path 8 loglik finite")
+    _check(bool(np.all(np.diff(lw) > -1e-3 * np.abs(lw[:-1]))) and lw[-1] > lw[0],
+           "path 8 loglik monotone within bench.py's bound and improving")
+    ll, ll_p = float(lw[-1]), float(lp[-1])
+    _check(abs(ll - ll_p) <= 1e-4 * abs(ll_p),
+           f"path 8 final loglik within rtol 1e-4 of plain ({ll} vs {ll_p}; JAX reference "
+           f"{REFERENCE_DENSE_LL})")
+    f1, f1_p = kern["prf"]["f1"], plain["prf"]["f1"]
+    _check(abs(f1 - f1_p) <= 0.002, f"path 8 F1 within 0.002 of plain ({f1:.5f} vs {f1_p:.5f})")
+    _check(abs(f1 - REFERENCE_DENSE_F1) <= 0.005,
+           f"path 8 F1 within 0.005 of the JAX reference {REFERENCE_DENSE_F1} ({f1:.5f})")
+
+    # K7 on K4's posteriors from the trained parameters
+    params = kern["params"]
+    concepts, fact = _estep_inputs(params, corpus)
+    gamma = k24.hmm_estep(*fact, k1.table_lookup(params.log_emit, corpus.src, concepts),
+                          corpus.src_len)[0]
+    k7 = k7_check("path 8's shape", gamma, corpus.src, concepts, v_src, v_trg, 20)
+    del gamma
+    p0 = hmm.init(corpus)
+    em = _alternate({
+        "plain": lambda: hmm.train(p0, corpus, EM_ITERS, use_kernels=False),
+        "kernels": lambda: hmm.train(p0, corpus, EM_ITERS, use_kernels=True),
+    }, reps=1, rounds=1)
+    ms_k, ms_p = em["kernels"] / EM_ITERS, em["plain"] / EM_ITERS
+    print(f"  [{card}] path 8 EM ms/iter, median of 2 runs of {EM_ITERS} iterations: kernel path "
+          f"{ms_k:.4f}, plain path {ms_p:.4f} (all runs: {em['runs']}); K7 {k7['ms']:.4f} ms, "
+          f"{k7['ms'] / ms_k:.4f} of the kernel path's iteration")
+    print(f"  [{card}] K7 pair_counts at path 8's shape: kernel {k7['ms']:.4f} ms, plain "
+          f"{k7['plain_ms']:.4f} ms, library bincount {k7['library_ms']:.4f} ms, bound "
+          f"{k7['bound_ms']:.4f} ms ({k7['bound_by']})")
+    _profile(lambda: hmm.em_step(p0, corpus), "one path 8 EM iteration (K1, K4, K7, M-step)", card)
+    return {"launches": launches, "k7": k7, "ms_per_iter": (ms_k, ms_p)}
+
+
+def assoc_phase(card: str, counters, dev) -> dict:
+    """Path 9: forward_associative and forward_blocked through K8 at
+    bench_assoc's shapes against the sequential plain forward (logZ rtol
+    1e-4, alphas rtol 1e-3 atol 1e-3 at valid positions) and K4's logZ; K8
+    on the scan's first even / odd slices and on the prefix products of the
+    step matrices; times of the forwards."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
+    from multimodalworddiscovery_tpu_torch.ops import log_semiring as k8
+    from multimodalworddiscovery_tpu_torch.scripts import bench_assoc
+
+    launches, out = None, {}
+    for label, gen in bench_assoc.SHAPES:
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        # trained emissions: peaked, so the prefix products spread further
+        params = hmm.train(hmm.init(corpus), corpus, EM_ITERS)[0]
+        log_init, log_trans, log_emit = hmm._machinery(params, corpus)
+        args = (log_init, log_trans, log_emit, corpus.src_len)
+        n, ts, s = log_emit.shape
+        print(f"path 9 at {label}: N={n}, Ts={ts}, S={s}, parameters after {EM_ITERS} EM "
+              f"iterations from hmm.init")
+        alphas, logz = hmm_core.forward(*args)
+        _, fact = _estep_inputs(params, corpus)
+        logz4 = k24.hmm_estep(*fact, log_emit, corpus.src_len)[2]
+        valid = ((torch.arange(ts, device=dev)[:, None, None] < corpus.src_len[None, :, None])
+                 & hmm_core.state_mask(corpus)[None])
+        _reset(counters)
+        runs = {"associative": hmm_core.forward_associative(*args),
+                f"blocked({ASSOC_BLOCK})": hmm_core.forward_blocked(*args, block=ASSOC_BLOCK)}
+        torch.cuda.synchronize()
+        got = _counts(counters)
+        print(f"  kernel launches: {got}")
+        _check(got["log_matmul"] > 0 and sum(got.values()) == got["log_matmul"],
+               f"path 9 at {label}: the combines launched K8 and nothing else")
+        launches = got if launches is None else {k: v + got[k] for k, v in launches.items()}
+        for name, (a, z) in runs.items():
+            rel = float(((z - logz).abs() / logz.abs().clamp(min=1e-30)).max())
+            rel4 = float(((z - logz4).abs() / logz4.abs().clamp(min=1e-30)).max())
+            err = _max_abs(a[valid], alphas[valid])
+            print(f"  {name}: logZ max rel err vs sequential {rel:.3e}, vs K4 {rel4:.3e}; "
+                  f"alphas max abs err at valid positions {err}")
+            _check(torch.allclose(z, logz, rtol=1e-4, atol=0)
+                   and torch.allclose(z, logz4, rtol=1e-4, atol=0),
+                   f"path 9 {name} at {label}: logZ within rtol 1e-4 of the sequential forward "
+                   f"and of K4")
+            _check(torch.allclose(a[valid], alphas[valid], rtol=1e-3, atol=1e-3),
+                   f"path 9 {name} at {label}: alphas within rtol 1e-3 atol 1e-3 at valid "
+                   f"(t, state) positions")
+        del runs
+        m = hmm_core.step_matrices(log_trans, log_emit, corpus.src_len)
+        r = k8_check(f"path 9's first combine at {label}", m[0:-1:2], m[1::2], reps=5)
+        prefixes = hmm_core.associative_scan(k8.log_matmul, m)
+        live = prefixes > -1e30 / 2
+        span = (torch.where(live, prefixes, -torch.inf).amax(-1)
+                - torch.where(live, prefixes, torch.inf).amin(-1))
+        print(f"  prefix products at {label}: widest row spans {float(span.max()):.1f} nats, "
+              f"{float(live.float().mean()):.4f} of entries above NEG_INF")
+        want = k8.log_matmul_plain(prefixes[:-1], m[1:])
+        r["prefix_err"] = k8_check(f"path 9's prefix products at {label}", prefixes[:-1],
+                                   m[1:], want=want)["err"]
+        bf = k8.log_matmul(prefixes[:-1], m[1:], "bfloat16")
+        print(f"  the factored form there (K8-bf16): max abs err {_max_abs(bf, want):.4g} "
+              f"against the oracle; {int(((bf - want).abs() > 1.0).sum())} of {want.numel()} "
+              f"outputs off by more than 1 nat")
+        bcast = 4.0 * ((ts - 1) // 2) * n * s**3
+        del m, prefixes, span, live, want, bf
+        times = {"sequential plain": lambda: hmm_core.forward(*args),
+                 "K4 E-step": lambda: k24.hmm_estep(*fact, log_emit, corpus.src_len),
+                 "associative (K8)": lambda: hmm_core.forward_associative(*args),
+                 "associative (plain)": lambda: hmm_core.forward_associative(
+                     *args, use_kernels=False),
+                 f"blocked({ASSOC_BLOCK}) (K8)": lambda: hmm_core.forward_blocked(
+                     *args, block=ASSOC_BLOCK)}
+        r["times"] = {k: _gpu_ms(fn, 1) for k, fn in times.items()}
+        print(f"  [{card}] path 9 at {label}, ms per call (CUDA events): {r['times']}")
+        print(f"  [{card}] K8 at the first combine: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), exp-rate "
+              f"bound {r['exp_bound_ms']:.4f} ms; library broadcast: not run (its [B, I, K, J] "
+              f"sum would take {bcast:.3g} bytes)")
+        out[label] = r
+        if label == bench_assoc.SHAPES[-1][0]:
+            _profile(lambda: hmm_core.forward_associative(*args),
+                     f"forward_associative at {label} (K8 combines)", card)
+        del corpus, params, args, alphas, fact
+        torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": out}
+
+
+def bench_phase(here: str, counters) -> dict:
+    """The port's bench_kernels (counts, log_matmul) and bench_assoc, once
+    each with few repetitions, records under build/chip_smoke/; K8-bf16's
+    launches come from bench_kernels' log_matmul entry, its entry point."""
+    from multimodalworddiscovery_tpu_torch.scripts import bench_assoc, bench_kernels
+
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    _reset(counters)
+    bench_kernels.main(["--only", "counts", "log_matmul", "--reps", "3",
+                        "--out", os.path.join(out_dir, "bench_kernels.jsonl")])
+    launches = _counts(counters)
+    print(f"  kernel launches in bench_kernels --only counts log_matmul: {launches}")
+    _check(launches["pair_counts"] > 0 and launches["log_matmul"] > 0
+           and launches["log_matmul_bf16"] > 0,
+           "bench_kernels launched K7, K8 and K8-bf16")
+    bench_assoc.main(["--reps", "2", "--out", os.path.join(out_dir, "bench_assoc.jsonl")])
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1100,7 +1464,14 @@ def main() -> int:
     print(f"  [{card}] K2-bf16 hmm_estep_counts(dot_dtype='bfloat16'): kernel {k2bf_ms:.4f} ms, "
           f"plain {k2bf_plain_ms:.4f} ms, bound {k2bf_bound['bound_ms']:.4f} ms "
           f"({k2bf_bound['bound_by']}; its products at the bf16 rate)")
-    del emit, args
+    # K7 on K4's posteriors at the headline shape
+    gamma = k24.hmm_estep(log_init, base, rowz, colmask, emit, corpus.src_len)[0]
+    k7_head = k7_check("the headline shape", gamma, corpus.src, concepts,
+                       *params.log_emit.shape, 20)
+    print(f"  [{card}] K7 pair_counts at the headline shape: kernel {k7_head['ms']:.4f} ms, "
+          f"plain {k7_head['plain_ms']:.4f} ms, library bincount {k7_head['library_ms']:.4f} ms, "
+          f"bound {k7_head['bound_ms']:.4f} ms ({k7_head['bound_by']})")
+    del emit, args, gamma
     print(elapsed())
 
     # --- path 5: the headline EM at dot_dtype="bfloat16" (K1, K2-bf16, K3) ---
@@ -1334,13 +1705,37 @@ def main() -> int:
 
     # --- paths 6 and 7: the DNN-HMM and CRF aligners ---
     crf = crf_phase(card, kernels_all, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- K8 and K8-bf16 at bench_kernels' sizes and on wide-range rows ---
+    k8_r = k8_phase(card, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 8: the dense-caption discrete EM (K1 -> K4 -> K7), kernels then plain ---
+    dense = dense_phase(card, kernels_all, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 9: the associative and blocked forwards through K8 ---
+    assoc = assoc_phase(card, kernels_all, dev)
+    print(elapsed())
+
+    # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---
+    launches_bench = bench_phase(here, kernels_all)
+    torch.cuda.empty_cache()
     print(elapsed())
 
     runs = (launches_headline, launches_gauss, teach, gauss, pipe, launches_bf16, launches_k6,
-            *crf["launches"].values())
+            *crf["launches"].values(), dense["launches"], assoc["launches"])
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
-    print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run): "
-          f"{launches}")
+    launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
+    print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
+          f"K8-bf16: bench_kernels' log_matmul entry, its entry point): {launches}")
+    k8_big = k8_r[K8_SIZES[-1]]
+    k8_errs = [r["err"] for r in k8_r.values()] + [
+        e for r in assoc["shapes"].values() for e in (r["err"], r["prefix_err"])]
     kernels = [
         {"name": "table_lookup", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/counts.cu",
@@ -1393,6 +1788,28 @@ def main() -> int:
          "ms": k4_stretch["k6_ms"], "plain_ms": k4_stretch["k6_plain_ms"],
          "bound_ms": k4_stretch["bound_ms"], "bound_by": k4_stretch["bound_by"],
          "library_ms": None},
+        {"name": "pair_counts", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/counts.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/counts_pallas.py:200",
+         "launches": launches["pair_counts"],
+         "max_abs_err": max(k7_head["err"], dense["k7"]["err"]),
+         "ms": dense["k7"]["ms"], "plain_ms": dense["k7"]["plain_ms"],
+         "bound_ms": dense["k7"]["bound_ms"], "bound_by": dense["k7"]["bound_by"],
+         "library_ms": dense["k7"]["library_ms"]},
+        {"name": "log_matmul", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/log_semiring.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/log_semiring.py:90",
+         "launches": launches["log_matmul"], "max_abs_err": max(k8_errs),
+         "ms": k8_big["ms"], "plain_ms": k8_big["plain_ms"], "bound_ms": k8_big["bound_ms"],
+         "bound_by": k8_big["bound_by"], "library_ms": k8_big["library_ms"]},
+        {"name": "log_matmul_bf16", "route": "cuda",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/log_semiring.cu",
+         "replaces": "multimodalworddiscovery_tpu/ops/log_semiring.py:90",
+         "launches": launches["log_matmul_bf16"],
+         "max_abs_err": max(k8_r[n]["bf16_err"] for n in K8_SIZES),
+         "ms": k8_big["bf16_ms"], "plain_ms": k8_big["bf16_plain_ms"],
+         "bound_ms": k8_big["bf16_bound"]["bound_ms"],
+         "bound_by": k8_big["bf16_bound"]["bound_by"], "library_ms": k8_big["library_ms"]},
     ]
     print(f"total {elapsed()}")
     print(json.dumps({"kernels": kernels}))

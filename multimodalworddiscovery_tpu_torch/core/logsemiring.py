@@ -36,3 +36,33 @@ def log_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     z = masked_logsumexp(x, dim=dim, keepdim=True)
     z = torch.where(z > NEG_INF / 2, z, 0.0)  # avoid NEG_INF - NEG_INF
     return x - z
+
+
+# Bytes of the broadcast [rows, K, J] block ``log_matmul`` builds at a time.
+LOG_MATMUL_CHUNK_BYTES = 1 << 28
+
+
+def log_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Log-semiring "matmul": out[..., i, j] = logsumexp_k a[..., i, k] + b[..., k, j].
+
+    The broadcast form of the reference (``core/logsemiring.log_matmul``),
+    with its masking: a row or column of all NEG_INF gives NEG_INF, never
+    nan.  Leading dimensions broadcast.  The [..., I, K, J] sum it reduces
+    is built a block of matrices (or of rows of one matrix) at a time, at
+    most ``LOG_MATMUL_CHUNK_BYTES``, so memory stays bounded however many
+    products the batch holds.  This is K8's plain version (``ops/log_semiring``).
+    """
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    ni, nk = a.shape[-2:]
+    nj = b.shape[-1]
+    a3 = a.expand(*batch, ni, nk).reshape(-1, ni, nk)
+    b3 = b.expand(*batch, nk, nj).reshape(-1, nk, nj)
+    out = torch.empty((a3.shape[0], ni, nj), dtype=a3.dtype, device=a3.device)
+    rows = max(1, LOG_MATMUL_CHUNK_BYTES // max(1, nk * nj * a3.element_size()))
+    mats = max(1, rows // max(1, ni))
+    rows = min(rows, ni)
+    for z in range(0, a3.shape[0], mats):
+        for i in range(0, ni, rows):
+            x = a3[z:z + mats, i:i + rows, :, None] + b3[z:z + mats, None, :, :]
+            out[z:z + mats, i:i + rows] = masked_logsumexp(x, dim=-2)
+    return out.reshape(*batch, ni, nj)

@@ -11,9 +11,10 @@ gate is the K1 lookup kernel (ops/counts.py) followed by the K2 fused
 E-step kernel (ops/hmm_fwdbwd.py), which hands back the pooled emission
 counts and transition posteriors; then one projection onto jump widths and
 the M-step.  Outside the gate it is K1, then K4, the general E-step kernel,
-then a scatter-add of its posteriors.  ``dot_dtype="bfloat16"`` runs the
-bf16 variants of K2 and K4.  ``use_kernels=False`` runs the plain
-dense fwd-bwd (hmm_core.estep) and the same scatter-add.  Decode with
+then K7 (ops/counts.pair_counts), which adds K4's posteriors into the
+(phone, concept) counts.  ``dot_dtype="bfloat16"`` runs the bf16 variants
+of K2 and K4 (K7 stays float32).  ``use_kernels=False`` runs the plain
+dense fwd-bwd (hmm_core.estep) and the plain count scatter-add.  Decode with
 ``use_kernels=True`` runs K3 (ops/viterbi.py).
 """
 
@@ -106,10 +107,10 @@ def loglik(params: HMMParams, corpus: Corpus) -> torch.Tensor:
 def estep_route(
     s: int, v_src: int, v_trg: int, use_kernels: bool, dot_dtype: str,
 ) -> str:
-    """Which E-step runs: "fused" (K1 + K2), "general" (K1 + K4, then the
-    plain count scatter) or "plain" (hmm_core.estep, which ignores
-    ``dot_dtype``).  The kernel routes run in ``dot_dtype``: "bfloat16"
-    takes K2-bf16 or K4-bf16."""
+    """Which E-step runs: "fused" (K1 + K2), "general" (K1 + K4 + K7) or
+    "plain" (hmm_core.estep and the plain count scatter, which ignore
+    ``dot_dtype``).  The kernel routes run their E-step in ``dot_dtype``:
+    "bfloat16" takes K2-bf16, or K4-bf16 followed by the float32 K7."""
     if not use_kernels:
         return "plain"
     if dot_dtype not in hmm_fwdbwd.DOT_DTYPES:
@@ -133,9 +134,9 @@ def expected_counts(
 
     Counts are additive across corpus shards.  ``use_kernels`` mirrors the
     reference's ``use_pallas``: inside the gate (S <= 64, V_src <= 128,
-    V_trg <= 256) the step runs through K1 and K2, outside it through K1
-    and K4 (their bf16 variants with ``dot_dtype="bfloat16"``).  None means
-    True on a CUDA corpus.
+    V_trg <= 256) the step runs through K1 and K2, outside it through K1,
+    K4 and K7 (K2's and K4's bf16 variants with ``dot_dtype="bfloat16"``).
+    None means True on a CUDA corpus.
     """
     v_src, v_trg = params.log_emit.shape
     concepts = hmm_core.state_concepts(corpus)  # [N, S]
@@ -151,7 +152,8 @@ def expected_counts(
         params.log_jump, params.log_p0, params.max_jump, log_emit, corpus,
         use_kernels=route == "general", dot_dtype=dot_dtype,
     )
-    emit_counts = pair_counts(gamma, corpus.src, concepts, v_src, v_trg)
+    count = counts_ops.pair_counts if route == "general" else pair_counts
+    emit_counts = count(gamma, corpus.src, concepts, v_src, v_trg)
     return (emit_counts, width_counts), logz.sum()
 
 

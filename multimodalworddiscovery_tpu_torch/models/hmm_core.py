@@ -3,7 +3,9 @@
 Counterpart of ``multimodalworddiscovery_tpu/models/hmm_core.py``: the whole
 corpus is batched, with an [N, S] carry and one O(N*S^2) log-semiring step
 per time step (a Python loop over time here, where the reference has a
-``lax.scan``).
+``lax.scan``).  ``forward_associative`` and ``forward_blocked`` compute the
+same forward pass as prefix products of [S, S] step matrices, parallel in
+time, with the log-semiring product K8 as their combine.
 
 State space (Vogel/Och-style HMM word alignment with paired NULL states):
   S = 2 * Tt_max states per utterance.
@@ -28,12 +30,14 @@ import torch
 
 from multimodalworddiscovery_tpu_torch.core.logsemiring import (
     NEG_INF,
+    log_matmul,
     log_normalize,
     masked_logsumexp,
 )
 from multimodalworddiscovery_tpu_torch.core.masking import lengths_to_mask
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd, kernels_for
+from multimodalworddiscovery_tpu_torch.ops import log_semiring as semiring_ops
 from multimodalworddiscovery_tpu_torch.ops import viterbi as viterbi_ops
 
 
@@ -151,6 +155,115 @@ def backward(
         beta = torch.where((t + 1 >= src_len)[:, None], 0.0, upd)
         betas.append(beta)
     return torch.stack(betas[::-1])
+
+
+def step_matrices(
+    log_trans: torch.Tensor, log_emit: torch.Tensor, src_len: torch.Tensor
+) -> torch.Tensor:
+    """Per-step transition matrices M_t (t >= 1) for the scan as a matrix
+    product: M_t[s, s'] = trans[s, s'] + emit[t, s'], with the identity
+    (0 on the diagonal, NEG_INF off it) past an utterance's length, so prefix
+    products freeze as ``forward``'s carry does.  Returns [Ts-1, N, S, S]."""
+    n, ts, s = log_emit.shape
+    alive = torch.arange(1, ts, device=log_emit.device)[:, None] < src_len[None, :]
+    m = log_trans[None] + log_emit[:, 1:, None, :].transpose(0, 1)
+    eye = torch.eye(s, dtype=torch.bool, device=log_emit.device)
+    eye = torch.where(eye, 0.0, NEG_INF).to(log_emit.dtype)
+    return torch.where(alive[:, :, None, None], m, eye)
+
+
+def associative_scan(fn, elems: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``elems`` along dim 0 with the associative ``fn``
+    (``fn(earlier, later)``): the odd/even recursion of
+    ``jax.lax.associative_scan``, O(log T) deep.  ``fn`` gets the even and
+    odd elements as strided views of ``elems`` (step 2 along dim 0)."""
+    num = elems.shape[0]
+    if num < 2:
+        return elems
+    odd = associative_scan(fn, fn(elems[0:-1:2], elems[1::2]))
+    if num % 2 == 0:
+        even = fn(odd[:-1], elems[2::2])
+    else:
+        even = fn(odd, elems[2::2])
+    out = torch.empty_like(elems)
+    out[0] = elems[0]
+    out[2::2] = even
+    out[1::2] = odd
+    return out
+
+
+def _semiring_matmul(use_kernels: bool | None, device: torch.device):
+    """The combine of the matrix-product forwards: K8 (``ops/log_semiring``)
+    with ``use_kernels`` (None: on a CUDA device), else its plain version."""
+    if kernels_for(use_kernels, device):
+        return semiring_ops.log_matmul
+    return log_matmul
+
+
+def forward_associative(
+    log_init: torch.Tensor,   # [N, S]
+    log_trans: torch.Tensor,  # [N, S, S]
+    log_emit: torch.Tensor,   # [N, Ts, S]
+    src_len: torch.Tensor,    # [N]
+    use_kernels: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward pass as an associative scan over log-semiring matrix
+    products: alpha_t = alpha_{t-1} (x) M_t, every prefix product of the
+    step matrices in O(log Ts) depth at O(Ts S^3) work (the sequential
+    ``forward`` is O(Ts S^2)).  The combine is K8 with ``use_kernels`` (None:
+    on a CUDA device), its plain version otherwise.  Returns (alphas [Ts, N,
+    S], logZ [N]) with ``forward``'s masking: steps past src_len carry
+    alpha, and a zero-length utterance has logZ = 0."""
+    m = step_matrices(log_trans, log_emit, src_len)  # [Ts-1, N, S, S]
+    prefixes = associative_scan(_semiring_matmul(use_kernels, log_emit.device), m)
+    alpha0 = log_init + log_emit[:, 0]  # [N, S]
+    rest = masked_logsumexp(alpha0[None, :, :, None] + prefixes, dim=2)  # [Ts-1, N, S]
+    alphas = torch.cat([alpha0[None], rest], dim=0)
+    logz = masked_logsumexp(alphas[-1], dim=-1)
+    return alphas, torch.where(src_len > 0, logz, 0.0)
+
+
+def forward_blocked(
+    log_init: torch.Tensor,
+    log_trans: torch.Tensor,
+    log_emit: torch.Tensor,
+    src_len: torch.Tensor,
+    block: int = 16,
+    use_kernels: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked log-semiring forward: time splits into blocks of ``block``
+    steps; within each block every prefix product of the step matrices
+    comes from an associative scan (its combine K8 with ``use_kernels``),
+    the sequential recursion runs only across the block boundaries, and the
+    alphas inside each block come from one vector-matrix contraction per
+    step, all blocks at once.  Work O(Ts N S^3), depth O(Ts/block + log
+    block).  Same outputs and masking as ``forward``."""
+    n, ts, s = log_emit.shape
+    m = step_matrices(log_trans, log_emit, src_len)  # [Ts-1, N, S, S]
+    nsteps = ts - 1
+    nb = -(-nsteps // block)
+    pad = nb * block - nsteps
+    if pad:
+        eye = torch.eye(s, dtype=torch.bool, device=m.device)
+        eye = torch.where(eye, 0.0, NEG_INF).to(m.dtype)
+        m = torch.cat([m, eye.expand(pad, n, s, s)], dim=0)
+    # the block's steps first, (block index, utterance) as one batch
+    # dimension: one copy, after which the scan's slices are strided views
+    mb = m.reshape(nb, block, n, s, s).transpose(0, 1).reshape(block, nb * n, s, s)
+    prefixes = associative_scan(_semiring_matmul(use_kernels, log_emit.device), mb)
+    prefixes = prefixes.reshape(block, nb, n, s, s).transpose(0, 1)  # [nb, block, N, S, S]
+    totals = prefixes[:, -1]  # whole-block products
+
+    alpha0 = log_init + log_emit[:, 0]  # [N, S]
+    bounds = [alpha0]  # alpha entering each block
+    for total in totals[:-1]:
+        bounds.append(masked_logsumexp(bounds[-1][:, :, None] + total, dim=1))
+    bounds = torch.stack(bounds)[:nb]  # [nb, N, S]
+    rest = masked_logsumexp(bounds[:, None, :, :, None] + prefixes, dim=3)  # [nb, block, N, S]
+    rest = rest.reshape(nb * block, n, s)[:nsteps]
+    alphas = torch.cat([alpha0[None], rest], dim=0)
+    logz = masked_logsumexp(alphas[-1], dim=-1)
+    return alphas, torch.where(src_len > 0, logz, 0.0)
 
 
 def estep(

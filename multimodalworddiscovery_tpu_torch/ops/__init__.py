@@ -1,17 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each with its plain-torch version.
 
 counts       K1 emission-table lookup    (csrc/counts.cu)
+             K7 pair counts from gamma   (csrc/counts.cu)
 hmm_fwdbwd   K2 fused E-step with counts (csrc/hmm_fwdbwd.cu), and K2-bf16
              K4 general E-step -> gamma  (csrc/hmm_fwdbwd.cu), and K4-bf16
              K6 K4 with rematerialized alphas (hmm_estep(remat=True))
 viterbi      K3 Viterbi decode           (csrc/viterbi.cu)
 mfcc         K5 fused MFCC / log-mels    (csrc/mfcc.cu)
+log_semiring K8 log-semiring matmul      (csrc/log_semiring.cu), and K8-bf16
 _build       nvcc build at first use + ctypes binding
 
 A wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in ``.launches``
-(the E-step wrappers count their variants apart, in ``.launches_bf16`` and
-``.launches_remat``).
+(the E-step wrappers and ``log_matmul`` count their variants apart, in
+``.launches_bf16`` and ``.launches_remat``).
 Callers that choose between a kernel and its plain version take
 ``use_kernels=None`` and resolve it with ``kernels_for``.
 """

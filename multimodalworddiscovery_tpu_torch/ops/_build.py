@@ -33,11 +33,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points (csrc/*.cu): pointers and the stream as void*, sizes as int;
-# each returns cudaGetLastError() after its launch.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points (csrc/*.cu): pointers and the stream as void*, sizes as int,
+# strides as long long; each returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "mwd_table_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mwd_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mwd_log_matmul": [_P] * 3 + [_I] * 5 + [_L] * 4 + [_I, _P],
     "mwd_hmm_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "mwd_hmm_bwd_counts": [_P] * 11 + [_I] * 6 + [_P],
     "mwd_hmm_bwd_gamma": [_P] * 9 + [_I] * 4 + [_P],

@@ -1,21 +1,31 @@
-"""K1: emission-table lookup kernel and its plain version.
+"""K1 (emission-table lookup) and K7 (pair counts) kernels and their plain
+versions.  CUDA source of both: ``csrc/counts.cu``.
 
-emit[n, t, k] = table[src[n, t], concepts[n, k]]  ->  [N, Ts, S] float32.
-
+K1: emit[n, t, k] = table[src[n, t], concepts[n, k]]  ->  [N, Ts, S] float32.
 Replaces ``multimodalworddiscovery_tpu/ops/counts_pallas.py:
-table_lookup_pallas`` (body ``_lookup_kernel``).  CUDA source:
-``csrc/counts.cu``.  On the H100 the lookup is a gather bound by memory (it
-writes N*Ts*S floats; the table stays in cache), so the kernel is one
-thread per output element with coalesced stores.  The output is
-utterance-major and unpadded, so the TPU kernel's padded-state rows
+table_lookup_pallas`` (body ``_lookup_kernel``).  On the H100 the lookup is a
+gather bound by memory (it writes N*Ts*S floats; the table stays in cache),
+so the kernel is one thread per output element with coalesced stores.  The
+output is utterance-major and unpadded, so the TPU kernel's padded-state rows
 (``k_real``) and NULL-row shortcut have no counterpart: NULL states already
 carry concept 0 in ``hmm_core.state_concepts``.
+
+K7: counts[f, e] = sum_{n,t,k} gamma[n, t, k] [src[n, t] = f] [concepts[n, k] = e]
+-> [F, E] float32, the emission counts of the discrete HMM's general route
+(after K4).  Replaces ``counts_pallas.py:pair_counts_pallas`` (body
+``_counts_kernel``).  It reads gamma in the layout K4 writes, [N, Ts, S],
+with no transpose (the reference's padded time-major layout was the TPU's
+lane layout), one thread per element, and adds each nonzero posterior into
+its count with an atomic; it keeps nothing in shared memory, so it takes
+every shape K4 does and any vocabulary.  The plain version is the
+scatter-add ``core.counts.pair_counts``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multimodalworddiscovery_tpu_torch.core.counts import pair_counts as pair_counts_plain
 from multimodalworddiscovery_tpu_torch.core.counts import table_lookup as table_lookup_plain
 from multimodalworddiscovery_tpu_torch.ops import _build
 
@@ -54,3 +64,39 @@ def table_lookup(
 
 
 table_lookup.launches = 0
+
+
+def pair_counts(
+    gamma: torch.Tensor,     # [N, Ts, S] float32, 0 wherever (t, k) is padding
+    src: torch.Tensor,       # [N, Ts] int32
+    concepts: torch.Tensor,  # [N, S] int32
+    n_rows: int,
+    n_cols: int,
+) -> torch.Tensor:
+    """[n_rows, n_cols] expected pair counts.  CPU tensors take the plain
+    scatter-add; CUDA tensors launch the kernel (a pair whose id lies
+    outside the table adds nothing)."""
+    if gamma.device.type == "cpu":
+        return pair_counts_plain(gamma, src, concepts, n_rows, n_cols)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"pair_counts runs on cpu or cuda, got {gamma.device}")
+    dev = gamma.device
+    n, ts, s = gamma.shape
+    _build.require(gamma, "gamma", torch.float32, (n, ts, s), dev)
+    _build.require(src, "src", torch.int32, (n, ts), dev)
+    _build.require(concepts, "concepts", torch.int32, (n, s), dev)
+    counts = torch.zeros((n_rows, n_cols), dtype=torch.float32, device=dev)
+    if gamma.numel() == 0 or counts.numel() == 0:
+        return counts
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        status = lib.mwd_pair_counts(
+            gamma.data_ptr(), src.data_ptr(), concepts.data_ptr(), counts.data_ptr(),
+            n, ts, s, n_rows, n_cols, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(status, "mwd_pair_counts")
+    pair_counts.launches += 1
+    return counts
+
+
+pair_counts.launches = 0

@@ -1,4 +1,4 @@
-"""K1's plain version and the plain pair counts vs the JAX reference.
+"""K1's and K7's plain versions and the plain pair counts vs the JAX reference.
 
 The JAX Pallas lookup runs in interpret mode, as the reference's own tests
 run it on the CPU; its padded time-major output is transposed to the port's
@@ -16,6 +16,7 @@ from multimodalworddiscovery_tpu.models import hmm as jhmm
 from multimodalworddiscovery_tpu.models import hmm_core as jcore
 from multimodalworddiscovery_tpu.ops.counts_pallas import (
     pad_time_major,
+    pair_counts_pallas,
     table_lookup_pallas,
 )
 from multimodalworddiscovery_tpu_torch.core import counts as tcounts
@@ -87,3 +88,33 @@ def test_pair_counts_matches_jax(k):
     )
     assert got.shape == (f, e)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k7_plain_matches_pallas_pair_counts(seed):
+    """K7 (``ops/counts.pair_counts``, its plain version on the CPU) on
+    gamma in K4's [N, Ts, S] layout against the reference kernel on the
+    same values in its padded time-major layout (interpret mode), at the
+    reference's bound rtol 1e-5 atol 1e-4 (tests/test_counts_pallas.py:64-74)."""
+    rng = np.random.default_rng(seed)
+    n, t, k, f, e = 37, 19, 11, 23, 17
+    src = rng.integers(0, f, size=(n, t)).astype(np.int32)
+    concepts = rng.integers(0, e, size=(n, k)).astype(np.int32)
+    gamma = rng.uniform(size=(n, t, k)).astype(np.float32)
+    lens = rng.integers(0, t + 1, size=(n,))
+    for i in range(n):
+        gamma[i, lens[i]:] = 0.0  # the E-step's zeros past each length
+    bn, bt = 128, 8
+    tp, np_, kp = -(-t // bt) * bt, -(-n // bn) * bn, -(-k // 8) * 8
+    gamma_t = np.zeros((tp, kp, np_), np.float32)
+    gamma_t[:t, :k, :n] = np.moveaxis(gamma, 0, -1)
+    want = np.asarray(pair_counts_pallas(
+        gamma_t, pad_time_major(src, tp, np_), pad_time_major(concepts, kp, np_),
+        n_rows=f, n_cols=e, block_n=bn, block_t=bt, interpret=True,
+    ))
+    before = k1.pair_counts.launches
+    got = k1.pair_counts(torch.as_tensor(gamma), torch.as_tensor(src),
+                         torch.as_tensor(concepts), f, e)
+    assert k1.pair_counts.launches == before  # CPU tensors take the plain version
+    assert got.shape == (f, e) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)

@@ -15,9 +15,11 @@ import torch
 from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
 from multimodalworddiscovery_tpu_torch.frontend import speech
 from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_crf, hmm_dnn, hmm_gaussian
+from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.ops import counts as k1
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
 from multimodalworddiscovery_tpu_torch.ops import _build
+from multimodalworddiscovery_tpu_torch.ops import log_semiring as k8
 from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
 from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
 from multimodalworddiscovery_tpu_torch.scripts import run_pipeline
@@ -442,3 +444,134 @@ def test_models_default_to_the_kernels_on_the_card(dev):
     out = run_pipeline.run_pipeline(n_utterances=16, iters=2)
     assert k5.extract.launches == 1 and k2.hmm_estep.launches == 2 and k3.viterbi.launches == 1
     assert np.all(np.isfinite(out["loglik"]))
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_CASES))
+def test_k7_kernel_matches_plain(dev, name):
+    """K7 on K4's gamma against the plain scatter-add: rtol 1e-5, atol 1e-4
+    x the largest count (the atomics order the sums)."""
+    corpus, params, concepts, fact = _inputs(name, dev)
+    gamma = k2.hmm_estep(*fact, k1.table_lookup(params.log_emit, corpus.src, concepts),
+                         corpus.src_len)[0]
+    f, e = params.log_emit.shape
+    before = k1.pair_counts.launches
+    got = k1.pair_counts(gamma, corpus.src, concepts, f, e)
+    assert k1.pair_counts.launches == before + 1
+    want = k1.pair_counts_plain(gamma, corpus.src, concepts, f, e)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * float(want.max()))
+
+
+def test_k7_validates_inputs(dev):
+    corpus, params, concepts, fact = _inputs("S12", dev)
+    gamma = torch.zeros((corpus.n, corpus.max_src_len, concepts.shape[1]), device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        k1.pair_counts(gamma, corpus.src.long(), concepts, 4, 4)
+    with pytest.raises(ValueError, match="shape"):
+        k1.pair_counts(gamma[:, :-1].contiguous(), corpus.src, concepts, 4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.pair_counts(gamma.transpose(1, 2).contiguous().transpose(1, 2), corpus.src,
+                       concepts, 4, 4)
+
+
+def _normal(shape, scale, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((scale * rng.normal(size=shape)).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 128), (64, 200, 96), (300, 140, 260)])
+def test_k8_kernel_matches_plain(dev, shape):
+    """K8 against the broadcast oracle at the reference's shapes and bound,
+    rtol 1e-4 atol 1e-4 (tests/test_log_semiring_pallas.py:10-18)."""
+    i, k, j = shape
+    a, b = _normal((i, k), 5.0, i, dev), _normal((k, j), 5.0, j, dev)
+    before = k8.log_matmul.launches
+    got = k8.log_matmul(a, b)
+    assert k8.log_matmul.launches == before + 1
+    torch.testing.assert_close(got, k8.log_matmul_plain(a, b), rtol=1e-4, atol=1e-4)
+
+
+def test_k8_neg_inf_and_wide_range(dev):
+    """A fully masked row and column give NEG_INF; a row spanning 300 nats
+    whose largest product lies 250 nats below its maximum keeps that term."""
+    a, b = _normal((64, 64), 1.0, 0, dev), _normal((64, 64), 1.0, 1, dev)
+    a[3, :] = NEG_INF
+    b[:, 7] = NEG_INF
+    got = k8.log_matmul(a, b)
+    assert torch.all(got[3] == NEG_INF) and torch.all(got[:, 7] == NEG_INF)
+    torch.testing.assert_close(got, k8.log_matmul_plain(a, b), rtol=1e-4, atol=1e-4)
+    a = torch.full((64, 96), -300.0, device=dev)
+    b = torch.full((96, 48), -300.0, device=dev)
+    a[1:, :10], b[:10, 1:] = _normal((63, 10), 2.0, 2, dev), _normal((10, 47), 2.0, 3, dev)
+    a[0, 0], a[0, 5], b[0, 0], b[5, 0] = 0.0, -250.0, -400.0, 240.0
+    got = k8.log_matmul(a, b)
+    assert abs(float(got[0, 0]) + 10.0) < 1e-4
+    torch.testing.assert_close(got, k8.log_matmul_plain(a, b), rtol=1e-4, atol=1e-4)
+
+
+def test_k8_batches_strided_views(dev):
+    """The associative scan's operands: step-2 slices along the time axis
+    of [T, N, S, S] (two strided batch dimensions), a broadcast operand, and
+    leading dimensions that do not merge (copied)."""
+    m = _normal((7, 5, 24, 24), 3.0, 4, dev)
+    a, b = m[0:-1:2], m[1::2]
+    assert not a.is_contiguous()
+    torch.testing.assert_close(k8.log_matmul(a, b), k8.log_matmul_plain(a, b),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(k8.log_matmul(m[0], m), k8.log_matmul_plain(m[0], m),
+                               rtol=1e-4, atol=1e-4)
+    x = m.transpose(0, 1)[:, 0:-1:2]  # [5, 3, 24, 24]: two strided dimensions
+    y = _normal((4, 4, 4, 24, 24), 3.0, 7, dev)[::2, ::2, ::2]  # three that do not merge
+    for v in (x, y):
+        torch.testing.assert_close(k8.log_matmul(v, v), k8.log_matmul_plain(v, v),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_k8_bf16_matches_plain(dev):
+    """K8-bf16 against its plain bf16 version at 2e-2 (two bf16 roundings
+    that fall apart on a product's operands), against K8 within the
+    reference's 5e-2 (tests/test_log_semiring_pallas.py:57-67), and closer
+    to the plain bf16 version than to K8."""
+    a, b = _normal((96, 160), 4.0, 5, dev), _normal((160, 72), 4.0, 6, dev)
+    before = k8.log_matmul.launches_bf16
+    got = k8.log_matmul(a, b, "bfloat16")
+    assert k8.log_matmul.launches_bf16 == before + 1
+    torch.testing.assert_close(got, k8.log_matmul_plain(a, b, "bfloat16"), rtol=0, atol=2e-2)
+    f32 = k8.log_matmul(a, b)
+    torch.testing.assert_close(got, f32, rtol=0, atol=5e-2)
+    _assert_rounds(got, k8.log_matmul_plain(a, b, "bfloat16"), f32)
+
+
+@pytest.mark.parametrize("name", ["S12", "S40"])
+def test_matrix_forwards_through_k8(dev, name):
+    """forward_associative and forward_blocked on the card (K8) against the
+    sequential forward: logZ rtol 1e-4, alphas rtol 1e-3 atol 1e-3 at valid
+    (t, state) positions (tests/test_hmm.py:168-205)."""
+    corpus, params, _, _ = _inputs(name, dev)
+    log_init, log_trans, log_emit = hmm._machinery(params, corpus)
+    a_s, z_s = hmm_core.forward(log_init, log_trans, log_emit, corpus.src_len)
+    valid = ((torch.arange(a_s.shape[0], device=dev)[:, None, None]
+              < corpus.src_len[None, :, None]) & hmm_core.state_mask(corpus)[None])
+    for fn in (hmm_core.forward_associative, hmm_core.forward_blocked):
+        before = k8.log_matmul.launches
+        a, z = fn(log_init, log_trans, log_emit, corpus.src_len)
+        assert k8.log_matmul.launches > before
+        torch.testing.assert_close(z, z_s, rtol=1e-4, atol=0)
+        torch.testing.assert_close(a[valid], a_s[valid], rtol=1e-3, atol=1e-3)
+
+
+def test_general_route_launches_k1_k4_k7(dev):
+    """Outside K2's gate the discrete E-step launches K1, K4 and K7 once
+    each (K4-bf16 and K7 in bf16), never K2, and its counts match the plain
+    route's."""
+    corpus, params, _, _ = _inputs("S128", dev)
+    counters = (k1.table_lookup, k1.pair_counts, k2.hmm_estep, k2.hmm_estep_counts)
+    for dot_dtype in ("float32", "bfloat16"):
+        before = [(w.launches, getattr(w, "launches_bf16", 0)) for w in counters]
+        (ec, _), _ = hmm.expected_counts(params, corpus, use_kernels=True, dot_dtype=dot_dtype)
+        after = [(w.launches, getattr(w, "launches_bf16", 0)) for w in counters]
+        k4 = (0, 1) if dot_dtype == "bfloat16" else (1, 0)
+        assert [(x - y, u - v) for (x, u), (y, v) in zip(after, before)] == [
+            (1, 0), (1, 0), k4, (0, 0)]
+    (ec, _), _ = hmm.expected_counts(params, corpus, use_kernels=True)
+    (ec_p, _), _ = hmm.expected_counts(params, corpus, use_kernels=False)
+    torch.testing.assert_close(ec, ec_p, rtol=0, atol=1e-4 * float(ec_p.max()))

@@ -146,3 +146,47 @@ def test_viterbi_factored_matches_dense_viterbi_path(corpora, jax_runs):
     for n in range(tc.n):
         if lens[n]:
             np.testing.assert_allclose(score(n, got[n]), score(n, want[n]), rtol=1e-5)
+
+
+# Outside K2's gate (S=80 > 64, V_trg=301 > 256): the general route, whose
+# kernels on the card are K1, K4 and K7 and whose plain versions run here.
+GENERAL_GEN = dict(n_utterances=6, n_concepts=300, min_concepts=36, max_concepts=40,
+                   min_word_len=2, max_word_len=3, seed=5)
+
+
+@pytest.fixture(scope="module")
+def general_corpora():
+    jc, _, _ = jax_make(**GENERAL_GEN)
+    tc, _, _ = torch_make(**GENERAL_GEN, device="cpu")
+    return jc.pad_to(jc.n + N_EMPTY), tc.pad_to(tc.n + N_EMPTY)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_general_route_expected_counts_match_jax(general_corpora, use_kernels):
+    """hmm.expected_counts outside the gate against the reference's (its
+    dense scan E-step), from one JAX EM step's parameters: counts atol 1e-4
+    x scale, widths rtol 1e-4 atol 1e-3, loglik rtol 1e-5."""
+    jc, tc = general_corpora
+    assert 2 * tc.max_trg_len > thmm.FUSED_MAX_STATES and tc.trg_vocab > thmm.FUSED_MAX_TRG_VOCAB
+    s, v_src, v_trg = 2 * tc.max_trg_len, tc.src_vocab, tc.trg_vocab
+    route = thmm.estep_route(s, v_src, v_trg, use_kernels, "float32")
+    assert route == ("general" if use_kernels else "plain")
+    jp, _ = jhmm.em_step(jhmm.init(jc), jc)
+    (ec_w, wc_w), ll_w = jhmm.expected_counts(jp, jc)
+    (ec, wc), ll = thmm.expected_counts(_to_torch(jp), tc, use_kernels=use_kernels)
+    ec_w = _np(ec_w)
+    assert ec.shape == ec_w.shape == (v_src, v_trg)
+    np.testing.assert_allclose(ec.numpy(), ec_w, rtol=0, atol=1e-4 * max(ec_w.max(), 1.0))
+    np.testing.assert_allclose(wc.numpy(), _np(wc_w), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(float(ll), float(ll_w), rtol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_general_route_train_matches_jax(general_corpora, use_kernels):
+    """2 EM iterations from init outside the gate against hmm.train."""
+    jc, tc = general_corpora
+    jp, j_lls = jhmm.train(jhmm.init(jc), jc, 2)
+    tp, lls = thmm.train(thmm.init(tc), tc, 2, use_kernels=use_kernels)
+    np.testing.assert_allclose(lls.numpy(), _np(j_lls), rtol=1e-5)
+    np.testing.assert_allclose(tp.log_emit.numpy(), _np(jp.log_emit), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(tp.log_jump.numpy(), _np(jp.log_jump), rtol=1e-3, atol=1e-3)
