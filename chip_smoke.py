@@ -58,7 +58,16 @@ K4-bf16 and K6 (the remat E-step, reached through its entry point
 ``hmm_estep(remat=True)``, which no model path calls) are checked at the
 stretch shape and at S=128, K6 at two chunk lengths and against K4; each
 bf16 kernel is also shown to round (closer to its plain bf16 version than
-to the float32 kernel, and not equal to the latter).  K5 is
+to the float32 kernel, and not equal to the latter).  K4, K4-bf16 and K6
+are also checked and timed at the two S=8 shapes the pipeline and the CRF
+paths launch them at (inputs from ``scripts/bench_estep.py``), and the
+JSON line gives K4's launches, time and bound per launch shape.  Above the
+160 states the kernels once took, K4, K4-bf16, K6 and K3 are held to their
+plain versions on a corpus of 96-100 concepts an image (S~200) and one of
+126-130 (S~260, past 8-bit backpointers), and on random inputs at S=2000
+(K4's block buffers in device memory, K3's threads looping over the
+states), and ``hmm.train`` (3 iterations) and ``hmm.align`` run on the
+S~200 corpus through K1 -> K4 -> K7 and K3 against the plain route.  K5 is
 checked at the pipeline's batch (N=2000 waveforms of
 28,160 samples, plus waveforms of 0, 399, 400 and 401 samples), for MFCCs
 and log-mels, and on 1000 frames; the ``extract_features speech`` command
@@ -149,9 +158,10 @@ DOCUMENTED_RECIPE_F1 = 0.431
 ZERO_LENGTH_PAD = 4  # zero-length utterances appended in the parity phases
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 against f32, tests/test_hmm_estep_pallas.py:222
 # A bf16 kernel against its plain bf16 version is held to the float32
-# kernel's bounds, except K4-bf16's gamma and xi at the stretch shape.
-# There the products are exact in float32 on both sides, but the float32
-# operands entering each bf16 rounding differ in their last bits (another
+# kernel's bounds, except K4-bf16's gamma and xi at the stretch shape and
+# at MANY_RANDOM's S=2000 (2000-term sums; tests/test_torch_cuda.py holds
+# every S so).  There the products are exact in float32 on both sides, but
+# the float32 operands entering each bf16 rounding differ in their last bits (another
 # summation order, another exp), so now and then one rounds the other way,
 # 2^-8 relative, and shifts that utterance's posteriors.  Those two are held
 # to the float32 bounds on all but FLIP_SHARE of their elements (rounded
@@ -188,6 +198,16 @@ DENSE = dict(n_utterances=512, n_concepts=400, n_phones=48, min_concepts=48,
 REFERENCE_DENSE_F1 = 0.27137
 REFERENCE_DENSE_LL = -287512.34  # its loglik at the 10th iteration
 K7_TOL = dict(rtol=1e-5)  # and atol 1e-4 x the largest count: atomics order the sums
+# the many-states phase: corpora above the 160 states K4, K6 and K3 once
+# took; S~200, and S~260, past K3's 8-bit backpointers
+MANY_200 = dict(n_utterances=64, n_concepts=400, min_concepts=96, max_concepts=100,
+                min_word_len=2, max_word_len=3, seed=5)
+MANY_260 = dict(n_utterances=32, n_concepts=400, min_concepts=126, max_concepts=130,
+                min_word_len=2, max_word_len=2, seed=5)
+MANY_ITERS = 3
+# random factored inputs above every shared-memory plan of K4 (S, N with
+# ZERO_LENGTH_PAD of them empty, Ts, seed)
+MANY_RANDOM = dict(s=2000, n=12, ts=48, seed=7)
 K8_SIZES = (512, 1024)  # scripts/bench_kernels.py:58's sizes where the library form fits
 K8_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_log_semiring_pallas.py:18
 K8_BF16_VS_F32 = 5e-2  # tests/test_log_semiring_pallas.py:67
@@ -473,8 +493,9 @@ def _k4_checks(what, out, want, n_pad: int, flips: bool = False) -> dict:
             "xi": _max_abs(xi, xi_p)}
     print(f"  {what} max abs err vs plain: {errs}")
     _check(torch.allclose(logz, logz_p, rtol=1e-4, atol=1e-4), f"{what} logZ rtol 1e-4 atol 1e-4")
-    _check(bool((logz[-n_pad:] == 0).all() and (gamma[-n_pad:] == 0).all()),
-           f"{what} logZ = 0 and gamma = 0 on zero-length utterances")
+    if n_pad:
+        _check(bool((logz[-n_pad:] == 0).all() and (gamma[-n_pad:] == 0).all()),
+               f"{what} logZ = 0 and gamma = 0 on zero-length utterances")
     ll, ll_p = float(logz.sum()), float(logz_p.sum())
     _check(abs(ll - ll_p) <= 1e-6 * abs(ll_p), f"{what} total loglik rtol 1e-6 ({ll} vs {ll_p})")
     _posterior_check(what, "gamma", gamma, gamma_p, dict(rtol=1e-3, atol=1e-4), flips)
@@ -833,8 +854,11 @@ def _profile(fn, what: str, card: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"K1 lookup": ("mwd_table_lookup",), "K7 pair counts": ("mwd_pair_counts",),
                 "K8 log_matmul": ("mwd_log_matmul",),
-                "K5 mfcc": ("mwd_mfcc",), "K4 forward": ("mwd_hmm_fwd",),
-                "K4 backward": ("mwd_hmm_bwd",), "K3 viterbi": ("mwd_viterbi",),
+                "K5 mfcc": ("mwd_mfcc",), "K2 forward": ("mwd_hmm_fwd",),
+                "K2 backward": ("mwd_hmm_bwd",), "K4 forward": ("mwd_estep_fwd",),
+                "K4 backward": ("mwd_estep_bwd",),
+                "K4 order, table and xi sum": ("mwd_estep_prep", "mwd_estep_xi"),
+                "K3 viterbi": ("mwd_viterbi",),
                 "fft": ("fft",), "matmul": ("gemm", "cutlass", "xmma"),
                 "softmax": ("softmax",), "reductions": ("reduce",),
                 "elementwise": ("elementwise", "vectorized")}
@@ -1309,6 +1333,149 @@ def assoc_phase(card: str, counters, dev) -> dict:
     return {"launches": launches, "shapes": out}
 
 
+def k4_s8_phase(card: str, dev) -> dict:
+    """K4, K4-bf16 and K6 at the two S=8 shapes the pipeline (N=2000,
+    Ts=174) and the CRF and DNN-HMM paths (N=400, Ts=64) launch them at,
+    their inputs built as ``scripts/bench_estep.py`` builds them: each
+    against its plain version (K4's bounds; K6 also against K4), and timed
+    with its bound."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k4
+    from multimodalworddiscovery_tpu_torch.scripts import bench_estep
+
+    out = {}
+    for label in ("S8_pipeline", "S8_crf"):
+        inputs = bench_estep.shape_inputs(label, dev)
+        n, ts, s = inputs[4].shape
+        print(f"K4 at {label}: N={n}, Ts={ts}, S={s}, {int(inputs[5].sum())} valid steps")
+        want = k4.hmm_estep_plain(*inputs)
+        got = k4.hmm_estep(*inputs)
+        errs = _k4_checks(f"K4 at {label}", got, want, 0)
+        bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16")
+        bf_p = k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16")
+        errs_bf = _k4_checks(f"K4-bf16 at {label}", bf, bf_p, 0)
+        g6 = k4.hmm_estep(*inputs, remat=True)
+        _check(torch.allclose(g6[2], got[2], rtol=1e-5, atol=0)
+               and torch.allclose(g6[0], got[0], rtol=1e-4, atol=1e-5)
+               and torch.allclose(g6[1], got[1], rtol=1e-4, atol=1e-4),
+               f"K6 at {label} against K4: logZ rtol 1e-5, gamma rtol 1e-4 atol 1e-5, xi rtol "
+               f"1e-4 atol 1e-4")
+        nbytes = _nbytes(*inputs, *got)
+        r = {"err": max(errs.values()), "bf16_err": max(errs_bf.values()),
+             "ms": _gpu_ms(lambda: k4.hmm_estep(*inputs), 20),
+             "plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), 2),
+             "bf16_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, dot_dtype="bfloat16"), 20),
+             "bf16_plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16"),
+                                      2),
+             "k6_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, remat=True), 20),
+             "bf16_bound": _estep_bound(nbytes, inputs[5], s, bf16=True)}
+        r |= _estep_bound(nbytes, inputs[5], s, bf16=False)
+        print(f"  [{card}] K4 at {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); K4-bf16 {r['bf16_ms']:.4f} ms, "
+              f"plain {r['bf16_plain_ms']:.4f} ms, bound {r['bf16_bound']['bound_ms']:.4f} ms; "
+              f"K6 {r['k6_ms']:.4f} ms")
+        out[label] = r
+        del inputs, want, got, bf, bf_p, g6
+        torch.cuda.empty_cache()
+    return out
+
+
+def _random_factored(s: int, n: int, ts: int, seed: int, dev) -> tuple:
+    """E-step inputs from a seed: a random jump table, utterances with 0, 7
+    or 14 of their S states masked, emissions 3 * normal, ragged lengths
+    and ZERO_LENGTH_PAD empty utterances last."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
+
+    gen = torch.Generator().manual_seed(seed)
+    n_valid = torch.tensor([s - 7 * (i % 3) for i in range(n)])
+    colmask = torch.where(torch.arange(s)[None, :] < n_valid[:, None], 0.0, NEG_INF)
+    base = 2.0 * torch.randn(s, s, generator=gen)
+    rowz = torch.logsumexp(base[None, :, :] + colmask[:, None, :], dim=-1)
+    log_init = torch.log_softmax(torch.randn(n, s, generator=gen) + colmask, dim=-1)
+    emit = 3.0 * torch.randn(n, ts, s, generator=gen)
+    lens = [ts - (5 * i) % ts for i in range(n - ZERO_LENGTH_PAD)] + [0] * ZERO_LENGTH_PAD
+    src_len = torch.tensor(lens, dtype=torch.int32)
+    return tuple(x.contiguous().to(dev) for x in (log_init, base, rowz, colmask, emit, src_len))
+
+
+def many_states_phase(card: str, counters, dev) -> dict:
+    """Above the 160 states K4, K6 and K3 once took: K4, K4-bf16, K6 and K3
+    against their plain versions (k4_parity, k3_parity) on a corpus with
+    96-100 concepts an image (S~200) and one with 126-130 (S~260, past 8-bit
+    backpointers), each with ZERO_LENGTH_PAD empty utterances, and on
+    MANY_RANDOM's inputs (S=2000: K4's buffers in device memory); then
+    hmm.train for MANY_ITERS iterations and hmm.align on the S~200 corpus
+    through K1 -> K4 -> K7 and K3, against the plain route."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.eval.metrics import alignment_prf
+    from multimodalworddiscovery_tpu_torch.models import hmm
+    from multimodalworddiscovery_tpu_torch.ops import counts as k1
+
+    out = {}
+    for label, gen in (("S~200", MANY_200), ("S~260", MANY_260)):
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        padded = corpus.pad_to(corpus.n + ZERO_LENGTH_PAD)
+        params, _ = hmm.em_step(hmm.init(padded), padded, use_kernels=False)
+        concepts, fact = _estep_inputs(params, padded)
+        inputs = (*fact, k1.table_lookup(params.log_emit, padded.src, concepts), padded.src_len)
+        name = f"many states ({label}, S={concepts.shape[1]})"
+        out[label] = {"k4": k4_parity(name, inputs, 3), "k3": k3_parity(name, inputs, 3),
+                      "S": concepts.shape[1]}
+        del corpus, padded, params, fact, inputs
+        torch.cuda.empty_cache()
+    inputs = _random_factored(**MANY_RANDOM, dev=dev)
+    name = f"many states (random, S={MANY_RANDOM['s']})"
+    out["random"] = {"k4": k4_parity(name, inputs, 3, bf16_flips=True),
+                     "k3": k3_parity(name, inputs, 3), "S": MANY_RANDOM["s"]}
+    del inputs
+    torch.cuda.empty_cache()
+
+    corpus, gold, _ = make_flickr8k_mini(**MANY_200, device=dev)
+    s, v_src, v_trg = 2 * corpus.max_trg_len, corpus.src_vocab, corpus.trg_vocab
+    route = hmm.estep_route(s, v_src, v_trg, True, "float32")
+    print(f"many states, EM: N={corpus.n}, Ts={corpus.max_src_len}, S={s}, V_src={v_src}, "
+          f"V_trg={v_trg}; E-step route {route!r}, {MANY_ITERS} EM iterations, then align")
+    _check(route == "general", "the S~200 corpus takes the general route")
+    gold_t = torch.as_tensor(gold.alignment, device=dev)
+    runs, launches = {}, None
+    for use_kernels in (True, False):
+        _reset(counters)
+        p, lls = hmm.train(hmm.init(corpus), corpus, MANY_ITERS, use_kernels=use_kernels)
+        alignment = hmm.align(p, corpus, use_kernels=use_kernels)
+        prf = alignment_prf(alignment, gold_t, corpus.src_mask())
+        torch.cuda.synchronize()
+        if use_kernels:
+            launches = _counts(counters)
+        else:
+            _check(not any(_counts(counters).values()), "no kernel launched on the plain path")
+        runs[use_kernels] = (lls.cpu().numpy(), float(prf["f1"]))
+    (lw, f1), (lp, f1_p) = runs[True], runs[False]
+    print(f"  kernel-path loglik per iteration: {lw.tolist()}, F1 {f1:.5f}")
+    print(f"  plain-path loglik per iteration:  {lp.tolist()}, F1 {f1_p:.5f}")
+    print(f"  kernel launches: {launches}")
+    _check(launches["table_lookup"] == MANY_ITERS and launches["hmm_estep"] == MANY_ITERS
+           and launches["pair_counts"] == MANY_ITERS and launches["viterbi"] == 1
+           and launches["hmm_estep_counts"] == 0,
+           f"S~200: K1, K4 and K7 launched once per EM iteration, K3 once, K2 never")
+    _check(bool(np.all(np.isfinite(lw))), "S~200 loglik finite")
+    _check(abs(float(lw[-1]) - float(lp[-1])) <= 1e-4 * abs(float(lp[-1])),
+           f"S~200 final loglik within rtol 1e-4 of plain ({lw[-1]} vs {lp[-1]})")
+    _check(abs(f1 - f1_p) <= 0.002, f"S~200 F1 within 0.002 of plain ({f1:.5f} vs {f1_p:.5f})")
+    for label, r in out.items():
+        k4r, k3r = r["k4"], r["k3"]
+        print(f"  [{card}] {label} (S={r['S']}): K4 {k4r['ms']:.4f} ms (plain "
+              f"{k4r['plain_ms']:.4f}, bound {k4r['bound_ms']:.4f}), K4-bf16 {k4r['bf16_ms']:.4f} "
+              f"ms, K6 {k4r['k6_ms']:.4f} ms; K3 {k3r['ms']:.4f} ms (plain "
+              f"{k3r['plain_ms']:.4f}, bound {k3r['bound_ms']:.4f})")
+    return {"shapes": out, "launches": launches}
+
+
 def bench_phase(here: str, counters) -> dict:
     """The port's bench_kernels (counts, log_matmul) and bench_assoc, once
     each with few repetitions, records under build/chip_smoke/; K8-bf16's
@@ -1432,6 +1599,7 @@ def main() -> int:
           f"ms per {EM_ITERS} iterations: {em['runs']})")
     print(f"  [{card}] headline EM throughput: kernel path {corpus.n * 1e3 / ms_k:.1f} "
           f"utt*iter/s, plain path {corpus.n * 1e3 / ms_p:.1f} utt*iter/s")
+    _profile(lambda: hmm.em_step(p0, corpus), "one headline EM iteration (K1, K2, M-step)", card)
     params = kern["params"]
     concepts, (log_init, base, rowz, colmask) = _estep_inputs(params, corpus)
     emit = k1.table_lookup(params.log_emit, corpus.src, concepts)
@@ -1551,6 +1719,8 @@ def main() -> int:
               f"K4's); K6 logZ and gamma bit-identical to K4's at chunks {K6_CHUNKS}: "
               f"{r['k6_bit_identical']}")
     del c128, inputs128
+    # --- K4, K4-bf16 and K6 at the S=8 shapes of the pipeline and the CRF ---
+    k4_s8 = k4_s8_phase(card, dev)
     print(elapsed())
 
     # --- path 2: the Gaussian parity run, kernels then plain ---
@@ -1718,6 +1888,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(elapsed())
 
+    # --- above 160 states: K4, K4-bf16, K6 and K3 at S~200 and S~260, and
+    # the discrete EM and decode at S~200 ---
+    many = many_states_phase(card, kernels_all, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
     # --- path 9: the associative and blocked forwards through K8 ---
     assoc = assoc_phase(card, kernels_all, dev)
     print(elapsed())
@@ -1728,11 +1904,37 @@ def main() -> int:
     print(elapsed())
 
     runs = (launches_headline, launches_gauss, teach, gauss, pipe, launches_bf16, launches_k6,
-            *crf["launches"].values(), dense["launches"], assoc["launches"])
+            *crf["launches"].values(), dense["launches"], assoc["launches"], many["launches"])
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
     launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
     print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
           f"K8-bf16: bench_kernels' log_matmul entry, its entry point): {launches}")
+    # K4's launch shapes: launches on the paths' kernel runs, time, bound and
+    # plain time of each (K4-bf16: path 6's bf16 run at the CRF's S=8)
+    crf_l = crf["launches"]
+    k4_runs = {
+        "S64": (k4_stretch, launches_gauss["hmm_estep"] + gauss["hmm_estep"], 0),
+        "S128": (k4_128, dense["launches"]["hmm_estep"], 0),
+        "S8_pipeline": (k4_s8["S8_pipeline"], pipe["hmm_estep"], 0),
+        "S8_crf": (k4_s8["S8_crf"], sum(r["hmm_estep"] for r in crf_l.values()),
+                   sum(r["hmm_estep_bf16"] for r in crf_l.values())),
+        **{f"{k} (S={r['S']})": (r["k4"], many["launches"]["hmm_estep"] if k == "S~200" else 0,
+                                 0) for k, r in many["shapes"].items()},
+    }
+    k4_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+                 for k, (r, n, _) in k4_runs.items()}
+    k4bf_shapes = {k: {"launches": nb, "ms": r["bf16_ms"], "plain_ms": r["bf16_plain_ms"],
+                       **r["bf16_bound"]} for k, (r, _, nb) in k4_runs.items()}
+    k3_shapes = {"S12": k3_s12, "S64": k3_stretch, "S128": k3_128,
+                 **{f"{k} (S={r['S']})": r["k3"] for k, r in many["shapes"].items()}}
+    k3_shapes = {k: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"]} for k, r in k3_shapes.items()}
+    print(f"[{card}] K4 per launch shape: {json.dumps(k4_shapes)}")
+    print(f"[{card}] K4-bf16 per launch shape: {json.dumps(k4bf_shapes)}")
+    print(f"[{card}] K6 per shape (ms): "
+          f"{json.dumps({k: r['k6_ms'] for k, (r, _, _) in k4_runs.items()})}")
+    print(f"[{card}] K3 per shape: {json.dumps(k3_shapes)}")
     k8_big = k8_r[K8_SIZES[-1]]
     k8_errs = [r["err"] for r in k8_r.values()] + [
         e for r in assoc["shapes"].values() for e in (r["err"], r["prefix_err"])]
@@ -1758,23 +1960,27 @@ def main() -> int:
         {"name": "viterbi", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/viterbi.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/viterbi_pallas.py:162",
-         "launches": launches["viterbi"], "max_abs_err": k3_stretch["err"],
+         "launches": launches["viterbi"],
+         "max_abs_err": max([k3_stretch["err"]]
+                            + [r["k3"]["err"] for r in many["shapes"].values()]),
          "ms": k3_stretch["ms"], "plain_ms": k3_stretch["plain_ms"],
          "bound_ms": k3_stretch["bound_ms"], "bound_by": k3_stretch["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "shapes": k3_shapes},
         {"name": "hmm_estep", "route": "cuda",
-         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",
-         "launches": launches["hmm_estep"], "max_abs_err": k4_stretch["err"],
+         "launches": launches["hmm_estep"],
+         "max_abs_err": max(r["err"] for r, _, _ in k4_runs.values()),
          "ms": k4_stretch["ms"], "plain_ms": k4_stretch["plain_ms"],
          "bound_ms": k4_stretch["bound_ms"], "bound_by": k4_stretch["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "shapes": k4_shapes},
         {"name": "hmm_estep_bf16", "route": "cuda",
-         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",
-         "launches": launches["hmm_estep_bf16"], "max_abs_err": k4_stretch["bf16_err"],
+         "launches": launches["hmm_estep_bf16"],
+         "max_abs_err": max(r["bf16_err"] for r, _, _ in k4_runs.values() if "bf16_err" in r),
          "ms": k4_stretch["bf16_ms"], "plain_ms": k4_stretch["bf16_plain_ms"],
-         **k4_stretch["bf16_bound"], "library_ms": None},
+         **k4_stretch["bf16_bound"], "library_ms": None, "shapes": k4bf_shapes},
         {"name": "mfcc", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/mfcc.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/mfcc_pallas.py:93",
@@ -1782,7 +1988,7 @@ def main() -> int:
          "max_abs_err": k5_r["err"], "ms": k5_r["ms"], "plain_ms": k5_r["plain_ms"],
          "bound_ms": k5_r["bound_ms"], "bound_by": k5_r["bound_by"], "library_ms": None},
         {"name": "hmm_estep_remat", "route": "cuda",
-         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",
          "launches": launches["hmm_estep_remat"], "max_abs_err": k4_stretch["k6_err"],
          "ms": k4_stretch["k6_ms"], "plain_ms": k4_stretch["k6_plain_ms"],

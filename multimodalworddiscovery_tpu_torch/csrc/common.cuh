@@ -2,6 +2,7 @@
 // bound from Python with ctypes by ops/_build.py).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -12,12 +13,6 @@
 // Largest state count the fused discrete-HMM route takes (its gate in
 // models/hmm.py is S <= 64).
 #define MWD_MAX_S 64
-
-// Largest state count of the general E-step (K4) and of the Viterbi
-// decoder (K3).  Both keep exp(base0) or base, [S, S + 1] floats, in shared
-// memory, and K4's backward adds the [S, S] xi table: at S = 160 that is
-// 206,848 bytes of the 232,448 a block may opt into on the H100.
-#define MWD_MAX_S_GENERAL 160
 
 // Dynamic shared memory a block may use after opting in (H100: 227 KB).
 #define MWD_SMEM_OPTIN_MAX 232448
@@ -102,4 +97,12 @@ __device__ __forceinline__ int mwd_block_argmax(float v, int i, float* red_v, in
     v = lane < nw ? red_v[lane] : -INFINITY;
     i = lane < nw ? red_i[lane] : 0x7fffffff;
     return mwd_warp_argmax(v, i);
+}
+
+// An operand of a product as the TPU kernel's MXU reads it: unchanged in
+// fp32, rounded to bf16 (nearest even) and widened back with BF16.
+template <bool BF16>
+__device__ __forceinline__ float mwd_dot_in(float x) {
+    if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+    return x;
 }

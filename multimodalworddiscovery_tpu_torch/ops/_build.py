@@ -42,13 +42,14 @@ SIGNATURES = {
     "mwd_log_matmul": [_P] * 3 + [_I] * 5 + [_L] * 4 + [_I, _P],
     "mwd_hmm_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "mwd_hmm_bwd_counts": [_P] * 11 + [_I] * 6 + [_P],
-    "mwd_hmm_bwd_gamma": [_P] * 9 + [_I] * 4 + [_P],
-    "mwd_hmm_fwd_ckpt": [_P] * 8 + [_I] * 5 + [_P],
-    "mwd_hmm_bwd_remat": [_P] * 10 + [_I] * 5 + [_P],
+    "mwd_estep_work": [_I] * 4,
+    "mwd_estep": [_P] * 10 + [_I] * 5 + [_P],
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
     "mwd_viterbi_bp_in_smem": [_I, _I],
+    "mwd_viterbi_bp_size": [_I],
     "mwd_mfcc": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
 }
+RESTYPES = {"mwd_error_string": ctypes.c_char_p, "mwd_estep_work": _L}
 
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
@@ -118,7 +119,7 @@ def load() -> types.SimpleNamespace:
             for name, argtypes in {**SIGNATURES, "mwd_error_string": [_I]}.items():
                 fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_char_p if name == "mwd_error_string" else ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
                 fns[name] = fn
             _lib = types.SimpleNamespace(**fns)
     return _lib

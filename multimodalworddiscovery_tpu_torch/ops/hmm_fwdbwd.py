@@ -21,23 +21,32 @@ backward recomputes each chunk's alphas from it.  Replaces
 
 ``dot_dtype="bfloat16"`` (K2-bf16, K4-bf16, and K6 in bf16) is the TPU
 kernels' bf16 variant: the operands of each step's products are rounded to
-bfloat16 and the products and sums stay float32.
+bfloat16 and the products and sums stay float32 (K4's and K6's block path
+runs them on the tensor cores).
 
-CUDA source of all three: ``csrc/hmm_fwdbwd.cu`` (forward kernels, and
-backward kernels instantiated with each consumer of gamma and each dtype).
+CUDA sources: ``csrc/hmm_fwdbwd.cu`` (K2) and ``csrc/hmm_estep.cu`` (K4
+and K6, one design with a remat flag).
 
 Transitions come factored (``models/hmm_core.factor_log_trans``):
 trans[n, s, s'] = base[s, s'] - rowz[n, s] + colmask[n, s'].  Each step's
 log-semiring product is an ordinary product on max-rescaled exponentials
 (all <= 1 because base0 = base - max(base)).  What bounds it on the H100 is
-latency: the recursion is sequential in time with S <= 160 states, so the
-kernels run one block per utterance and one thread per state and keep
-exp(base0) in shared memory; K2 sends gamma straight into the [F, E] counts
-with atomics, so gamma never reaches device memory, and K4 writes it once
-(see the CUDA source's header for the rest of the design).
+latency: the recursion is sequential in time.  K2 (S <= 64) runs one block
+per utterance and one thread per state, with exp(base0) in shared memory,
+and sends gamma straight into the [F, E] counts with atomics, so gamma
+never reaches device memory.  K4 and K6 take any S: several utterances
+share a block and its one copy of exp(base0), each step a [S, S] x [S, B]
+product (a warp of 32 / S utterances, one lane a state, up to S = 32; four
+utterances over 256 threads above, eight at S <= 64 in large batches), and
+the utterances run longest first, in the order a preparation kernel ranks
+on the card, each block stopping at its longest; xi is added once per
+chunk of steps and reduced over blocks in a fixed order (see
+``csrc/hmm_estep.cu``'s header for the rest of the design).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -46,11 +55,8 @@ from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.ops import _build
 
 MAX_STATES = 64  # csrc/common.cuh MWD_MAX_S: K2, the fused route's gate
-# csrc/common.cuh MWD_MAX_S_GENERAL: K4's [S, S+1] exp(base0) and [S, S] xi
-# tables in one block's shared memory (206,848 of 232,448 bytes at S = 160)
-MAX_STATES_GENERAL = 160
-# K6: csrc/hmm_fwdbwd.cu MWD_REMAT_MAX_TC, the longest chunk each thread
-# holds in its local array, and the chunk length when none is given
+# K6: csrc/hmm_estep.cu MWD_REMAT_MAX_TC, the longest chunk a lane of the
+# warp path holds in its local array, and the chunk length when none is given
 MAX_CHUNK = 64
 DEFAULT_CHUNK = 32
 DOT_DTYPES = ("float32", "bfloat16")
@@ -226,16 +232,15 @@ def hmm_estep_counts_plain(
 
 
 def _check_inputs(name, max_states, log_init, base, rowz, colmask, emit, src_len) -> None:
-    """Checks shared by K2, K4 and K6 before a launch."""
+    """Checks shared by K2, K4 and K6 before a launch (``max_states`` None:
+    any S)."""
     if emit.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {emit.device}")
     dev = emit.device
     n, ts, s = emit.shape
-    if not 1 <= s <= max_states or ts < 1:
-        raise ValueError(
-            f"{name} takes 1 <= S <= {max_states} states (its tables share one "
-            f"block's shared memory) and Ts >= 1, got S={s}, Ts={ts}"
-        )
+    if s < 1 or ts < 1 or (max_states is not None and s > max_states):
+        limit = "" if max_states is None else f" <= {max_states}"
+        raise ValueError(f"{name} takes 1 <= S{limit} states and Ts >= 1, got S={s}, Ts={ts}")
     f32 = torch.float32
     _build.require(log_init, "log_init", f32, (n, s), dev)
     _build.require(base, "base", f32, (s, s), dev)
@@ -324,33 +329,40 @@ hmm_estep_counts.launches = 0
 hmm_estep_counts.launches_bf16 = 0
 
 
-def _remat_kernels(log_init, base, rowz, colmask, log_emit, src_len, bf16, tc):
-    """K6: the checkpointing forward, then the rematerializing backward."""
-    _check_inputs("the remat E-step kernel", MAX_STATES_GENERAL, log_init, base, rowz,
-                  colmask, log_emit, src_len)
+@functools.lru_cache(maxsize=64)
+def _work_floats(n: int, ts: int, s: int, tcr: int) -> int:
+    return int(_build.load().mwd_estep_work(n, ts, s, tcr))
+
+
+def _general_kernels(log_init, base, rowz, colmask, log_emit, src_len, bf16, tcr):
+    """K4 (``tcr`` 0) or K6 (``tcr`` > 0, the chunk) in one call of the C
+    entry point: length order and tables, forward, backward, xi reduction
+    -> (gamma, xi, logz).  Counts the launch in ``hmm_estep``'s counter of
+    the variant; a batch of no utterances launches nothing."""
+    name = "the remat E-step kernel" if tcr else "the general E-step kernel"
+    _check_inputs(name, None, log_init, base, rowz, colmask, log_emit, src_len)
     dev = log_emit.device
     n, ts, s = log_emit.shape
-    gamma = torch.empty((n, ts, s), dtype=torch.float32, device=dev)
-    xi = torch.zeros((s, s), dtype=torch.float32, device=dev)
-    logz = torch.empty((n,), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    gamma = torch.empty((n, ts, s), **f32)
+    logz = torch.empty((n,), **f32)
     if n == 0:
-        return gamma, xi, logz
-    ckpt = torch.empty((n, -(-ts // tc), s), dtype=torch.float32, device=dev)
-    lib = _build.load()
+        return gamma, torch.zeros((s, s), **f32), logz
+    work = torch.empty((_work_floats(n, ts, s, tcr),), **f32)
+    xi = torch.empty((s, s), **f32)
     with torch.cuda.device(dev):
-        status = lib.mwd_hmm_fwd_ckpt(
+        status = _build.load().mwd_estep(
             base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
-            log_emit.data_ptr(), src_len.data_ptr(), ckpt.data_ptr(), logz.data_ptr(),
-            n, ts, s, tc, int(bf16), _stream(dev),
+            log_emit.data_ptr(), src_len.data_ptr(), work.data_ptr(), gamma.data_ptr(),
+            xi.data_ptr(), logz.data_ptr(), n, ts, s, tcr, int(bf16), _stream(dev),
         )
-        _build.check(status, "mwd_hmm_fwd_ckpt")
-        status = lib.mwd_hmm_bwd_remat(
-            base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
-            log_emit.data_ptr(), ckpt.data_ptr(), logz.data_ptr(), src_len.data_ptr(),
-            gamma.data_ptr(), xi.data_ptr(), n, ts, s, tc, int(bf16), _stream(dev),
-        )
-    _build.check(status, "mwd_hmm_bwd_remat")
-    hmm_estep.launches_remat += 1
+    _build.check(status, "mwd_estep")
+    if tcr:
+        hmm_estep.launches_remat += 1
+    elif bf16:
+        hmm_estep.launches_bf16 += 1
+    else:
+        hmm_estep.launches += 1
     return gamma, xi, logz
 
 
@@ -368,44 +380,20 @@ def hmm_estep(
     """(gamma [N, Ts, S], pooled xi [S, S], logz [N]).
 
     CPU tensors take ``hmm_estep_plain`` (``hmm_estep_remat_plain`` with
-    ``remat=True``); CUDA tensors launch the forward and the backward-gamma
-    kernels (S <= 160): K4 in float32 (counted in ``.launches``), K4-bf16
+    ``remat=True``); CUDA tensors launch the forward and backward kernels
+    (any S): K4 in float32 (counted in ``.launches``), K4-bf16
     (``.launches_bf16``), or with ``remat=True`` K6 in either dtype
     (``.launches_remat``), in chunks of ``chunk_t`` steps (default 32, at
     most 64).  ``remat=None`` means False, as in the reference."""
     bf16 = _is_bf16(dot_dtype)
     remat = bool(remat)
-    if remat:
-        tc = _chunk(chunk_t)
+    tc = _chunk(chunk_t) if remat else 0
     if log_emit.device.type == "cpu":
         if remat:
             return hmm_estep_remat_plain(log_init, base, rowz, colmask, log_emit, src_len,
                                          dot_dtype, tc)
         return hmm_estep_plain(log_init, base, rowz, colmask, log_emit, src_len, dot_dtype)
-    if remat:
-        return _remat_kernels(log_init, base, rowz, colmask, log_emit, src_len, bf16, tc)
-    fwd = _forward("the general E-step kernel", MAX_STATES_GENERAL, log_init, base,
-                   rowz, colmask, log_emit, src_len, bf16)
-    dev = log_emit.device
-    n, ts, s = log_emit.shape
-    gamma = torch.empty((n, ts, s), dtype=torch.float32, device=dev)
-    xi = torch.zeros((s, s), dtype=torch.float32, device=dev)
-    if fwd is None:
-        return gamma, xi, torch.empty((0,), dtype=torch.float32, device=dev)
-    alphas, logz = fwd
-    with torch.cuda.device(dev):
-        status = _build.load().mwd_hmm_bwd_gamma(
-            base.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
-            log_emit.data_ptr(), alphas.data_ptr(), logz.data_ptr(),
-            src_len.data_ptr(), gamma.data_ptr(), xi.data_ptr(), n, ts, s, int(bf16),
-            _stream(dev),
-        )
-    _build.check(status, "mwd_hmm_bwd_gamma")
-    if bf16:
-        hmm_estep.launches_bf16 += 1
-    else:
-        hmm_estep.launches += 1
-    return gamma, xi, logz
+    return _general_kernels(log_init, base, rowz, colmask, log_emit, src_len, bf16, tc)
 
 
 hmm_estep.launches = 0

@@ -7,12 +7,13 @@ Replaces ``multimodalworddiscovery_tpu/ops/viterbi_pallas.py:viterbi_pallas``
 The recursion is delta'[s'] = max_s(delta[s] - rowz[s] + base[s, s']) +
 colmask[s'] + emit[t, s'], frozen past each utterance's length, then a
 backtrace from the argmax of the last delta.  What bounds it on the H100
-is latency: the recursion is sequential in time with a few dozen states,
-so the kernel runs one block per utterance and one thread per state, keeps
-base and uint8 backpointers in shared memory (a global scratch when Ts * S
-bytes do not fit) and walks the backtrace in one thread.  Sums are taken in
-the plain decoder's order and ties go to the lowest state, so both give the
-same path.
+is latency: the recursion is sequential in time, so the kernel runs one
+block per utterance and one thread per state, keeps base in shared memory
+where it fits (else reads it from device memory) and the backpointers
+(uint8 up to S = 256 states, uint16 above) in shared memory too, or in a
+global scratch when Ts * S of them do not fit, and walks the backtrace in
+one thread.  It takes any S.  Sums are taken in the plain decoder's order
+and ties go to the lowest state, so both give the same path.
 """
 
 from __future__ import annotations
@@ -20,8 +21,6 @@ from __future__ import annotations
 import torch
 
 from multimodalworddiscovery_tpu_torch.ops import _build
-
-MAX_STATES = 160  # csrc/common.cuh MWD_MAX_S_GENERAL: base [S, S + 1] in shared memory
 
 
 def viterbi_plain(
@@ -90,19 +89,15 @@ def viterbi(
     src_len: torch.Tensor,   # [N] int32
 ) -> torch.Tensor:
     """State path [N, Ts] int32.  CPU tensors take ``viterbi_plain``; CUDA
-    tensors launch the kernel (S <= 160)."""
+    tensors launch the kernel."""
     if log_emit.device.type == "cpu":
         return viterbi_plain(log_init, base, rowz, colmask, log_emit, src_len)
     if log_emit.device.type != "cuda":
         raise ValueError(f"viterbi runs on cpu or cuda, got {log_emit.device}")
     dev = log_emit.device
     n, ts, s = log_emit.shape
-    if not 1 <= s <= MAX_STATES or ts < 1:
-        raise ValueError(
-            f"the Viterbi kernel takes 1 <= S <= {MAX_STATES} states (its "
-            f"[S, S+1] base table lives in shared memory) and Ts >= 1, got "
-            f"S={s}, Ts={ts}"
-        )
+    if s < 1 or ts < 1:
+        raise ValueError(f"the Viterbi kernel takes S >= 1 states and Ts >= 1, got S={s}, Ts={ts}")
     f32 = torch.float32
     _build.require(log_init, "log_init", f32, (n, s), dev)
     _build.require(base, "base", f32, (s, s), dev)
@@ -117,7 +112,8 @@ def viterbi(
     lib = _build.load()
     scratch = None
     if not lib.mwd_viterbi_bp_in_smem(ts, s):
-        scratch = torch.empty((n, ts, s), dtype=torch.uint8, device=dev)
+        bp_dtype = torch.uint8 if lib.mwd_viterbi_bp_size(s) == 1 else torch.int16
+        scratch = torch.empty((n, ts, s), dtype=bp_dtype, device=dev)
     with torch.cuda.device(dev):
         status = lib.mwd_viterbi(
             base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(),

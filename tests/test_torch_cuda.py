@@ -303,16 +303,86 @@ def test_k3_backpointers_in_global_scratch(dev):
     assert torch.equal(k3.viterbi(*args), k3.viterbi_plain(*args))
 
 
-def test_kernels_reject_too_many_states(dev):
-    n, ts, s = 2, 4, k2.MAX_STATES_GENERAL + 1
-    z = torch.zeros
-    args = (z(n, s, device=dev), z(s, s, device=dev), z(n, s, device=dev),
-            z(n, s, device=dev), z(n, ts, s, device=dev),
-            torch.full((n,), ts, dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError, match="160"):
-        k2.hmm_estep(*args)
-    with pytest.raises(ValueError, match="160"):
-        k3.viterbi(*args)
+def _random_factored(n, ts, s, lens, seed, dev):
+    """Factored inputs from a seed: a random jump table, utterances with
+    7 or 14 of their S states masked (every row keeps valid columns), random
+    emissions, lengths ``lens`` (ragged, zeros included)."""
+    gen = torch.Generator().manual_seed(seed)
+    n_valid = torch.tensor([s - 7 * (i % 3) for i in range(n)])
+    colmask = torch.where(torch.arange(s)[None, :] < n_valid[:, None], 0.0, NEG_INF)
+    base = 2.0 * torch.randn(s, s, generator=gen)
+    rowz = torch.logsumexp(base[None, :, :] + colmask[:, None, :], dim=-1)
+    log_init = torch.log_softmax(torch.randn(n, s, generator=gen) + colmask, dim=-1)
+    emit = 3.0 * torch.randn(n, ts, s, generator=gen)
+    src_len = torch.tensor(lens, dtype=torch.int32)
+    return tuple(x.contiguous().to(dev) for x in (log_init, base, rowz, colmask, emit, src_len))
+
+
+def _k4_k6_k3_against_plain(args, chunks=(11, 32)):
+    """K4, K4-bf16 and K6 against their plain versions with K4's bounds (bf16
+    as FLIP_SHARE says), K6 against K4 with the reference's remat bounds, and
+    K3's paths and scores against the plain decoder's."""
+    gamma_p, xi_p, logz_p = k2.hmm_estep_plain(*args)
+    before = (k2.hmm_estep.launches, k2.hmm_estep.launches_bf16, k2.hmm_estep.launches_remat)
+    gamma, xi, logz = k2.hmm_estep(*args)
+    torch.testing.assert_close(logz, logz_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(logz.sum(), logz_p.sum(), rtol=1e-6, atol=0)
+    torch.testing.assert_close(gamma, gamma_p, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(xi, xi_p, rtol=1e-3, atol=1e-3)
+    empty = args[5] == 0
+    assert torch.all(logz[empty] == 0) and torch.all(gamma[empty] == 0)
+    g16, xi16, z16 = k2.hmm_estep(*args, dot_dtype="bfloat16")
+    g16_p, xi16_p, z16_p = k2.hmm_estep_plain(*args, dot_dtype="bfloat16")
+    torch.testing.assert_close(z16, z16_p, rtol=1e-4, atol=1e-4)
+    _assert_close_but_flips(g16, g16_p, rtol=1e-3, atol=1e-4)
+    _assert_close_but_flips(xi16, xi16_p, rtol=1e-3, atol=1e-3)
+    _assert_rounds(z16, z16_p, logz)
+    for chunk_t in chunks:
+        g6, xi6, z6 = k2.hmm_estep(*args, remat=True, chunk_t=chunk_t)
+        torch.testing.assert_close(z6, logz, rtol=1e-5, atol=0)
+        torch.testing.assert_close(g6, gamma, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(xi6, xi, rtol=1e-4, atol=1e-4)
+    assert (k2.hmm_estep.launches, k2.hmm_estep.launches_bf16,
+            k2.hmm_estep.launches_remat) == (before[0] + 1, before[1] + 1, before[2] + len(chunks))
+    path, path_p = k3.viterbi(*args), k3.viterbi_plain(*args)
+    valid = torch.arange(args[4].shape[1], device=path.device)[None, :] < args[5][:, None]
+    assert (path == path_p)[valid].float().mean() >= 0.99
+    torch.testing.assert_close(k3.path_score(path, *args), k3.path_score(path_p, *args),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("s", [161, 200, 260, 1300, 2000])
+def test_kernels_take_many_states(dev, s):
+    """Above the old 160-state limit (S = 260 is past K3's 8-bit
+    backpointers; at S = 1300 K4's backward and at S = 2000 its forward keep
+    their block buffers in device memory, and K3's threads loop over the
+    states) K4, K4-bf16, K6 and K3 answer as their plain versions do, on
+    ragged and zero lengths."""
+    args = _random_factored(6, 40, s, [40, 33, 0, 17, 40, 1], s, dev)
+    _k4_k6_k3_against_plain(args)
+
+
+@pytest.mark.parametrize("s", [8, 40])
+def test_k4_empty_batch_launches_nothing(dev, s):
+    """A batch of no utterances gives empty outputs and a zero xi, launches
+    no kernel, and leaves every variant's launch count as it was."""
+    args = _random_factored(0, 5, s, [], s, dev)
+    before = (k2.hmm_estep.launches, k2.hmm_estep.launches_bf16, k2.hmm_estep.launches_remat)
+    for kw in ({}, {"dot_dtype": "bfloat16"}, {"remat": True}):
+        gamma, xi, logz = k2.hmm_estep(*args, **kw)
+        assert gamma.shape == (0, 5, s) and logz.shape == (0,)
+        assert xi.shape == (s, s) and torch.all(xi == 0)
+    assert (k2.hmm_estep.launches, k2.hmm_estep.launches_bf16,
+            k2.hmm_estep.launches_remat) == before
+
+
+@pytest.mark.parametrize("s, n, ts", [(8, 13, 37), (12, 9, 23), (20, 5, 30), (40, 300, 30)])
+def test_kernels_batch_utterances(dev, s, n, ts):
+    """Several utterances a warp (S = 8: four; S = 12: two) or a block
+    (S = 40, 75 blocks: the two-pass xi reduction), with lengths that
+    differ within a warp and a block and some zero."""
+    lens = [(7 * i) % (ts + 1) for i in range(n)]
+    _k4_k6_k3_against_plain(_random_factored(n, ts, s, lens, 100 + s, dev))
 
 
 def test_general_route_matches_plain_em(dev):

@@ -29,9 +29,12 @@ CASES = {
                 max_concepts=20, min_word_len=2, max_word_len=3, seed=21),
 }
 # K4 also runs outside K2's gate: S=128 is the discrete route's general case
+# and above the 160 states the kernels once took (S=170)
 K4_CASES = dict(CASES, S128=dict(n_utterances=4, n_concepts=200, min_concepts=62,
                                  max_concepts=64, min_word_len=2, max_word_len=3,
-                                 seed=21))
+                                 seed=21),
+                S170=dict(n_utterances=4, n_concepts=200, min_concepts=85,
+                          max_concepts=85, min_word_len=2, max_word_len=3, seed=21))
 N_EMPTY = 3
 
 
@@ -349,3 +352,31 @@ def test_kernel_route_estep_threads_dot_dtype(k4_case):
     dense16 = tcore.estep(tp.log_jump, tp.log_p0, tp.max_jump, emit, tc, use_kernels=False,
                           dot_dtype="bfloat16")
     assert all(torch.equal(a, b) for a, b in zip(dense, dense16))
+
+
+def test_length_order_blocks_give_the_plain_outputs(k4_case):
+    """What K4's and K6's blocks rest on: utterances taken longest first
+    (ties in index order, the order their preparation kernel ranks on the
+    card), each block of 4 run alone and only up to its longest length, its
+    outputs put back in the caller's order, give the whole batch's gamma,
+    logZ and xi, empty utterances included."""
+    _, _, tc, tp = k4_case
+    log_init, base, rowz, colmask = _factored(tc, tp)
+    emit = thmm._log_emissions(tp, tc)
+    perm = torch.argsort(tc.src_len, descending=True, stable=True)
+    assert tc.src_len[perm[-N_EMPTY:]].tolist() == [0] * N_EMPTY
+    gamma_w, xi_w, logz_w = k2.hmm_estep_plain(log_init, base, rowz, colmask, emit, tc.src_len)
+    gamma, xi, logz = torch.zeros_like(gamma_w), torch.zeros_like(xi_w), torch.zeros_like(logz_w)
+    for b0 in range(0, tc.n, 4):
+        idx = perm[b0:b0 + 4]
+        tmax = int(tc.src_len[idx].max())
+        if tmax == 0:
+            continue
+        g, x, z = k2.hmm_estep_plain(log_init[idx], base, rowz[idx], colmask[idx],
+                                     emit[idx, :tmax], tc.src_len[idx])
+        gamma[idx, :tmax], logz[idx] = g, z
+        xi = xi + x
+    # the two differ only in the batch shapes of the float32 products
+    torch.testing.assert_close(gamma, gamma_w, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(logz, logz_w, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(xi, xi_w, rtol=1e-4, atol=1e-4)

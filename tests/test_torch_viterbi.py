@@ -31,6 +31,9 @@ CASES = {
                 min_word_len=2, max_word_len=3, seed=21),
     "S128": dict(n_utterances=4, n_concepts=200, min_concepts=62, max_concepts=64,
                  min_word_len=2, max_word_len=3, seed=21),
+    # above 255 states, where 8-bit backpointers no longer hold a state
+    "S260": dict(n_utterances=2, n_concepts=200, min_concepts=130, max_concepts=130,
+                 min_word_len=2, max_word_len=2, seed=21),
 }
 N_EMPTY = 3
 
