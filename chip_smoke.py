@@ -50,17 +50,20 @@ shapes the main paths give it, then drives nine paths through the kernels
    port's ``scripts/bench_assoc.py`` and ``scripts/bench_kernels.py --only
    counts log_matmul`` once each, with few repetitions.
 
-K1 and K2 are checked at the headline shape, at K2's gate edge and at the
-VQ teacher's shape (the recipe's code corpus: N=4000, Ts=401, S=64,
-V_src=64), where the teacher's EM trajectory is also held against the
-plain path's; K2-bf16 at the headline shape and at K2's gate edge.  K4,
+K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
+gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
+Ts=401, S=64, V_src=64), where the teacher's EM trajectory is also held
+against the plain path's and one of its EM iterations is profiled; the
+JSON line gives K2's and K2-bf16's launches, time and bound per launch
+shape, and K3's at each shape it decodes.  K4,
 K4-bf16 and K6 (the remat E-step, reached through its entry point
 ``hmm_estep(remat=True)``, which no model path calls) are checked at the
 stretch shape and at S=128, K6 at two chunk lengths and against K4; each
 bf16 kernel is also shown to round (closer to its plain bf16 version than
 to the float32 kernel, and not equal to the latter).  K4, K4-bf16 and K6
 are also checked and timed at the two S=8 shapes the pipeline and the CRF
-paths launch them at (inputs from ``scripts/bench_estep.py``), and the
+paths launch them at (inputs from ``scripts/bench_estep.py``; K3 there
+too), and the
 JSON line gives K4's launches, time and bound per launch shape.  Above the
 160 states the kernels once took, K4, K4-bf16, K6 and K3 are held to their
 plain versions on a corpus of 96-100 concepts an image (S~200) and one of
@@ -159,8 +162,8 @@ ZERO_LENGTH_PAD = 4  # zero-length utterances appended in the parity phases
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 against f32, tests/test_hmm_estep_pallas.py:222
 # A bf16 kernel against its plain bf16 version is held to the float32
 # kernel's bounds, except K4-bf16's gamma and xi at the stretch shape and
-# at MANY_RANDOM's S=2000 (2000-term sums; tests/test_torch_cuda.py holds
-# every S so).  There the products are exact in float32 on both sides, but
+# at MANY_RANDOM's S=2000 (2000-term sums), and K2-bf16's counts and xi at
+# the VQ teacher's shape (tests/test_torch_cuda.py holds every S so).  There the products are exact in float32 on both sides, but
 # the float32 operands entering each bf16 rounding differ in their last bits (another
 # summation order, another exp), so now and then one rounds the other way,
 # 2^-8 relative, and shifts that utterance's posteriors.  Those two are held
@@ -397,9 +400,24 @@ def _rounding_check(what, pairs) -> None:
                f"version, {d_f32} against the float32 kernel")
 
 
-def _k2_checks(what, out, want, n_pad: int) -> dict:
+def _exact_counts(args, dot_dtype: str = "float32"):
+    """The counts of ``hmm_estep_counts_plain(*args)`` with its posteriors
+    summed in float64: its float32 scatter adds up to ~1e5 posteriors into
+    one entry in arbitrary order, and the smallest fall below half an ulp
+    of sums near 1e3 and are lost."""
+    from multimodalworddiscovery_tpu_torch.core.counts import pair_counts
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
+
+    gamma = k2.hmm_estep_plain(*args[:5], args[7], dot_dtype)[0]
+    return pair_counts(gamma.double(), args[5], args[6], args[8], args[9])
+
+
+def _k2_checks(what, out, want, n_pad: int, flips: bool = False, exact=None) -> dict:
     """K2's checks of one kernel run ``out`` against its plain version's
-    ``want``, both (counts, xi, logz): the max abs errors."""
+    ``want``, both (counts, xi, logz): the max abs errors; with ``flips``
+    the counts and xi as BF16_FLIP says; with ``exact`` (``_exact_counts``)
+    the counts against that, the plain version's float32 counts' own error
+    printed beside them."""
     import torch
 
     counts, xi, logz = out
@@ -407,6 +425,10 @@ def _k2_checks(what, out, want, n_pad: int) -> dict:
     errs = {"logz": _max_abs(logz, logz_p), "counts": _max_abs(counts, counts_p),
             "xi": _max_abs(xi, xi_p)}
     print(f"  {what} max abs err vs plain: {errs}")
+    if exact is not None:
+        print(f"  {what} counts: max abs err {_max_abs(counts, exact)} against the plain "
+              f"posteriors summed in float64, the plain version's own {_max_abs(counts_p, exact)}")
+        counts_p = exact.float()
     _check(torch.allclose(logz, logz_p, rtol=1e-4, atol=1e-4), f"{what} logZ rtol 1e-4 atol 1e-4")
     _check(bool((logz[-n_pad:] == 0).all()), f"{what} logZ = 0 on zero-length utterances")
     ll, ll_p = float(logz.sum()), float(logz_p.sum())
@@ -414,16 +436,18 @@ def _k2_checks(what, out, want, n_pad: int) -> dict:
            f"{what} total loglik rtol 1e-6 ({ll} vs {ll_p})")
     scale = max(float(counts_p.max()), 1.0)
     _posterior_check(what, "emission counts", counts, counts_p,
-                     dict(rtol=0.0, atol=1e-4 * scale))
-    _posterior_check(what, "xi", xi, xi_p, dict(rtol=1e-4, atol=1e-3))
+                     dict(rtol=0.0, atol=1e-4 * scale), flips)
+    _posterior_check(what, "xi", xi, xi_p, dict(rtol=1e-4, atol=1e-3), flips)
     return errs
 
 
-def parity(name, corpus, max_jump: int = 3, bf16: bool = True) -> dict:
-    """K1 and K2 against their plain versions on the card at the shape of
-    the discrete ``corpus`` (on the card), with ZERO_LENGTH_PAD empty
-    utterances appended; with ``bf16`` also K2-bf16 against its plain bf16
-    version (K2's bounds) and against K2."""
+def parity(name, corpus, max_jump: int = 3, reps: int = 10, bf16_flips: bool = False) -> dict:
+    """K1, K2 and K2-bf16 against their plain versions on the card at the
+    shape of the discrete ``corpus`` (on the card), with ZERO_LENGTH_PAD
+    empty utterances appended (K2-bf16 with K2's bounds, its counts and xi
+    as BF16_FLIP says with ``bf16_flips``, and against K2); then K2 and
+    K2-bf16 timed with their plain versions and their bounds (``reps``
+    kernel runs, a tenth as many plain ones)."""
     import torch
 
     from multimodalworddiscovery_tpu_torch.core.counts import pair_counts
@@ -450,22 +474,34 @@ def parity(name, corpus, max_jump: int = 3, bf16: bool = True) -> dict:
             corpus.src_len, v_src, v_trg)
     counts, xi, logz = k2.hmm_estep_counts(*args)
     errs = _k2_checks("K2", (counts, xi, logz), k2.hmm_estep_counts_plain(*args),
-                      ZERO_LENGTH_PAD)
-    out = {"k1_err": k1_err, "k2_err": errs["logz"]}
-    if bf16:
-        got = k2.hmm_estep_counts(*args, dot_dtype="bfloat16")
-        want = k2.hmm_estep_counts_plain(*args, dot_dtype="bfloat16")
-        errs_bf = _k2_checks("K2-bf16", got, want, ZERO_LENGTH_PAD)
-        _rounding_check("K2-bf16", (("logZ", got[2], want[2], logz),
-                                    ("emission counts", got[0], want[0], counts)))
-        scale = max(float(counts.max()), 1.0)
-        print(f"  K2-bf16 against K2: max abs err logZ {_max_abs(got[2], logz)}, counts "
-              f"{_max_abs(got[0], counts)} (scale {scale})")
-        _check(torch.allclose(got[2], logz, **BF16_TOL), "K2-bf16 logZ within rtol 2e-2 "
-                                                         "atol 2e-2 of K2")
-        _check(torch.allclose(got[0], counts, rtol=2e-2, atol=2e-2 * scale),
-               "K2-bf16 counts within rtol 2e-2, atol 2e-2 x scale of K2's")
-        out["k2bf_err"] = errs_bf["logz"]
+                      ZERO_LENGTH_PAD, exact=_exact_counts(args))
+    got = k2.hmm_estep_counts(*args, dot_dtype="bfloat16")
+    want = k2.hmm_estep_counts_plain(*args, dot_dtype="bfloat16")
+    errs_bf = _k2_checks("K2-bf16", got, want, ZERO_LENGTH_PAD, flips=bf16_flips,
+                         exact=_exact_counts(args, "bfloat16"))
+    _rounding_check("K2-bf16", (("logZ", got[2], want[2], logz),
+                                ("emission counts", got[0], want[0], counts)))
+    scale = max(float(counts.max()), 1.0)
+    print(f"  K2-bf16 against K2: max abs err logZ {_max_abs(got[2], logz)}, counts "
+          f"{_max_abs(got[0], counts)} (scale {scale})")
+    _check(torch.allclose(got[2], logz, **BF16_TOL), "K2-bf16 logZ within rtol 2e-2 "
+                                                     "atol 2e-2 of K2")
+    _check(torch.allclose(got[0], counts, rtol=2e-2, atol=2e-2 * scale),
+           "K2-bf16 counts within rtol 2e-2, atol 2e-2 x scale of K2's")
+    del got, want
+    nbytes = _nbytes(*args[:8], counts, xi, logz)
+    plain_reps = max(reps // 10, 1)
+    out = {"k1_err": k1_err, "k2_err": errs["logz"], "k2bf_err": errs_bf["logz"],
+           "k2": {"ms": _gpu_ms(lambda: k2.hmm_estep_counts(*args), reps),
+                  "plain_ms": _gpu_ms(lambda: k2.hmm_estep_counts_plain(*args), plain_reps),
+                  **_estep_bound(nbytes, corpus.src_len, s, bf16=False)},
+           "k2bf": {"ms": _gpu_ms(lambda: k2.hmm_estep_counts(*args, dot_dtype="bfloat16"), reps),
+                    "plain_ms": _gpu_ms(lambda: k2.hmm_estep_counts_plain(
+                        *args, dot_dtype="bfloat16"), plain_reps),
+                    **_estep_bound(nbytes, corpus.src_len, s, bf16=True)}}
+    for what, r in (("K2", out["k2"]), ("K2-bf16", out["k2bf"])):
+        print(f"  {what} at {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     # and against the dense plain E-step (the use_kernels=False route)
     gamma, wc_d, logz_d = hmm_core.estep(
@@ -611,14 +647,13 @@ def teacher_phase(fc, card: str) -> dict:
     import numpy as np
     import torch
 
-    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_gaussian
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_gaussian
     from multimodalworddiscovery_tpu_torch.ops import counts as k1
-    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k2
 
     gen = torch.Generator().manual_seed(SEED)
     hmm_gaussian.init(fc, max_jump=MAX_JUMP, n_components=2, generator=gen)  # the jitter
     codes = hmm_gaussian.quantize_frames(fc, n_codes=N_CODES, generator=gen)
-    errs = parity("VQ teacher shape", codes, max_jump=MAX_JUMP, bf16=False)
+    errs = parity("VQ teacher shape", codes, max_jump=MAX_JUMP, reps=5, bf16_flips=True)
 
     p0 = hmm.init(codes, max_jump=MAX_JUMP)
     lw = hmm.train(p0, codes, EM_ITERS, use_kernels=True)[1].cpu().numpy()
@@ -633,21 +668,16 @@ def teacher_phase(fc, card: str) -> dict:
     _check(rel[-1] <= 1e-4, f"teacher final loglik within rtol 1e-4 of plain "
                             f"({lw[-1]} vs {lp[-1]}, rel {rel[-1]:.3e})")
 
-    concepts, (log_init, base, rowz, colmask) = _estep_inputs(p0, codes)
-    emit = k1.table_lookup(p0.log_emit, codes.src, concepts)
-    args = (log_init, base, rowz, colmask, emit, codes.src, concepts, codes.src_len,
-            codes.src_vocab, codes.trg_vocab)
+    concepts = hmm_core.state_concepts(codes)
     times = {
         "k1_ms": _gpu_ms(lambda: k1.table_lookup(p0.log_emit, codes.src, concepts), 20),
         "k1_plain_ms": _gpu_ms(lambda: k1.table_lookup_plain(p0.log_emit, codes.src,
                                                              concepts), 20),
-        "k2_ms": _gpu_ms(lambda: k2.hmm_estep_counts(*args), 10),
-        "k2_plain_ms": _gpu_ms(lambda: k2.hmm_estep_counts_plain(*args), 2),
     }
     print(f"  [{card}] at the VQ teacher's shape: K1 table_lookup kernel "
-          f"{times['k1_ms']:.4f} ms, plain {times['k1_plain_ms']:.4f} ms; K2 "
-          f"hmm_estep_counts kernel {times['k2_ms']:.4f} ms, plain "
-          f"{times['k2_plain_ms']:.4f} ms")
+          f"{times['k1_ms']:.4f} ms, plain {times['k1_plain_ms']:.4f} ms; K2 hmm_estep_counts "
+          f"kernel {errs['k2']['ms']:.4f} ms, plain {errs['k2']['plain_ms']:.4f} ms")
+    _profile(lambda: hmm.em_step(p0, codes), "one VQ-teacher EM iteration (K1, K2, M-step)", card)
     return errs | times
 
 
@@ -854,11 +884,13 @@ def _profile(fn, what: str, card: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"K1 lookup": ("mwd_table_lookup",), "K7 pair counts": ("mwd_pair_counts",),
                 "K8 log_matmul": ("mwd_log_matmul",),
-                "K5 mfcc": ("mwd_mfcc",), "K2 forward": ("mwd_hmm_fwd",),
-                "K2 backward": ("mwd_hmm_bwd",), "K4 forward": ("mwd_estep_fwd",),
-                "K4 backward": ("mwd_estep_bwd",),
-                "K4 order, table and xi sum": ("mwd_estep_prep", "mwd_estep_xi"),
-                "K3 viterbi": ("mwd_viterbi",),
+                "K5 mfcc": ("mwd_mfcc",), "K2 forward": ("mwd_estep_counts_fwd",),
+                "K2 backward with counts": ("mwd_estep_counts_bwd",),
+                "K2 table and xi sum": ("mwd_estep_counts_prep", "mwd_estep_counts_xi"),
+                "K4 forward": ("mwd_estep_fwd",), "K4 backward": ("mwd_estep_bwd",),
+                "K4 table and xi sum": ("mwd_estep_prep", "mwd_estep_xi"),
+                "length order rank (K2, K3, K4)": ("mwd_length_rank",),
+                "K3 viterbi (and its order)": ("mwd_viterbi",),
                 "fft": ("fft",), "matmul": ("gemm", "cutlass", "xmma"),
                 "softmax": ("softmax",), "reductions": ("reduce",),
                 "elementwise": ("elementwise", "vectorized")}
@@ -1334,11 +1366,11 @@ def assoc_phase(card: str, counters, dev) -> dict:
 
 
 def k4_s8_phase(card: str, dev) -> dict:
-    """K4, K4-bf16 and K6 at the two S=8 shapes the pipeline (N=2000,
+    """K4, K4-bf16, K6 and K3 at the two S=8 shapes the pipeline (N=2000,
     Ts=174) and the CRF and DNN-HMM paths (N=400, Ts=64) launch them at,
     their inputs built as ``scripts/bench_estep.py`` builds them: each
-    against its plain version (K4's bounds; K6 also against K4), and timed
-    with its bound."""
+    against its plain version (K4's bounds; K6 also against K4; K3 as
+    k3_parity), and timed with its bound."""
     import torch
 
     from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k4
@@ -1371,6 +1403,10 @@ def k4_s8_phase(card: str, dev) -> dict:
              "k6_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, remat=True), 20),
              "bf16_bound": _estep_bound(nbytes, inputs[5], s, bf16=True)}
         r |= _estep_bound(nbytes, inputs[5], s, bf16=False)
+        r["k3"] = k3_parity(label, inputs, 20)
+        print(f"  [{card}] K3 at {label}: kernel {r['k3']['ms']:.4f} ms, plain "
+              f"{r['k3']['plain_ms']:.4f} ms, bound {r['k3']['bound_ms']:.4f} ms "
+              f"({r['k3']['bound_by']})")
         print(f"  [{card}] K4 at {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); K4-bf16 {r['bf16_ms']:.4f} ms, "
               f"plain {r['bf16_plain_ms']:.4f} ms, bound {r['bf16_bound']['bound_ms']:.4f} ms; "
@@ -1547,7 +1583,7 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     # --- K1 / K2 parity at the headline shape and at the K2 gate edge ---
-    errs = parity("headline shape", make_flickr8k_mini(**HEADLINE)[0].to(dev))
+    errs = parity("headline shape", make_flickr8k_mini(**HEADLINE)[0].to(dev), reps=20)
     errs_edge = parity("K2 gate edge (S=64)", make_flickr8k_mini(**GATE_EDGE)[0].to(dev))
     print(elapsed())
 
@@ -1567,8 +1603,10 @@ def main() -> int:
     print(f"  kernel launches on the headline path: {launches_headline}")
     print(f"  kernel path alignment: {kern['prf']}")
     print(f"  plain path alignment:  {plain['prf']}")
-    _check(all(launches_headline[w] > 0 for w in ("table_lookup", "hmm_estep_counts", "viterbi")),
-           "K1, K2 and K3 launched on the headline path")
+    _check(launches_headline["table_lookup"] > 0 and launches_headline["viterbi"] > 0
+           and launches_headline["hmm_estep_counts"] == EM_ITERS
+           and launches_headline["hmm_estep"] == 0 and launches_headline["pair_counts"] == 0,
+           "K1 and K3 launched on the headline path, K2 once per EM iteration, K4 and K7 never")
     _check(bool(np.all(np.isfinite(lw))), "loglik finite")
     _check(bool(np.all(np.diff(lw) > -1e-3 * np.abs(lw[:-1]))) and lw[-1] > lw[0],
            "loglik monotone within bench.py's bound and improving")
@@ -1603,8 +1641,6 @@ def main() -> int:
     params = kern["params"]
     concepts, (log_init, base, rowz, colmask) = _estep_inputs(params, corpus)
     emit = k1.table_lookup(params.log_emit, corpus.src, concepts)
-    args = (log_init, base, rowz, colmask, emit, corpus.src, concepts,
-            corpus.src_len, corpus.src_vocab, corpus.trg_vocab)
     k1_ms = _gpu_ms(lambda: k1.table_lookup(params.log_emit, corpus.src, concepts), 50)
     k1_plain_ms = _gpu_ms(lambda: k1.table_lookup_plain(params.log_emit, corpus.src, concepts), 50)
     # the one PyTorch call that computes K1's gather (without its masking
@@ -1612,26 +1648,14 @@ def main() -> int:
     k1_library_ms = _gpu_ms(lambda: params.log_emit[corpus.src[..., None],
                                                     concepts[:, None, :]], 50)
     k1_bound = _bound(_nbytes(params.log_emit, corpus.src, concepts, emit), 0)
-    k2_ms = _gpu_ms(lambda: k24.hmm_estep_counts(*args), 20)
-    k2_plain_ms = _gpu_ms(lambda: k24.hmm_estep_counts_plain(*args), 5)
-    k2_bytes = _nbytes(*args[:8], *k24.hmm_estep_counts(*args))
-    k2_bound = _estep_bound(k2_bytes, corpus.src_len, concepts.shape[1], bf16=False)
-    k2bf_bound = _estep_bound(k2_bytes, corpus.src_len, concepts.shape[1], bf16=True)
     print(f"  [{card}] K1 table_lookup: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
           f"library gather {k1_library_ms:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms "
           f"({k1_bound['bound_by']})")
-    print(f"  [{card}] K2 hmm_estep_counts: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, "
-          f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
     k3_s12 = k3_parity("headline shape (S=12)", (log_init, base, rowz, colmask, emit,
                                                  corpus.src_len), 20)
     print(f"  [{card}] K3 viterbi at S=12: kernel {k3_s12['ms']:.4f} ms, "
           f"plain {k3_s12['plain_ms']:.4f} ms, bound {k3_s12['bound_ms']:.4f} ms "
           f"({k3_s12['bound_by']})")
-    k2bf_ms = _gpu_ms(lambda: k24.hmm_estep_counts(*args, dot_dtype="bfloat16"), 20)
-    k2bf_plain_ms = _gpu_ms(lambda: k24.hmm_estep_counts_plain(*args, dot_dtype="bfloat16"), 5)
-    print(f"  [{card}] K2-bf16 hmm_estep_counts(dot_dtype='bfloat16'): kernel {k2bf_ms:.4f} ms, "
-          f"plain {k2bf_plain_ms:.4f} ms, bound {k2bf_bound['bound_ms']:.4f} ms "
-          f"({k2bf_bound['bound_by']}; its products at the bf16 rate)")
     # K7 on K4's posteriors at the headline shape
     gamma = k24.hmm_estep(log_init, base, rowz, colmask, emit, corpus.src_len)[0]
     k7_head = k7_check("the headline shape", gamma, corpus.src, concepts,
@@ -1639,7 +1663,7 @@ def main() -> int:
     print(f"  [{card}] K7 pair_counts at the headline shape: kernel {k7_head['ms']:.4f} ms, "
           f"plain {k7_head['plain_ms']:.4f} ms, library bincount {k7_head['library_ms']:.4f} ms, "
           f"bound {k7_head['bound_ms']:.4f} ms ({k7_head['bound_by']})")
-    del emit, args, gamma
+    del emit, gamma
     print(elapsed())
 
     # --- path 5: the headline EM at dot_dtype="bfloat16" (K1, K2-bf16, K3) ---
@@ -1650,9 +1674,10 @@ def main() -> int:
     print(f"path 5 (headline EM, dot_dtype='bfloat16'): loglik per iteration {lb.tolist()}")
     print(f"  alignment {kern_bf['prf']}; launches {launches_bf16}")
     _check(launches_bf16["hmm_estep_counts_bf16"] == EM_ITERS
-           and launches_bf16["hmm_estep_counts"] == 0
+           and launches_bf16["hmm_estep_counts"] == 0 and launches_bf16["hmm_estep_bf16"] == 0
+           and launches_bf16["pair_counts"] == 0
            and launches_bf16["table_lookup"] > 0 and launches_bf16["viterbi"] > 0,
-           "path 5: K1 and K3 launched, K2-bf16 on every EM iteration, K2 never")
+           "path 5: K1 and K3 launched, K2-bf16 on every EM iteration, K2, K4-bf16 and K7 never")
     _check(bool(np.all(np.isfinite(lb))), "path 5 loglik finite")
     rel = (float(lb[-1]) - float(lw[-1])) / abs(float(lw[-1]))
     _check(abs(rel) <= 1e-3, f"path 5 final loglik within rtol 1e-3 of the float32 kernel "
@@ -1842,8 +1867,9 @@ def main() -> int:
               f"launches (teacher, Gaussian) {run['launches']}")
     r_k, r_p = recipe[True], recipe[False]
     teach, gauss = r_k["launches"]
-    _check(teach["table_lookup"] > 0 and teach["hmm_estep_counts"] > 0,
-           "K1 and K2 launched in the VQ teacher")
+    _check(teach["table_lookup"] > 0 and teach["hmm_estep_counts"] == EM_ITERS
+           and teach["hmm_estep"] == 0 and teach["pair_counts"] == 0,
+           "K1 launched in the VQ teacher, K2 once per EM iteration, K4 and K7 never")
     _check(gauss["hmm_estep"] > 0 and gauss["viterbi"] > 0,
            "K4 and K3 launched on the recipe's Gaussian EM and decode")
     _check(bool(np.all(np.isfinite(r_k["lls"]))), "recipe loglik finite")
@@ -1926,10 +1952,30 @@ def main() -> int:
                  for k, (r, n, _) in k4_runs.items()}
     k4bf_shapes = {k: {"launches": nb, "ms": r["bf16_ms"], "plain_ms": r["bf16_plain_ms"],
                        **r["bf16_bound"]} for k, (r, _, nb) in k4_runs.items()}
-    k3_shapes = {"S12": k3_s12, "S64": k3_stretch, "S128": k3_128,
-                 **{f"{k} (S={r['S']})": r["k3"] for k, r in many["shapes"].items()}}
-    k3_shapes = {k: {"ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"]} for k, r in k3_shapes.items()}
+    # K3's launch shapes: launches on the paths' kernel runs (S=12: paths 1
+    # and 5; S=64: paths 2 and 3), time, bound and plain time of each
+    k3_runs = {
+        "S12": (k3_s12, launches_headline["viterbi"] + launches_bf16["viterbi"]),
+        "S64": (k3_stretch, launches_gauss["viterbi"] + gauss["viterbi"]),
+        "S128": (k3_128, dense["launches"]["viterbi"]),
+        "S8_pipeline": (k4_s8["S8_pipeline"]["k3"], pipe["viterbi"]),
+        "S8_crf": (k4_s8["S8_crf"]["k3"], sum(r["viterbi"] for r in crf_l.values())),
+        **{f"{k} (S={r['S']})": (r["k3"], many["launches"]["viterbi"] if k == "S~200" else 0)
+           for k, r in many["shapes"].items()},
+    }
+    k3_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+                 for k, (r, n) in k3_runs.items()}
+    # K2's and K2-bf16's: the headline (paths 1 and 5), the gate edge (no
+    # path) and the VQ teacher (path 3's seeding)
+    k2_runs = {"S12_headline": (errs, launches_headline["hmm_estep_counts"],
+                                launches_bf16["hmm_estep_counts_bf16"]),
+               "S64_gate": (errs_edge, 0, 0),
+               "S64_teacher": (teacher, teach["hmm_estep_counts"], 0)}
+    k2_shapes = {k: {"launches": n, **r["k2"]} for k, (r, n, _) in k2_runs.items()}
+    k2bf_shapes = {k: {"launches": nb, **r["k2bf"]} for k, (r, _, nb) in k2_runs.items()}
+    print(f"[{card}] K2 per launch shape: {json.dumps(k2_shapes)}")
+    print(f"[{card}] K2-bf16 per launch shape: {json.dumps(k2bf_shapes)}")
     print(f"[{card}] K4 per launch shape: {json.dumps(k4_shapes)}")
     print(f"[{card}] K4-bf16 per launch shape: {json.dumps(k4bf_shapes)}")
     print(f"[{card}] K6 per shape (ms): "
@@ -1946,23 +1992,22 @@ def main() -> int:
          "max_abs_err": max(errs["k1_err"], teacher["k1_err"]),
          "ms": k1_ms, "plain_ms": k1_plain_ms, **k1_bound, "library_ms": k1_library_ms},
         {"name": "hmm_estep_counts", "route": "cuda",
-         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep_counts.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:758",
          "launches": launches["hmm_estep_counts"],
-         "max_abs_err": max(errs["k2_err"], teacher["k2_err"]),
-         "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound, "library_ms": None},
+         "max_abs_err": max(r["k2_err"] for r, _, _ in k2_runs.values()),
+         **errs["k2"], "library_ms": None, "shapes": k2_shapes},
         {"name": "hmm_estep_counts_bf16", "route": "cuda",
-         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_fwdbwd.cu",
+         "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep_counts.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:758",
          "launches": launches["hmm_estep_counts_bf16"],
-         "max_abs_err": max(errs["k2bf_err"], errs_edge["k2bf_err"]),
-         "ms": k2bf_ms, "plain_ms": k2bf_plain_ms, **k2bf_bound, "library_ms": None},
+         "max_abs_err": max(r["k2bf_err"] for r, _, _ in k2_runs.values()),
+         **errs["k2bf"], "library_ms": None, "shapes": k2bf_shapes},
         {"name": "viterbi", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/viterbi.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/viterbi_pallas.py:162",
          "launches": launches["viterbi"],
-         "max_abs_err": max([k3_stretch["err"]]
-                            + [r["k3"]["err"] for r in many["shapes"].values()]),
+         "max_abs_err": max(r["err"] for r, _ in k3_runs.values()),
          "ms": k3_stretch["ms"], "plain_ms": k3_stretch["plain_ms"],
          "bound_ms": k3_stretch["bound_ms"], "bound_by": k3_stretch["bound_by"],
          "library_ms": None, "shapes": k3_shapes},

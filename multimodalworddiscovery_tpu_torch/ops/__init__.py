@@ -2,10 +2,12 @@
 
 counts       K1 emission-table lookup    (csrc/counts.cu)
              K7 pair counts from gamma   (csrc/counts.cu)
-hmm_fwdbwd   K2 fused E-step with counts (csrc/hmm_fwdbwd.cu), and K2-bf16
-             K4 general E-step -> gamma  (csrc/hmm_fwdbwd.cu), and K4-bf16
-             K6 K4 with rematerialized alphas (hmm_estep(remat=True))
+hmm_fwdbwd   K2 fused E-step with counts (csrc/hmm_estep_counts.cu), and K2-bf16
+             K4 general E-step -> gamma  (csrc/hmm_estep.cu), and K4-bf16
+             K6 K4 with rematerialized alphas (hmm_estep(remat=True), csrc/hmm_estep.cu)
+             (K2's and K4's kernel bodies: csrc/estep.cuh)
 viterbi      K3 Viterbi decode           (csrc/viterbi.cu)
+             (the length order of K2, K3 and K4: csrc/order.cuh)
 mfcc         K5 fused MFCC / log-mels    (csrc/mfcc.cu)
 log_semiring K8 log-semiring matmul      (csrc/log_semiring.cu), and K8-bf16
 _build       nvcc build at first use + ctypes binding

@@ -40,16 +40,17 @@ SIGNATURES = {
     "mwd_table_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mwd_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mwd_log_matmul": [_P] * 3 + [_I] * 5 + [_L] * 4 + [_I, _P],
-    "mwd_hmm_fwd": [_P] * 8 + [_I] * 4 + [_P],
-    "mwd_hmm_bwd_counts": [_P] * 11 + [_I] * 6 + [_P],
+    "mwd_estep_counts_work": [_I] * 3,
+    "mwd_estep_counts": [_P] * 12 + [_I] * 6 + [_P],
     "mwd_estep_work": [_I] * 4,
     "mwd_estep": [_P] * 10 + [_I] * 5 + [_P],
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
+    "mwd_viterbi_work": [_I] * 3,
     "mwd_viterbi_bp_in_smem": [_I, _I],
-    "mwd_viterbi_bp_size": [_I],
     "mwd_mfcc": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
 }
-RESTYPES = {"mwd_error_string": ctypes.c_char_p, "mwd_estep_work": _L}
+RESTYPES = {"mwd_error_string": ctypes.c_char_p, "mwd_estep_work": _L,
+            "mwd_estep_counts_work": _L, "mwd_viterbi_work": _L}
 
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None

@@ -2,7 +2,8 @@
 their plain versions.
 
 K2 ``hmm_estep_counts``: the fused discrete-HMM E-step (forward, then
-backward with the (phone, concept) count accumulation fused in).  Replaces
+backward with the (phone, concept) count accumulation fused in, so gamma
+never reaches device memory).  Replaces
 ``multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:
 hmm_estep_counts_pallas`` (``_fwd_kernel`` then ``_bwd_counts_kernel``, step
 math ``_bwd_math``).
@@ -24,24 +25,25 @@ kernels' bf16 variant: the operands of each step's products are rounded to
 bfloat16 and the products and sums stay float32 (K4's and K6's block path
 runs them on the tensor cores).
 
-CUDA sources: ``csrc/hmm_fwdbwd.cu`` (K2) and ``csrc/hmm_estep.cu`` (K4
-and K6, one design with a remat flag).
+CUDA sources: ``csrc/hmm_estep.cu`` (K4 and K6, one design with a remat
+flag) and ``csrc/hmm_estep_counts.cu`` (K2), both on the kernel bodies of
+``csrc/estep.cuh``.
 
 Transitions come factored (``models/hmm_core.factor_log_trans``):
 trans[n, s, s'] = base[s, s'] - rowz[n, s] + colmask[n, s'].  Each step's
 log-semiring product is an ordinary product on max-rescaled exponentials
 (all <= 1 because base0 = base - max(base)).  What bounds it on the H100 is
-latency: the recursion is sequential in time.  K2 (S <= 64) runs one block
-per utterance and one thread per state, with exp(base0) in shared memory,
-and sends gamma straight into the [F, E] counts with atomics, so gamma
-never reaches device memory.  K4 and K6 take any S: several utterances
-share a block and its one copy of exp(base0), each step a [S, S] x [S, B]
-product (a warp of 32 / S utterances, one lane a state, up to S = 32; four
-utterances over 256 threads above, eight at S <= 64 in large batches), and
-the utterances run longest first, in the order a preparation kernel ranks
-on the card, each block stopping at its longest; xi is added once per
-chunk of steps and reduced over blocks in a fixed order (see
-``csrc/hmm_estep.cu``'s header for the rest of the design).
+latency: the recursion is sequential in time.  K4 and K6 take any S, K2
+S <= 64: several utterances share a block and its one copy of exp(base0),
+each step a [S, S] x [S, B] product (a warp of 32 / S utterances, one lane
+a state, up to S = 32; four utterances over 256 threads above, eight at
+S <= 64 in large batches), and the utterances run longest first, in the
+order ranked on the card (``csrc/order.cuh``), each block stopping at its
+longest; xi is added once per chunk of steps and reduced over blocks in a
+fixed order (see ``csrc/hmm_estep.cu``'s header for the rest of the
+design).  K2's backward adds each posterior into a [V_src, V_trg] table of
+its block in shared memory, flushed once per block, in place of K4's
+gamma store.  Each E-step is one C call.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from multimodalworddiscovery_tpu_torch.core.counts import pair_counts
 from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.ops import _build
 
-MAX_STATES = 64  # csrc/common.cuh MWD_MAX_S: K2, the fused route's gate
+MAX_STATES = 64  # csrc/hmm_estep_counts.cu MWD_K2_MAX_S: K2, the fused route's gate
 # K6: csrc/hmm_estep.cu MWD_REMAT_MAX_TC, the longest chunk a lane of the
 # warp path holds in its local array, and the chunk length when none is given
 MAX_CHUNK = 64
@@ -254,26 +256,6 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _forward(name, max_states, log_init, base, rowz, colmask, emit, src_len, bf16):
-    """Checks, then the forward kernel -> (alphas [N, Ts, S], logz [N]),
-    or None on a CUDA batch of no utterances."""
-    _check_inputs(name, max_states, log_init, base, rowz, colmask, emit, src_len)
-    dev = emit.device
-    n, ts, s = emit.shape
-    if n == 0:
-        return None
-    alphas = torch.empty((n, ts, s), dtype=torch.float32, device=dev)
-    logz = torch.empty((n,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = _build.load().mwd_hmm_fwd(
-            base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(),
-            colmask.data_ptr(), emit.data_ptr(), src_len.data_ptr(),
-            alphas.data_ptr(), logz.data_ptr(), n, ts, s, int(bf16), _stream(dev),
-        )
-    _build.check(status, "mwd_hmm_fwd")
-    return alphas, logz
-
-
 def hmm_estep_counts(
     log_init: torch.Tensor,  # [N, S] float32
     base: torch.Tensor,      # [S, S] float32
@@ -289,35 +271,37 @@ def hmm_estep_counts(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(emission counts [n_rows, n_cols], pooled xi [S, S], logz [N]).
 
-    CPU tensors take ``hmm_estep_counts_plain``; CUDA tensors launch the
-    forward and the backward-counts kernels (S <= 64), K2 in float32
-    (counted in ``.launches``) or K2-bf16 (``.launches_bf16``)."""
+    CPU tensors take ``hmm_estep_counts_plain``; CUDA tensors run the
+    whole E-step in one C call (S <= 64), K2 in float32 (counted in
+    ``.launches``) or K2-bf16 (``.launches_bf16``); a batch of no
+    utterances launches nothing."""
     bf16 = _is_bf16(dot_dtype)
     if emit.device.type == "cpu":
         return hmm_estep_counts_plain(
             log_init, base, rowz, colmask, emit, src, concepts, src_len,
             n_rows, n_cols, dot_dtype,
         )
-    fwd = _forward("hmm_estep_counts", MAX_STATES, log_init, base, rowz, colmask,
-                   emit, src_len, bf16)
+    _check_inputs("hmm_estep_counts", MAX_STATES, log_init, base, rowz, colmask, emit, src_len)
     dev = emit.device
     n, ts, s = emit.shape
     _build.require(src, "src", torch.int32, (n, ts), dev)
     _build.require(concepts, "concepts", torch.int32, (n, s), dev)
-    counts = torch.zeros((n_rows, n_cols), dtype=torch.float32, device=dev)
-    xi = torch.zeros((s, s), dtype=torch.float32, device=dev)
-    if fwd is None:
-        return counts, xi, torch.empty((0,), dtype=torch.float32, device=dev)
-    alphas, logz = fwd
+    f32 = dict(dtype=torch.float32, device=dev)
+    if n == 0:
+        return (torch.zeros((n_rows, n_cols), **f32), torch.zeros((s, s), **f32),
+                torch.empty((0,), **f32))
+    counts = torch.empty((n_rows, n_cols), **f32)
+    xi = torch.empty((s, s), **f32)
+    logz = torch.empty((n,), **f32)
+    work = torch.empty((_counts_work_floats(n, ts, s),), **f32)
     with torch.cuda.device(dev):
-        status = _build.load().mwd_hmm_bwd_counts(
-            base.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
-            emit.data_ptr(), alphas.data_ptr(), logz.data_ptr(),
-            src.data_ptr(), concepts.data_ptr(), src_len.data_ptr(),
-            counts.data_ptr(), xi.data_ptr(), n, ts, s, n_rows, n_cols, int(bf16),
-            _stream(dev),
+        status = _build.load().mwd_estep_counts(
+            base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
+            emit.data_ptr(), src_len.data_ptr(), src.data_ptr(), concepts.data_ptr(),
+            work.data_ptr(), counts.data_ptr(), xi.data_ptr(), logz.data_ptr(),
+            n, ts, s, n_rows, n_cols, int(bf16), _stream(dev),
         )
-    _build.check(status, "mwd_hmm_bwd_counts")
+    _build.check(status, "mwd_estep_counts")
     if bf16:
         hmm_estep_counts.launches_bf16 += 1
     else:
@@ -332,6 +316,11 @@ hmm_estep_counts.launches_bf16 = 0
 @functools.lru_cache(maxsize=64)
 def _work_floats(n: int, ts: int, s: int, tcr: int) -> int:
     return int(_build.load().mwd_estep_work(n, ts, s, tcr))
+
+
+@functools.lru_cache(maxsize=64)
+def _counts_work_floats(n: int, ts: int, s: int) -> int:
+    return int(_build.load().mwd_estep_counts_work(n, ts, s))
 
 
 def _general_kernels(log_init, base, rowz, colmask, log_emit, src_len, bf16, tcr):

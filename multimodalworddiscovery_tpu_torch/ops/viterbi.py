@@ -7,16 +7,23 @@ Replaces ``multimodalworddiscovery_tpu/ops/viterbi_pallas.py:viterbi_pallas``
 The recursion is delta'[s'] = max_s(delta[s] - rowz[s] + base[s, s']) +
 colmask[s'] + emit[t, s'], frozen past each utterance's length, then a
 backtrace from the argmax of the last delta.  What bounds it on the H100
-is latency: the recursion is sequential in time, so the kernel runs one
-block per utterance and one thread per state, keeps base in shared memory
-where it fits (else reads it from device memory) and the backpointers
-(uint8 up to S = 256 states, uint16 above) in shared memory too, or in a
-global scratch when Ts * S of them do not fit, and walks the backtrace in
-one thread.  It takes any S.  Sums are taken in the plain decoder's order
-and ties go to the lowest state, so both give the same path.
+is latency and the issue of the max-plus terms: the recursion is
+sequential in time.  The kernel takes the utterances in length order
+(ranked on the card, ``csrc/order.cuh``), several a warp (S <= 32: one lane
+a state, no barriers) or a block (S > 32: each thread one state for four or
+eight utterances, one load of base for all of them, a state's max split
+into exact chains where threads are to spare), each stopping at its
+longest; base sits in shared memory where it fits, the backpointers (uint8
+up to S = 256 states, uint16 above, S <= 65536) too, else in the
+workspace in device memory, and one thread per utterance walks the
+backtrace (see ``csrc/viterbi.cu``'s header).  Sums are taken in the plain
+decoder's order and ties go to the lowest state, so both give the same
+path.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -80,6 +87,11 @@ def path_score(
     return torch.where(src_len > 0, score + step, 0.0)
 
 
+@functools.lru_cache(maxsize=64)
+def _work_bytes(n: int, ts: int, s: int) -> int:
+    return int(_build.load().mwd_viterbi_work(n, ts, s))
+
+
 def viterbi(
     log_init: torch.Tensor,  # [N, S] float32
     base: torch.Tensor,      # [S, S] float32
@@ -89,7 +101,8 @@ def viterbi(
     src_len: torch.Tensor,   # [N] int32
 ) -> torch.Tensor:
     """State path [N, Ts] int32.  CPU tensors take ``viterbi_plain``; CUDA
-    tensors launch the kernel."""
+    tensors run the kernel (one C call: the length order, then the decode);
+    a batch of no utterances launches nothing."""
     if log_emit.device.type == "cpu":
         return viterbi_plain(log_init, base, rowz, colmask, log_emit, src_len)
     if log_emit.device.type != "cuda":
@@ -109,17 +122,13 @@ def viterbi(
     path = torch.empty((n, ts), dtype=torch.int32, device=dev)
     if n == 0:
         return path
-    lib = _build.load()
-    scratch = None
-    if not lib.mwd_viterbi_bp_in_smem(ts, s):
-        bp_dtype = torch.uint8 if lib.mwd_viterbi_bp_size(s) == 1 else torch.int16
-        scratch = torch.empty((n, ts, s), dtype=bp_dtype, device=dev)
     with torch.cuda.device(dev):
-        status = lib.mwd_viterbi(
+        work = torch.empty((_work_bytes(n, ts, s),), dtype=torch.uint8, device=dev)
+        status = _build.load().mwd_viterbi(
             base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(),
             colmask.data_ptr(), log_emit.data_ptr(), src_len.data_ptr(),
-            path.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            n, ts, s, torch.cuda.current_stream(dev).cuda_stream,
+            path.data_ptr(), work.data_ptr(), n, ts, s,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "mwd_viterbi")
     viterbi.launches += 1

@@ -385,6 +385,98 @@ def test_kernels_batch_utterances(dev, s, n, ts):
     _k4_k6_k3_against_plain(_random_factored(n, ts, s, lens, 100 + s, dev))
 
 
+# (S, N): several utterances a warp (S <= 32) or a block (S > 32; N = 2100
+# gives blocks of 8), N a multiple of neither
+K2_SHAPES = [(8, 37), (12, 29), (20, 13), (33, 9), (40, 30), (64, 21), (64, 2100)]
+
+
+@pytest.mark.parametrize("vocab", [(49, 61), (128, 256)])
+@pytest.mark.parametrize("s, n", K2_SHAPES)
+def test_k2_kernels_batch_utterances(dev, s, n, vocab):
+    """K2 and K2-bf16 on ragged and zero lengths, with the headline's counts
+    table and the gate's largest (V_src=128, V_trg=256: on the warp path
+    the posteriors go straight into device memory), each one launch:
+    against the plain versions with K2's bounds (xi with K4's, as K2's xi is
+    K4's code; bf16 as FLIP_SHARE says), logZ bit-identical to K4's (the
+    same forward), xi within rtol 1e-4 of K4's (only its chunking differs)
+    and the counts within K2's bound of K7 on K4's gamma."""
+    ts = 23
+    lens = [(7 * i) % (ts + 1) for i in range(n)]
+    args6 = _random_factored(n, ts, s, lens, 200 + s, dev)
+    v_src, v_trg = vocab
+    gen = torch.Generator().manual_seed(s)
+    src = torch.randint(0, v_src, (n, ts), generator=gen, dtype=torch.int32).to(dev)
+    conc = torch.randint(0, v_trg, (n, s), generator=gen, dtype=torch.int32).to(dev)
+    args = (*args6[:5], src, conc, args6[5], v_src, v_trg)
+    empty = args6[5] == 0
+    for dot_dtype, attr in (("float32", "launches"), ("bfloat16", "launches_bf16")):
+        before = getattr(k2.hmm_estep_counts, attr)
+        counts, xi, logz = k2.hmm_estep_counts(*args, dot_dtype=dot_dtype)
+        assert getattr(k2.hmm_estep_counts, attr) == before + 1
+        counts_p, xi_p, logz_p = k2.hmm_estep_counts_plain(*args, dot_dtype=dot_dtype)
+        torch.testing.assert_close(logz, logz_p, rtol=1e-4, atol=1e-4)
+        assert torch.all(logz[empty] == 0)
+        torch.testing.assert_close(logz.sum(), logz_p.sum(), rtol=1e-6, atol=0)
+        scale = max(float(counts_p.max()), 1.0)
+        if dot_dtype == "float32":
+            torch.testing.assert_close(counts, counts_p, rtol=0, atol=1e-4 * scale)
+            torch.testing.assert_close(xi, xi_p, rtol=1e-3, atol=1e-3)
+        else:
+            _assert_close_but_flips(counts, counts_p, rtol=0, atol=1e-4 * scale)
+            _assert_close_but_flips(xi, xi_p, rtol=1e-3, atol=1e-3)
+        gamma4, xi4, logz4 = k2.hmm_estep(*args6, dot_dtype=dot_dtype)
+        assert torch.equal(logz, logz4)
+        torch.testing.assert_close(xi, xi4, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(counts, k1.pair_counts(gamma4, src, conc, v_src, v_trg),
+                                   rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("s", [12, 40])
+def test_k2_empty_batch_launches_nothing(dev, s):
+    """A batch of no utterances gives zero counts and xi and an empty logZ,
+    and launches and counts nothing."""
+    args6 = _random_factored(0, 5, s, [], s, dev)
+    src = torch.zeros((0, 5), dtype=torch.int32, device=dev)
+    conc = torch.zeros((0, s), dtype=torch.int32, device=dev)
+    args = (*args6[:5], src, conc, args6[5], 7, 9)
+    before = (k2.hmm_estep_counts.launches, k2.hmm_estep_counts.launches_bf16)
+    for dot_dtype in ("float32", "bfloat16"):
+        counts, xi, logz = k2.hmm_estep_counts(*args, dot_dtype=dot_dtype)
+        assert counts.shape == (7, 9) and torch.all(counts == 0)
+        assert xi.shape == (s, s) and torch.all(xi == 0) and logz.shape == (0,)
+    assert (k2.hmm_estep_counts.launches, k2.hmm_estep_counts.launches_bf16) == before
+
+
+# (S, N, Ts): the warp path (S <= 32; at Ts = 700 its backpointers in device
+# memory), the block path with split chains (S <= 128, and S = 161 on 1024
+# threads; one utterance a block in small batches, odd S among them;
+# N = 2100: blocks of 8, two an SM), 16-bit backpointers (S = 260), base
+# and backpointers in device memory (S = 1300) and the block's buffers too
+# (S = 2600)
+K3_SHAPES = [(8, 37, 45), (12, 37, 45), (20, 37, 45), (20, 9, 700), (40, 37, 45),
+             (41, 37, 45), (40, 2100, 12), (64, 37, 45), (128, 13, 40), (161, 7, 30),
+             (260, 9, 30), (1300, 5, 12), (2600, 5, 10)]
+
+
+@pytest.mark.parametrize("kind", ["ties", "random"])
+@pytest.mark.parametrize("s, n, ts", K3_SHAPES)
+def test_k3_batches_utterances_and_breaks_ties_low(dev, s, n, ts, kind):
+    """K3 on several utterances a warp or a block, ragged and zero lengths:
+    the path equals the plain decoder's on the CPU (the same float32 sums,
+    ties to the lowest state), also where integer-valued inputs make exact
+    ties everywhere (kind "ties"), frozen tails and empty utterances
+    included; one launch a call."""
+    lens = [(7 * i) % (ts + 1) for i in range(n)]
+    args = _random_factored(n, ts, s, lens, 300 + s, dev)
+    if kind == "ties":
+        args = tuple(torch.round(a) if a.is_floating_point() else a for a in args)
+    before = k3.viterbi.launches
+    path = k3.viterbi(*args)
+    assert k3.viterbi.launches == before + 1
+    want = k3.viterbi_plain(*(a.cpu() for a in args))
+    assert torch.equal(path.cpu(), want)
+
+
 def test_general_route_matches_plain_em(dev):
     """S=128 discrete EM through K1 + K4 against the plain dense route."""
     corpus, params, _, _ = _inputs("S128", dev)

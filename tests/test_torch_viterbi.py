@@ -101,3 +101,31 @@ def test_kernel_align_matches_jax(case):
     want_path = np.asarray(jcore.viterbi_factored(*j_args))
     np.testing.assert_allclose(_score(path, *j_args), _score(want_path, *j_args),
                                rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("block", [4, 8])
+def test_length_order_blocks_give_the_plain_paths(case, block):
+    """What K3's warps and blocks rest on: utterances taken longest first
+    (ties in index order, the order ranked on the card), each block run
+    alone and only up to its longest length, its paths continued with
+    their last state (the frozen tail) and put back in the caller's order,
+    give the whole batch's paths, empty utterances included; and those
+    agree with the reference's decode kernel in interpret mode."""
+    jc, _, tc, _, j_args, t_args = case
+    log_init, base, rowz, colmask, emit, src_len = t_args
+    perm = torch.argsort(src_len, descending=True, stable=True)
+    assert src_len[perm[-N_EMPTY:]].tolist() == [0] * N_EMPTY
+    whole = k3.viterbi_plain(*t_args)
+    got = torch.empty_like(whole)
+    for b0 in range(0, tc.n, block):
+        idx = perm[b0:b0 + block]
+        tmax = max(int(src_len[idx].max()), 1)  # an empty block: argmax of init + emit[0]
+        p = k3.viterbi_plain(log_init[idx], base, rowz[idx], colmask[idx], emit[idx, :tmax],
+                             src_len[idx])
+        got[idx] = torch.cat([p, p[:, -1:].expand(-1, tc.max_src_len - tmax)], dim=1)
+    assert torch.equal(got, whole)
+    want = np.asarray(viterbi_pallas(*j_args, interpret=True))
+    mask = np.asarray(jc.src_mask())
+    assert (got.numpy() == want)[mask].mean() >= 0.99
+    np.testing.assert_allclose(_score(got.numpy(), *j_args), _score(want, *j_args),
+                               rtol=1e-5, atol=1e-3)
