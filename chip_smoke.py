@@ -73,9 +73,14 @@ states), and ``hmm.train`` (3 iterations) and ``hmm.align`` run on the
 S~200 corpus through K1 -> K4 -> K7 and K3 against the plain route.  K5 is
 checked at the pipeline's batch (N=2000 waveforms of
 28,160 samples, plus waveforms of 0, 399, 400 and 401 samples), for MFCCs
-and log-mels, and on 1000 frames; the ``extract_features speech`` command
-runs once on a small .npz under ``build/``.  K7 is checked on K4's
-posteriors at the headline shape and at path 8's; K8 at 512 x 512 and
+and log-mels, at n_fft 512 and 1024 (its FFT branch) and 400 (its
+direct-DFT branch), and on 1000 frames; ``torch.fft.rfft`` of the windowed
+frames is timed beside it as a yardstick of the spectrum alone; the
+``extract_features speech`` command runs once on a small .npz under
+``build/``.  K7 is checked on K4's posteriors at the headline shape and at
+path 8's, against its plain version and against the plain posteriors
+summed in float64, and with a table too wide for shared memory
+(n_cols=4096) against its narrow result; K8 at 512 x 512 and
 1024 x 1024 from 5 * normal, on the even / odd step-matrix slices that path
 9's scan hands it, on a synthetic row whose largest product lies 250 nats
 below its maximum (where the factored form underflows), and on the prefix
@@ -145,20 +150,17 @@ REFERENCE_PIPELINE_F1 = 0.6711
 REFERENCE_PIPELINE_LL = -4057964.25  # its loglik at the 12th iteration
 EDGE_WAV_LENS = (0, 399, 400, 401)  # samples: 0, 0, 1 and 1 frames
 MFCC_TOL = dict(rtol=1e-3, atol=2e-3)  # K5's bound, tests/test_mfcc_pallas.py:33
-# one NVIDIA H100 SXM at its full 700 W (data sheet, dense rates): device
-# memory rate, the float32 rate outside the tensor cores, and the bf16
-# tensor-core rate.  The bf16 variants' products take bf16 operands and sum
-# in float32, which the card runs at the bf16 rate (the kernels here run
-# them on float32 FMAs all the same); their xi update's multiply by the
-# float32 exp(base0) stays at the float32 rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# K5's n_fft in its phase: the pipeline's (its FFT branch), the direct-DFT
+# branch's 400 (an unpadded 25 ms window), a 64 ms window's 1024, and two
+# odd ones through the unfolded direct DFT: 401, and 255 (with a 255-sample
+# window)
+K5_N_FFT = (512, 400, 1024, 401, 255)
 # the JAX package's documented F1 of the stretch recipe at N=4000
 # (docs/PERFORMANCE.md:457-461); it draws other random numbers, so only
 # printed beside this run's value
 DOCUMENTED_RECIPE_F1 = 0.431
 ZERO_LENGTH_PAD = 4  # zero-length utterances appended in the parity phases
+PROFILE_LEAD_KERNELS = 32  # marker kernels opening a profile's window
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # bf16 against f32, tests/test_hmm_estep_pallas.py:222
 # A bf16 kernel against its plain bf16 version is held to the float32
 # kernel's bounds, except K4-bf16's gamma and xi at the stretch shape and
@@ -220,10 +222,6 @@ K8_BF16_VS_F32 = 5e-2  # tests/test_log_semiring_pallas.py:67
 # product: about 0.016 in log space
 K8_BF16_VS_PLAIN = 2e-2
 ASSOC_BLOCK = 16  # forward_blocked's default block
-# the exp rate of the special-function units: 16 a clock per SM against the
-# 128 fp32 FMAs (CUDA's throughput table for compute capability 9.0), an
-# eighth of the FMA rate, FP32_OPS_PER_S / 2 / 8
-EXP_PER_S = 67e12 / 2 / 8
 
 
 def _run(cmd: list[str]) -> str:
@@ -309,14 +307,15 @@ def _nbytes(*tensors) -> int:
 
 
 def _bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations (float32 ``ops`` over the float32 rate plus ``bf16_ops``,
-    products of bf16 operands summed in float32, over the bf16 tensor-core
-    rate), whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    """The least time the card could take: ``scripts/bench_kernels.bound``
+    at one H100 SXM's data-sheet rates.  The bf16 variants' products take
+    bf16 operands and sum in float32, which the card runs at the bf16
+    tensor-core rate (the kernels here run them on float32 FMAs all the
+    same); their xi update's multiply by the float32 exp(base0) stays at
+    the float32 rate."""
+    from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import bound
+
+    return bound(nbytes, ops, bf16_ops)
 
 
 def _recursion_ops(src_len, s: int, per_step: int) -> float:
@@ -335,22 +334,6 @@ def _estep_bound(nbytes: float, src_len, s: int, bf16: bool) -> dict:
     if not bf16:
         return _bound(nbytes, _recursion_ops(src_len, s, 7))
     return _bound(nbytes, _recursion_ops(src_len, s, 1), _recursion_ops(src_len, s, 6))
-
-
-def _mfcc_ops(cfg, kind: str, n_frames: int, n_samples: int) -> float:
-    """Operations the MFCC function needs, with its DFT counted as a real
-    FFT (2.5 n log2(n) / 2 for n = n_fft; K5's direct DFT does about 20x
-    more): pre-emphasis (2 a sample), the window (1 a frame sample), the
-    FFT, power (3 a bin), the mel sums over each filter's nonzero bins (2 a
-    weight), the log, and the DCT."""
-    from multimodalworddiscovery_tpu_torch.frontend import speech
-
-    n_bins = cfg.n_fft // 2 + 1
-    fft = 2.5 * cfg.n_fft * math.log2(cfg.n_fft) / 2
-    weights = int((speech.mel_filterbank(cfg) != 0).sum())
-    dct = 2 * cfg.n_mels * cfg.n_mfcc if kind == "mfcc" else 0
-    per_frame = cfg.win_length + fft + 3 * n_bins + 2 * weights + cfg.n_mels + dct
-    return float(per_frame * n_frames + 2 * n_samples)
 
 
 def _estep_inputs(params, corpus):
@@ -869,15 +852,26 @@ def crf_phase(card: str, counters, dev) -> dict:
     return {"launches": launches, "ms": {k: r["ms_per_iter"] for k, r in runs.items()}}
 
 
-def _profile(fn, what: str, card: str) -> None:
-    """Device time by kernel family and device idle share of ``fn()``
-    (torch.profiler), after one run outside the profiler."""
+def _profile(fn, what: str, card: str) -> dict[str, float]:
+    """Device time by kernel family (returned, ms) and device idle share of
+    ``fn()`` (torch.profiler), after one run outside the profiler.  The
+    window opens with PROFILE_LEAD_KERNELS short marker kernels (ATen's
+    spin_kernel, left out of the sums): the trace loses the first kernels
+    of its window, more of them the older the process (none at this
+    script's first profile, all 8 markers at its last; the pipeline's
+    frontend, K5 and its small kernels, went missing so, while a fresh
+    process traced them, and 50 ms of idle time ahead of them did not
+    bring them back).  How many markers the trace kept is printed; none
+    kept means the profiled run may have lost kernels too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -897,7 +891,8 @@ def _profile(fn, what: str, card: str) -> None:
     sums = {k: 0.0 for k in (*families, "other")}
     busy, kernels = 0.0, 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+        if (e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0
+                or "spin_kernel" in e.key):
             continue
         ms = e.self_device_time_total / 1e3
         busy += ms
@@ -907,7 +902,7 @@ def _profile(fn, what: str, card: str) -> None:
         sums[fam] += ms
     if busy == 0.0:
         print(f"  [{card}] profile of {what}: no device time in the trace (not measured)")
-        return
+        return sums
     print(f"  [{card}] profile of {what} (kernel path, profiler on): "
           f"wall {wall_ms:.4f} ms, device busy {busy:.4f} ms in {kernels} kernels, "
           f"idle share {1 - busy / wall_ms:.4f}")
@@ -919,20 +914,31 @@ def _profile(fn, what: str, card: str) -> None:
                  key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"    top kernel: {e.self_device_time_total / 1e3:.4f} ms x{e.count} {e.key[:90]}")
+    kept = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.key)
+    print(f"    the trace kept {kept} of its {PROFILE_LEAD_KERNELS} marker kernels"
+          + ("" if kept else " (the profiled run may have lost its first kernels)"))
+    return sums
 
 
 def k5_phase(card: str, synth) -> dict:
     """K5 against its plain version on the card at the pipeline's batch
     (``synth``, from ``run_pipeline.synthesize``, with the edge waveforms
-    appended), for MFCCs and log-mels, and on 1000 frames (not a multiple
-    of the kernel's 64-frame tile); then both timed at the pipeline's batch,
-    and the bound of that call."""
+    appended), for MFCCs and log-mels, at the pipeline's n_fft (512, the
+    FFT branch) and at 400 (the direct-DFT branch) and 1024, and on 1000
+    frames (not a multiple of a block's run); then both timed at the
+    pipeline's batch, with the bound of that call, the direct branch's time
+    at n_fft 400, and ``torch.fft.rfft`` of the windowed frame tensor as a
+    yardstick of the spectrum alone (``spectrum_library_ms``; timed only,
+    the port never calls it)."""
     import numpy as np
     import torch
 
     from multimodalworddiscovery_tpu_torch.frontend import speech
     from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
     from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
+    # the MFCC function's operations, its DFT counted as a real FFT
+    from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import mfcc_ops
 
     dev = torch.device("cuda", 0)
     cfg = rp.MFCC
@@ -948,18 +954,25 @@ def k5_phase(card: str, synth) -> dict:
           f"waveforms of {EDGE_WAV_LENS} samples, L={wav.shape[1]}, "
           f"F={speech.num_frames(wav.shape[1], cfg)}")
     errs = {}
-    for kind in speech.KINDS:
-        got, fl = k5.extract(wav, wav_len, cfg, kind)
-        want, fl_p = k5.extract_plain(wav, wav_len, cfg, kind)
-        torch.cuda.synchronize()
-        _check(torch.equal(fl, fl_p) and fl[-len(EDGE_WAV_LENS):].tolist() == [0, 0, 1, 1],
-               f"K5 {kind}: frame lengths equal to the plain version's, 0 0 1 1 at the edges")
-        valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
-        errs[kind] = _max_abs(got[valid], want[valid])
-        _check(torch.allclose(got[valid], want[valid], **MFCC_TOL),
-               f"K5 {kind} {tuple(got.shape)}: valid frames within rtol 1e-3 atol 2e-3 of "
-               f"plain (max abs err {errs[kind]})")
-        del got, want
+    for n_fft in K5_N_FFT:
+        cfg_n = dataclasses.replace(cfg, n_fft=n_fft, win_length=min(cfg.win_length, n_fft))
+        for kind in speech.KINDS:
+            what = f"K5 {kind} n_fft {n_fft} ({'FFT' if k5.uses_fft(n_fft) else 'direct DFT'})"
+            before = k5.extract.launches
+            got, fl = k5.extract(wav, wav_len, cfg_n, kind)
+            want, fl_p = k5.extract_plain(wav, wav_len, cfg_n, kind)
+            torch.cuda.synchronize()
+            _check(k5.extract.launches == before + 1, f"{what}: launched")
+            edges = [0, 0, 1, 1] if cfg_n.win_length == 400 else [0, 1, 1, 1]
+            _check(torch.equal(fl, fl_p) and fl[-len(EDGE_WAV_LENS):].tolist() == edges,
+                   f"{what}: frame lengths equal to the plain version's, {edges} at the edges")
+            valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+            key = kind if n_fft == cfg.n_fft else f"{kind} n_fft {n_fft}"
+            errs[key] = _max_abs(got[valid], want[valid])
+            _check(torch.allclose(got[valid], want[valid], **MFCC_TOL),
+                   f"{what} {tuple(got.shape)}: valid frames within rtol 1e-3 atol 2e-3 of "
+                   f"plain (max abs err {errs[key]})")
+            del got, want
     pre = speech.preemphasize(wav[:6], cfg.preemphasis)
     frames = speech.frame_signal(pre, cfg).reshape(-1, cfg.win_length)[:1000].contiguous()
     for kind in speech.KINDS:
@@ -973,15 +986,28 @@ def k5_phase(card: str, synth) -> dict:
 
     wav, wav_len = wav[:PIPELINE_N], wav_len[:PIPELINE_N]
     feats, fl = k5.extract(wav, wav_len, cfg)
+    windowed = (speech.frame_signal(speech.preemphasize(wav, cfg.preemphasis), cfg)
+                * torch.as_tensor(speech.hann_window(cfg.win_length), device=dev))
+    windowed = windowed.reshape(-1, cfg.win_length)
+    cfg_400 = dataclasses.replace(cfg, n_fft=400)
     r = {"err": max(errs.values()),
          "ms": _gpu_ms(lambda: k5.extract(wav, wav_len, cfg), 10),
-         "plain_ms": _gpu_ms(lambda: k5.extract_plain(wav, wav_len, cfg), 3)}
+         "plain_ms": _gpu_ms(lambda: k5.extract_plain(wav, wav_len, cfg), 3),
+         "spectrum_library_ms": _gpu_ms(lambda: torch.fft.rfft(windowed, n=cfg.n_fft, dim=-1), 10),
+         "direct_400_ms": _gpu_ms(lambda: k5.extract(wav, wav_len, cfg_400), 3),
+         "direct_400_plain_ms": _gpu_ms(lambda: k5.extract_plain(wav, wav_len, cfg_400), 3)}
+    del windowed
     r |= _bound(_nbytes(wav, wav_len, feats, fl),
-                _mfcc_ops(cfg, "mfcc", feats.shape[0] * feats.shape[1], wav.numel()))
+                mfcc_ops(cfg, "mfcc", feats.shape[0] * feats.shape[1], wav.numel()))
+    r["direct_400_bound_ms"] = _bound(_nbytes(wav, wav_len, feats, fl), mfcc_ops(
+        cfg_400, "mfcc", feats.shape[0] * feats.shape[1], wav.numel()))["bound_ms"]
     m = feats.shape[0] * feats.shape[1]
     print(f"  [{card}] K5 extract at N={PIPELINE_N}, L={wav.shape[1]} ({m} frames, mfcc): "
           f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-          f"ms ({r['bound_by']})")
+          f"ms ({r['bound_by']}); torch.fft.rfft of the windowed frames (the spectrum alone) "
+          f"{r['spectrum_library_ms']:.4f} ms; the direct-DFT branch at n_fft 400: kernel "
+          f"{r['direct_400_ms']:.4f} ms, plain {r['direct_400_plain_ms']:.4f} ms, bound "
+          f"{r['direct_400_bound_ms']:.4f} ms")
     return r
 
 
@@ -1033,8 +1059,10 @@ def pipeline_phase(card: str, counters, synth) -> dict:
         feats, frame_lens = rp.frontend(wav, wav_len)
         rp.fit_and_score(feats, frame_lens, phone_corpus, gold, PIPELINE_ITERS)
 
-    _profile(after_synthesis, f"the waveform pipeline after synthesis (frontend, "
-                              f"{PIPELINE_ITERS} EM iterations, decode, metrics)", card)
+    sums = _profile(after_synthesis, f"the waveform pipeline after synthesis (frontend, "
+                                     f"{PIPELINE_ITERS} EM iterations, decode, metrics)", card)
+    print(f"  K5 in the pipeline's trace: {sums['K5 mfcc']:.4f} ms of device time"
+          + ("" if sums["K5 mfcc"] > 0 else " (missing: the trace lost its first kernels)"))
     return k
 
 
@@ -1070,8 +1098,10 @@ def extract_features_phase(here: str) -> None:
 
 
 def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict:
-    """K7 on K4's posteriors ``gamma`` against its plain version (rtol
-    1e-5, atol 1e-4 x the largest count) and the library scatter
+    """K7 on K4's posteriors ``gamma`` against its plain version and
+    against the plain posteriors summed in float64 (rtol 1e-5, atol 1e-4 x
+    the largest count, each), with n_cols=4096 (the table in device memory)
+    against its narrow result, and the library scatter
     (``torch.bincount`` on the pairs' flat ids, timed only as a yardstick;
     the port never calls it); the three timed, and the bound of the call."""
     import torch
@@ -1080,6 +1110,9 @@ def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict
 
     got = k7.pair_counts(gamma, src, concepts, f, e)
     want = k7.pair_counts_plain(gamma, src, concepts, f, e)
+    # the plain posteriors summed in float64 (K2's comparison): the float32
+    # scatter drifts where ~1e5 posteriors add into one entry
+    exact = k7.pair_counts_plain(gamma.double(), src, concepts, f, e)
     flat = (src.long()[:, :, None] * e + concepts.long()[:, None, :]).reshape(-1)
     weights = gamma.reshape(-1)
     lib = torch.bincount(flat, weights=weights, minlength=f * e).reshape(f, e)
@@ -1091,25 +1124,45 @@ def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict
           f"{_max_abs(got, lib)}")
     _check(torch.allclose(got, want, atol=1e-4 * scale, **K7_TOL),
            f"K7 at {what} within rtol 1e-5, atol 1e-4 x the largest count of plain")
+    err64, plain64 = _max_abs(got.double(), exact), _max_abs(want.double(), exact)
+    print(f"  K7 at {what}: max abs err {err64} against the plain posteriors summed in "
+          f"float64, the plain float32 scatter's own {plain64}")
+    _check(torch.allclose(got.double(), exact, atol=1e-4 * scale, **K7_TOL),
+           f"K7 at {what} within rtol 1e-5, atol 1e-4 x the largest count of the plain "
+           f"posteriors summed in float64")
+    # n_cols = 4096: a table beyond shared memory, added straight into counts
+    wide = k7.pair_counts(gamma, src, concepts, f, 4096)
+    _check(torch.allclose(wide[:, :e], got, atol=1e-4 * scale, **K7_TOL)
+           and not bool(wide[:, e:].any()),
+           f"K7 at {what} with n_cols=4096 (the table in device memory): the first {e} "
+           f"columns within rtol 1e-5, atol 1e-4 x the largest count of the narrow result, "
+           f"the rest 0 (max abs err {_max_abs(wide[:, :e], got)})")
+    del wide
     r = {"err": err,
          "ms": _gpu_ms(lambda: k7.pair_counts(gamma, src, concepts, f, e), reps),
          "plain_ms": _gpu_ms(lambda: k7.pair_counts_plain(gamma, src, concepts, f, e), reps),
          "library_ms": _gpu_ms(lambda: torch.bincount(flat, weights=weights,
                                                       minlength=f * e), reps)}
     # one add per element read; each input read once, the counts written once
-    return r | _bound(_nbytes(gamma, src, concepts, got), float(gamma.numel()))
+    return r | {"err64": err64, "plain_err64": plain64} | _bound(
+        _nbytes(gamma, src, concepts, got), float(gamma.numel()))
 
 
 def _k8_bound(a, b, out, bf16: bool) -> dict:
     """K8's bound: the bytes of a, b and out, or 2 I J K operations per
     product (its terms' add and sum, a plain product's count) at the fp32
     rate, or for the bf16 variant at the bf16 tensor-core rate; with the
-    exp-rate bound (one exp per term at EXP_PER_S) of the float32 kernel's
-    design beside it."""
+    exp-rate bound (one exp per term) of the float32 kernel's design beside
+    it: the special-function units take 16 exps a clock per SM against the
+    128 fp32 FMAs (CUDA's throughput table for compute capability 9.0), an
+    eighth of the FMA rate."""
+    from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import FP32_OPS_PER_S
+
     nz = out.numel() // (out.shape[-1] * out.shape[-2])
     terms = float(nz) * a.shape[-2] * a.shape[-1] * b.shape[-1]
     ops = (0.0, 2 * terms) if bf16 else (2 * terms, 0.0)
-    return _bound(_nbytes(a, b, out), *ops) | {"exp_bound_ms": terms / EXP_PER_S * 1e3}
+    exp_per_s = FP32_OPS_PER_S / 2 / 8
+    return _bound(_nbytes(a, b, out), *ops) | {"exp_bound_ms": terms / exp_per_s * 1e3}
 
 
 def k8_check(what: str, a, b, want=None, bf16_too: bool = False, reps: int = 0,
@@ -1513,20 +1566,20 @@ def many_states_phase(card: str, counters, dev) -> dict:
 
 
 def bench_phase(here: str, counters) -> dict:
-    """The port's bench_kernels (counts, log_matmul) and bench_assoc, once
+    """The port's bench_kernels (mfcc, counts, log_matmul) and bench_assoc, once
     each with few repetitions, records under build/chip_smoke/; K8-bf16's
     launches come from bench_kernels' log_matmul entry, its entry point."""
     from multimodalworddiscovery_tpu_torch.scripts import bench_assoc, bench_kernels
 
     out_dir = os.path.join(here, "build", "chip_smoke")
     _reset(counters)
-    bench_kernels.main(["--only", "counts", "log_matmul", "--reps", "3",
+    bench_kernels.main(["--only", "mfcc", "counts", "log_matmul", "--reps", "3",
                         "--out", os.path.join(out_dir, "bench_kernels.jsonl")])
     launches = _counts(counters)
-    print(f"  kernel launches in bench_kernels --only counts log_matmul: {launches}")
-    _check(launches["pair_counts"] > 0 and launches["log_matmul"] > 0
-           and launches["log_matmul_bf16"] > 0,
-           "bench_kernels launched K7, K8 and K8-bf16")
+    print(f"  kernel launches in bench_kernels --only mfcc counts log_matmul: {launches}")
+    _check(launches["extract"] > 0 and launches["pair_counts"] > 0
+           and launches["log_matmul"] > 0 and launches["log_matmul_bf16"] > 0,
+           "bench_kernels launched K5, K7, K8 and K8-bf16")
     bench_assoc.main(["--reps", "2", "--out", os.path.join(out_dir, "bench_assoc.jsonl")])
     return launches
 
@@ -2031,7 +2084,9 @@ def main() -> int:
          "replaces": "multimodalworddiscovery_tpu/ops/mfcc_pallas.py:93",
          "launches": launches["extract"] + launches["mfcc_from_frames"],
          "max_abs_err": k5_r["err"], "ms": k5_r["ms"], "plain_ms": k5_r["plain_ms"],
-         "bound_ms": k5_r["bound_ms"], "bound_by": k5_r["bound_by"], "library_ms": None},
+         "bound_ms": k5_r["bound_ms"], "bound_by": k5_r["bound_by"], "library_ms": None,
+         "spectrum_library_ms": k5_r["spectrum_library_ms"],
+         "direct_400_ms": k5_r["direct_400_ms"]},
         {"name": "hmm_estep_remat", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:580",

@@ -28,8 +28,10 @@ __device__ __forceinline__ float mwd_warp_max(float v) {
     return v;
 }
 
-__device__ __forceinline__ float mwd_warp_sum(float v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// Sum over the `width` lanes (a power of two) of a segment of the warp;
+// xor offsets stay inside it, and every lane of the warp calls this.
+__device__ __forceinline__ float mwd_warp_sum(float v, int width = 32) {
+    for (int o = width / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
 }
 

@@ -5,13 +5,14 @@
 // the bodies in __global__ kernels of its own names, so a profile tells K2's
 // device time from K4's, and instantiates only what it launches.  The
 // design is described at the top of hmm_estep.cu; the backward's CNT flag
-// is K2's counts consumer (MwdCnt) in place of the gamma store.
+// is K2's counts consumer (MwdCnt, counts.cuh) in place of the gamma store.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "counts.cuh"
 #include "order.cuh"
 
 #define MWD_FULL 0xffffffffu
@@ -27,18 +28,12 @@
 
 __device__ __forceinline__ float mwd_guard(float m) { return m > MWD_NEG_INF / 2 ? m : 0.f; }
 
-// Max / sum over the SP lanes of a segment (xor offsets stay inside it).
+// Max over the SP lanes of a segment (xor offsets stay inside it; the sum
+// is common.cuh's mwd_warp_sum).
 template <int SP>
 __device__ __forceinline__ float mwd_seg_max(float v) {
 #pragma unroll
     for (int o = SP / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(MWD_FULL, v, o));
-    return v;
-}
-
-template <int SP>
-__device__ __forceinline__ float mwd_seg_sum(float v) {
-#pragma unroll
-    for (int o = SP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(MWD_FULL, v, o);
     return v;
 }
 
@@ -101,39 +96,6 @@ __device__ __forceinline__ void mwd_xi_reduce_body(const float* __restrict__ src
     for (; r < r1; ++r) acc[0] += src[(long long)r * cols + i];
     const float v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     dst[(long long)blockIdx.y * cols + i] = mul ? mul[i] * v : v;
-}
-
-// K2's counts consumer: the backward adds each posterior gamma[n, t, j] to
-// counts[src[n, t], conc[n, j]] instead of storing it, into a table of the
-// block in shared memory (tab_sm; zeroed at the start, its nonzero entries
-// added into counts once at the end) or straight into counts.
-struct MwdCnt {
-    const int* src;   // [N, Ts] phone ids
-    const int* conc;  // [N, S] concept id of each state
-    float* counts;    // [v_src, v_trg], zeroed by the caller
-    int v_src, v_trg, tab_sm;
-};
-
-__device__ __forceinline__ void mwd_cnt_add(const MwdCnt& c, float* tab, int ph, int cj, float v) {
-    // ids are validated when the corpus is built; an id outside the table
-    // already made K1's emission NaN
-    if (ph < 0 || ph >= c.v_src || cj < 0 || cj >= c.v_trg) return;
-    const int i = ph * c.v_trg + cj;
-    if (c.tab_sm)
-        atomicAdd(tab + i, v);
-    else
-        atomicAdd(c.counts + i, v);
-}
-
-__device__ __forceinline__ void mwd_cnt_zero(const MwdCnt& c, float* tab) {
-    for (int i = threadIdx.x; i < c.v_src * c.v_trg; i += blockDim.x) tab[i] = 0.f;
-}
-
-__device__ __forceinline__ void mwd_cnt_flush(const MwdCnt& c, const float* tab) {
-    for (int i = threadIdx.x; i < c.v_src * c.v_trg; i += blockDim.x) {
-        const float v = tab[i];
-        if (v != 0.f) atomicAdd(c.counts + i, v);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -226,7 +188,7 @@ __device__ __forceinline__ void mwd_fwd_warp_body(MWD_FWD_PARAMS) {
     }
     const float m = mwd_seg_max<SP>(act ? alpha : -INFINITY);
     const float ms = mwd_guard(m);
-    const float z = mwd_seg_sum<SP>(act ? expf(alpha - ms) : 0.f);
+    const float z = mwd_warp_sum(act ? expf(alpha - ms) : 0.f, SP);
     if (j == 0 && ut.n >= 0)
         logz[ut.n] = ut.len > 0 ? (m > MWD_NEG_INF / 2 ? logf(z + 1e-38f) + ms : MWD_NEG_INF)
                                 : 0.f;
@@ -295,9 +257,9 @@ __device__ __forceinline__ void mwd_bwd_warp_body(MWD_BWD_WARP_PARAMS, MwdCnt cn
         if constexpr (CNT) {
             // the null states (concept 0) share one entry: summed over the
             // segment first, then one add
-            const float g0 = mwd_seg_sum<SP>((act && cj == 0) ? gm : 0.f);
             if (act && cj != 0 && gm != 0.f) mwd_cnt_add(cnt, ctab, ph, cj, gm);
-            if (j == 0 && ut.n >= 0 && g0 != 0.f) mwd_cnt_add(cnt, ctab, ph, 0, g0);
+            mwd_cnt_add_null(cnt, ctab, ph, (act && cj == 0) ? gm : 0.f, j == 0 && ut.n >= 0,
+                             SP);
         } else if (act) {
             g[(long long)t * s + j] = gm;
         }
@@ -967,10 +929,7 @@ __device__ __forceinline__ void mwd_bwd_blk_body(MWD_BWD_BLK_PARAMS, MwdCnt cnt)
             }
             EB[k] = sm[L.emr + slot(t) + k] + beta;
         }
-        if constexpr (CNT) {
-            g0 = mwd_warp_sum(g0);
-            if (lane == 0 && g0 != 0.f) mwd_cnt_add(cnt, ctab, ph, 0, g0);
-        }
+        if constexpr (CNT) mwd_cnt_add_null(cnt, ctab, ph, g0, lane == 0, 32);
     };
     // K6: alphas of chunk c (t in [c0, c0 + cl)) into ac, from checkpoint c
     // (alpha[c0 - 1]) or, for c = 0, from init + emit[0]; F and Q serve as

@@ -47,7 +47,7 @@ SIGNATURES = {
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
     "mwd_viterbi_work": [_I] * 3,
     "mwd_viterbi_bp_in_smem": [_I, _I],
-    "mwd_mfcc": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
+    "mwd_mfcc": [_P] * 8 + [_I, _I, _L, _I, _L] + [_I] * 8 + [ctypes.c_float] * 2 + [_P],
 }
 RESTYPES = {"mwd_error_string": ctypes.c_char_p, "mwd_estep_work": _L,
             "mwd_estep_counts_work": _L, "mwd_viterbi_work": _L}

@@ -15,10 +15,16 @@ K7: counts[f, e] = sum_{n,t,k} gamma[n, t, k] [src[n, t] = f] [concepts[n, k] = 
 (after K4).  Replaces ``counts_pallas.py:pair_counts_pallas`` (body
 ``_counts_kernel``).  It reads gamma in the layout K4 writes, [N, Ts, S],
 with no transpose (the reference's padded time-major layout was the TPU's
-lane layout), one thread per element, and adds each nonzero posterior into
-its count with an atomic; it keeps nothing in shared memory, so it takes
-every shape K4 does and any vocabulary.  The plain version is the
-scatter-add ``core.counts.pair_counts``.
+lane layout), on K2's count consumer (``csrc/counts.cuh``): a segment of a
+warp (32 lanes, or fewer for short rows, so several rows share a warp)
+reads a (n, t) row, the posteriors of concept 0 (the null states, wherever
+they sit) are summed by shuffles and added once, the others go into a
+per-block [F, E] table in shared memory, and a persistent grid of up to two
+blocks an SM flushes each table's nonzero entries into the counts with one
+atomic each.  A table larger than shared memory is skipped and the adds go
+straight into the counts, so it takes every shape K4 does and any
+vocabulary.  The plain version is the scatter-add
+``core.counts.pair_counts``.
 """
 
 from __future__ import annotations

@@ -57,7 +57,8 @@ from multimodalworddiscovery_tpu_torch.ops import counts as k1
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k4
 from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
 from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
-from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import Recorder, gpu_ms, require_cuda
+from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import (
+    Recorder, bound, gpu_ms, require_cuda)
 
 DEFAULT_OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "bench" / "estep.jsonl"
 SHAPES = ("S64", "S128", "S8_pipeline", "S8_crf", "S12_headline", "S64_gate", "S64_teacher",
@@ -78,7 +79,6 @@ MANY_200 = dict(n_utterances=64, n_concepts=400, min_concepts=96, max_concepts=1
                 min_word_len=2, max_word_len=3, seed=5)  # chip_smoke.py's MANY_200
 MANY_260 = dict(n_utterances=32, n_concepts=400, min_concepts=126, max_concepts=130,
                 min_word_len=2, max_word_len=2, seed=5)  # chip_smoke.py's MANY_260
-HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
 
 def _factored(log_jump, log_p0, corpus, max_jump):
@@ -154,11 +154,7 @@ def estep_bound(nbytes: float, src_len, s: int, bf16: bool) -> dict:
     float32 operations per valid utterance-step (bf16: 6 of them at the bf16
     tensor-core rate), whichever is larger."""
     steps = float(int(src_len.sum())) * s * s
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (steps / FP32_OPS_PER_S + 6 * steps / BF16_OPS_PER_S if bf16
-             else 7 * steps / FP32_OPS_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-            else "operations"}
+    return bound(nbytes, steps, 6 * steps) if bf16 else bound(nbytes, 7 * steps)
 
 
 def k3_bound(inputs) -> dict:
@@ -167,10 +163,7 @@ def k3_bound(inputs) -> dict:
     utterance-step, whichever is larger."""
     n, ts, s = inputs[4].shape
     nbytes = sum(t.numel() * t.element_size() for t in inputs) + 4 * n * ts
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * s * s * float(int(inputs[5].sum())) / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return bound(nbytes, 2.0 * s * s * float(int(inputs[5].sum())))
 
 
 def time_shape(inputs, reps: int) -> dict:

@@ -1,16 +1,21 @@
 """Per-kernel benchmark of the port on one GPU -> JSON lines.
 
 Counterpart of ``scripts/bench_kernels.py`` for the entries whose kernels
-the port has: ``counts`` (K1 lookup and K7 pair counts against their plain
-versions and the library scatter, at the headline shape N=8000, Ts=31,
-S=12, gamma from K4) and ``log_matmul`` (K8 and K8-bf16 at square sizes
-512, 1024 and 2048 from 5 * normal, the broadcast library form at <= 1024,
-as the reference).  The reference's other entries (mfcc, em, hmm_estep,
-viterbi, models, model1_align, detector, retrieval) wait for their modules
+the port has: ``mfcc`` (K5's ``extract`` against its plain version, with
+``torch.fft.rfft`` of the windowed frames timed beside them as a yardstick
+of the spectrum alone, on the reference's batch of 64 x 48,000 samples at
+the default config and on the waveform pipeline's N=2000 batch, each at
+n_fft 512, 400 and 1024), ``counts`` (K1 lookup and K7 pair counts against
+their plain versions and the library scatter, at the headline shape
+N=8000, Ts=31, S=12 and at the dense-caption shape N=512, Ts=181, S=128,
+gamma from K4) and ``log_matmul`` (K8 and K8-bf16 at square sizes 512,
+1024 and 2048 from 5 * normal, the broadcast library form at <= 1024, as
+the reference).  The reference's other entries (em, hmm_estep, viterbi,
+models, model1_align, detector, retrieval) wait for their modules
 (ROADMAP queue 1).
 
     python -m multimodalworddiscovery_tpu_torch.scripts.bench_kernels \\
-        [--only counts log_matmul] [--reps 10] [--out build/bench/kernels.jsonl]
+        [--only mfcc counts log_matmul] [--reps 10] [--out build/bench/kernels.jsonl]
 
 Each record is printed as one JSON line and appended to ``--out`` (default
 ``build/bench/kernels.jsonl`` in the repository), with the card's name and
@@ -24,7 +29,9 @@ a CUDA device: without one it exits with an error.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import time
@@ -32,11 +39,26 @@ import time
 import numpy as np
 import torch
 
-BENCHES = ("counts", "log_matmul")
+BENCHES = ("mfcc", "counts", "log_matmul")
 DEFAULT_OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "bench" / "kernels.jsonl"
-# bench.py's headline corpus
-HEADLINE = dict(n_utterances=8000, n_concepts=60, n_phones=48, min_concepts=3,
-                max_concepts=6, seed=0)
+# bench.py's headline corpus, and the dense-caption S=128 row of the
+# reference's estep benchmark (scripts/bench_kernels.py:261-263)
+COUNTS_SHAPES = {
+    "S12_headline": dict(n_utterances=8000, n_concepts=60, n_phones=48, min_concepts=3,
+                         max_concepts=6, seed=0),
+    "S128_dense": dict(n_utterances=512, n_concepts=400, n_phones=48, min_concepts=48,
+                       max_concepts=64, min_word_len=2, max_word_len=3, seed=2),
+}
+MFCC_REFERENCE_BATCH = (64, 48000)  # scripts/bench_kernels.py:37-39
+MFCC_PIPELINE_N = 2000  # configs/pipeline_full.py:19
+# the default, the direct-DFT branch (even, and odd), a 64 ms window
+MFCC_N_FFT = (512, 400, 401, 1024)
+# one NVIDIA H100 SXM at its full 700 W (data sheet, dense rates): device
+# memory rate, the float32 rate outside the tensor cores, and the bf16
+# tensor-core rate (also chip_smoke.py's and bench_estep.py's)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 LOG_MATMUL_SIZES = (512, 1024, 2048)
 LIBRARY_MAX_SIZE = 1024  # the broadcast [I, K, J] form: 4.3 GB at 1024
 
@@ -89,37 +111,124 @@ class Recorder:
         return rec
 
 
+def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> dict:
+    """The least time one H100 could take: bytes over its memory rate or
+    operations (float32 ``ops`` over the float32 rate plus ``bf16_ops``,
+    products of bf16 operands summed in float32, over the bf16 tensor-core
+    rate), whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / FP32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def mfcc_ops(cfg, kind: str, n_frames: int, n_samples: int) -> float:
+    """Operations the MFCC function needs, its DFT counted as a real FFT
+    (2.5 n log2(n) / 2 for n = n_fft): pre-emphasis (2 a sample), the
+    window (1 a frame sample), the FFT, power (3 a bin), the mel sums over
+    each filter's nonzero bins (2 a weight), the log, and the DCT."""
+    from multimodalworddiscovery_tpu_torch.frontend import speech
+
+    n_bins = cfg.n_fft // 2 + 1
+    fft = 2.5 * cfg.n_fft * math.log2(cfg.n_fft) / 2
+    weights = int((speech.mel_filterbank(cfg) != 0).sum())
+    dct = 2 * cfg.n_mels * cfg.n_mfcc if kind == "mfcc" else 0
+    per_frame = cfg.win_length + fft + 3 * n_bins + 2 * weights + cfg.n_mels + dct
+    return float(per_frame * n_frames + 2 * n_samples)
+
+
+def bench_mfcc(record: Recorder, reps: int, dev: torch.device) -> None:
+    """K5's ``extract`` against its plain version on the reference's batch
+    (64 x 48,000 samples of 0.1 * normal, the default config) and on the
+    waveform pipeline's (N=2000 synthesized waveforms, its config), at
+    each n_fft of MFCC_N_FFT; ``torch.fft.rfft`` of the pre-emphasized,
+    windowed frames beside them (the spectrum only, timed as a yardstick).
+    A config the kernel refuses is recorded as refused."""
+    from multimodalworddiscovery_tpu_torch.frontend import speech
+    from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
+    from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
+
+    rng = np.random.default_rng(0)
+    n, length = MFCC_REFERENCE_BATCH
+    ref = torch.as_tensor((0.1 * rng.normal(size=(n, length))).astype(np.float32), device=dev)
+    _, _, wavs, lens = rp.synthesize(MFCC_PIPELINE_N, dev)
+    batches = {
+        "reference": (ref, torch.full((n,), length, dtype=torch.int32, device=dev),
+                      speech.MfccConfig()),
+        "pipeline": (torch.as_tensor(wavs, device=dev), torch.as_tensor(lens, device=dev),
+                     rp.MFCC),
+    }
+    for batch, (wav, wav_len, base) in batches.items():
+        for n_fft in MFCC_N_FFT:
+            cfg = dataclasses.replace(base, n_fft=n_fft)
+            feats, fl = k5.extract_plain(wav, wav_len, cfg)
+            frames = speech.frame_signal(speech.preemphasize(wav, cfg.preemphasis), cfg)
+            window = torch.as_tensor(speech.hann_window(cfg.win_length), device=dev)
+            windowed = (frames * window).reshape(-1, cfg.win_length)
+            rec = dict(kernel="mfcc_extract", batch=batch, N=wav.shape[0], L=wav.shape[1],
+                       frames=feats.shape[0] * feats.shape[1], n_fft=n_fft,
+                       win=cfg.win_length, n_mels=cfg.n_mels, n_mfcc=cfg.n_mfcc,
+                       plain_ms=gpu_ms(lambda: k5.extract_plain(wav, wav_len, cfg), reps),
+                       spectrum_library_ms=gpu_ms(
+                           lambda: torch.fft.rfft(windowed, n=n_fft, dim=-1), reps))
+            rec |= bound(wav.numel() * 4 + wav_len.numel() * 4 + feats.numel() * 4
+                         + fl.numel() * 4,
+                         mfcc_ops(cfg, "mfcc", rec["frames"], wav.numel()))
+            try:
+                got = k5.extract(wav, wav_len, cfg)[0]
+            except ValueError as e:
+                record(**rec, ms=None, refused=str(e))
+                continue
+            valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+            rec["max_abs_err_vs_plain"] = float((got - feats)[valid].abs().max())
+            record(**rec, ms=gpu_ms(lambda: k5.extract(wav, wav_len, cfg), reps))
+            del feats, frames, windowed, got
+        torch.cuda.empty_cache()
+
+
 def bench_counts(record: Recorder, reps: int, dev: torch.device) -> None:
-    """K1 and K7 against their plain versions at the headline shape; the
-    library scatter ``torch.bincount`` on the pairs' flat ids beside K7."""
+    """K1 and K7 against their plain versions at the headline shape and
+    the dense-caption shape; the library scatter ``torch.bincount`` on the
+    pairs' flat ids beside K7, and K7's bound (gamma, ids and counts moved
+    once; one add an element)."""
     from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
     from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
     from multimodalworddiscovery_tpu_torch.ops import counts as k17
 
-    corpus, _, _ = make_flickr8k_mini(**HEADLINE, device=dev)
-    params = hmm.init(corpus)
-    concepts = hmm_core.state_concepts(corpus)
-    f, e = params.log_emit.shape
-    emit = k17.table_lookup(params.log_emit, corpus.src, concepts)
-    gamma = hmm_core.estep(params.log_jump, params.log_p0, params.max_jump, emit, corpus,
-                           use_kernels=True)[0]  # K4's posteriors
-    n, ts, s = gamma.shape
-    flat = (corpus.src.long()[:, :, None] * e + concepts.long()[:, None, :]).reshape(-1)
-    weights = gamma.reshape(-1)
-    counts = k17.pair_counts(gamma, corpus.src, concepts, f, e)
-    err = float((counts - k17.pair_counts_plain(gamma, corpus.src, concepts, f, e)).abs().max())
-    for name, fn in (
-        ("table_lookup_plain", lambda: k17.table_lookup_plain(params.log_emit, corpus.src,
-                                                              concepts)),
-        ("table_lookup_kernel", lambda: k17.table_lookup(params.log_emit, corpus.src, concepts)),
-        ("pair_counts_plain", lambda: k17.pair_counts_plain(gamma, corpus.src, concepts, f, e)),
-        ("pair_counts_kernel", lambda: k17.pair_counts(gamma, corpus.src, concepts, f, e)),
-        ("pair_counts_library", lambda: torch.bincount(flat, weights=weights, minlength=f * e)),
-    ):
-        rec = dict(kernel=name, ms=gpu_ms(fn, reps), N=n, T=ts, S=s, F=f, E=e)
-        if name == "pair_counts_kernel":
-            rec["max_abs_err_vs_plain"] = err
-        record(**rec)
+    for shape, kw in COUNTS_SHAPES.items():
+        corpus, _, _ = make_flickr8k_mini(**kw, device=dev)
+        params = hmm.init(corpus)
+        concepts = hmm_core.state_concepts(corpus)
+        f, e = params.log_emit.shape
+        emit = k17.table_lookup(params.log_emit, corpus.src, concepts)
+        gamma = hmm_core.estep(params.log_jump, params.log_p0, params.max_jump, emit, corpus,
+                               use_kernels=True)[0]  # K4's posteriors
+        n, ts, s = gamma.shape
+        flat = (corpus.src.long()[:, :, None] * e + concepts.long()[:, None, :]).reshape(-1)
+        weights = gamma.reshape(-1)
+        counts = k17.pair_counts(gamma, corpus.src, concepts, f, e)
+        err = float((counts - k17.pair_counts_plain(gamma, corpus.src, concepts, f,
+                                                    e)).abs().max())
+        k7_bound = bound(4 * (gamma.numel() + corpus.src.numel() + concepts.numel()
+                              + counts.numel()), float(gamma.numel()))
+        for name, fn in (
+            ("table_lookup_plain", lambda: k17.table_lookup_plain(params.log_emit, corpus.src,
+                                                                  concepts)),
+            ("table_lookup_kernel", lambda: k17.table_lookup(params.log_emit, corpus.src,
+                                                             concepts)),
+            ("pair_counts_plain", lambda: k17.pair_counts_plain(gamma, corpus.src, concepts,
+                                                                f, e)),
+            ("pair_counts_kernel", lambda: k17.pair_counts(gamma, corpus.src, concepts, f, e)),
+            ("pair_counts_library", lambda: torch.bincount(flat, weights=weights,
+                                                           minlength=f * e)),
+        ):
+            rec = dict(kernel=name, shape=shape, ms=gpu_ms(fn, reps), N=n, T=ts, S=s, F=f, E=e)
+            if name == "pair_counts_kernel":
+                rec |= dict(max_abs_err_vs_plain=err, largest_count=float(counts.max()),
+                            nonzero=int((gamma != 0).sum()), **k7_bound)
+            record(**rec)
+        del corpus, emit, gamma, flat, weights
+        torch.cuda.empty_cache()
 
 
 def bench_log_matmul(record: Recorder, reps: int, dev: torch.device) -> None:
@@ -158,7 +267,7 @@ def main(argv: list[str] | None = None) -> None:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     record = Recorder(args.out)
-    fns = dict(counts=bench_counts, log_matmul=bench_log_matmul)
+    fns = dict(mfcc=bench_mfcc, counts=bench_counts, log_matmul=bench_log_matmul)
     for name in args.only or BENCHES:
         fns[name](record, args.reps, dev)
 

@@ -118,3 +118,61 @@ def test_k7_plain_matches_pallas_pair_counts(seed):
     assert k1.pair_counts.launches == before  # CPU tensors take the plain version
     assert got.shape == (f, e) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def _k7_plan(gamma, src, concepts, f, e, rows_per_block):
+    """csrc/counts.cu's K7 plan in float64 numpy: blocks over contiguous
+    ranges of (n, t) rows, each with its own [F, E] table; in each row the
+    posteriors of concept 0 summed first and added once, every other
+    nonzero posterior added into its entry; then each table's nonzero
+    entries added into the counts."""
+    n, t, s = gamma.shape
+    g = gamma.reshape(n * t, s).astype(np.float64)
+    rows_src = src.reshape(-1)
+    counts = np.zeros((f, e))
+    for r0 in range(0, n * t, rows_per_block):
+        tab = np.zeros((f, e))
+        for r in range(r0, min(n * t, r0 + rows_per_block)):
+            c = concepts[r // t]
+            ph = rows_src[r]
+            null = c == 0
+            tab[ph, 0] += g[r, null].sum()
+            real = ~null & (g[r] != 0)
+            np.add.at(tab[ph], c[real], g[r, real])
+        counts[tab != 0] += tab[tab != 0]
+    return counts
+
+
+@pytest.mark.parametrize("layout", ["path 8 (S=128, nulls the upper half)", "nulls scattered"])
+def test_k7_plan_matches_pair_counts(layout):
+    """K7's plan (per-row null pre-sum, per-block tables) against the JAX
+    package's ``core.counts.pair_counts``: at path 8's state layout
+    (``hmm_core.state_concepts`` of a dense-caption corpus, S=128,
+    V_trg=401) and with the null states placed at random; rtol 1e-5,
+    atol 1e-5 (float64 sums against float32 ones)."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini as torch_make
+    from multimodalworddiscovery_tpu_torch.models import hmm_core as tcore
+
+    corpus, _, _ = torch_make(n_utterances=24, n_concepts=400, n_phones=48, min_concepts=48,
+                              max_concepts=64, min_word_len=2, max_word_len=3, seed=2,
+                              device="cpu")
+    concepts = tcore.state_concepts(corpus).numpy()
+    src = corpus.src.numpy()
+    lens = corpus.src_len.numpy()
+    f, e = corpus.src_vocab, corpus.trg_vocab
+    n, t = src.shape
+    s = concepts.shape[1]
+    rng = np.random.default_rng(8)
+    if layout == "nulls scattered":
+        concepts = rng.integers(1, e, size=(n, s)).astype(np.int32)
+        concepts[rng.random((n, s)) < 0.4] = 0
+    else:
+        assert (s, e) == (128, 401) and not concepts[:, s // 2:].any()
+    gamma = rng.random((n, t, s)).astype(np.float32)
+    gamma[rng.random((n, t, s)) < 0.3] = 0.0
+    for i in range(n):
+        gamma[i, lens[i]:] = 0.0
+    want = np.asarray(jcounts.pair_counts(gamma, src, concepts, f, e))
+    got = _k7_plan(gamma, src, concepts, f, e, rows_per_block=97)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert got[:, 0].sum() > 0  # the null column is exercised

@@ -535,11 +535,13 @@ def test_k5_extract_matches_plain(dev, kind):
     torch.testing.assert_close(got[valid], want[valid], **MFCC_TOL)
 
 
+@pytest.mark.parametrize("n_fft", [512, 400, 255])
 @pytest.mark.parametrize("m", [0, 1, 63, 65, 1000])
-def test_k5_frames_matches_plain(dev, m):
-    """Frame counts around and off the kernel's 64-frame tile; M = 0
-    launches nothing."""
-    cfg = speech.MfccConfig(n_mfcc=13, n_mels=26)
+def test_k5_frames_matches_plain(dev, m, n_fft):
+    """Frame counts around and off a block's run of frames; M = 0 launches
+    nothing.  The frame stride is the window: through the FFT (512), and
+    the direct DFT with its span padded (400) or not (255)."""
+    cfg = speech.MfccConfig(n_mfcc=13, n_mels=26, n_fft=n_fft, win_length=min(400, n_fft))
     gen = torch.Generator().manual_seed(m)
     frames = (0.2 * torch.randn(m, cfg.win_length, generator=gen)).to(dev)
     before = k5.mfcc_from_frames.launches
@@ -573,8 +575,63 @@ def test_k5_wrappers_validate_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         k5.mfcc_from_frames(frames[:, :399].contiguous())
     with pytest.raises(ValueError, match="n_fft"):
-        k5.mfcc_from_frames(torch.zeros((10, 1000), device=dev),
-                            speech.MfccConfig(win_length=1000, n_fft=1024))
+        k5.mfcc_from_frames(torch.zeros((10, 4000), device=dev),
+                            speech.MfccConfig(win_length=4000, n_fft=4096))
+
+
+@pytest.mark.parametrize("n_fft", [255, 256, 400, 401, 402, 512, 1024, 2048])
+def test_k5_n_fft_matches_plain(dev, n_fft):
+    """Every n_fft the kernel takes through either branch: powers of two
+    through the FFT, the rest through the direct DFT (400 and 402 folded,
+    401 and 255, with a 255-sample window, unfolded, their shared-memory
+    regions after an odd-sized twiddle table); both kinds, launched."""
+    wav, lens = _waveforms(dev, [8000, 6000, 3000, 0, 399, 400, 401], 8000)
+    cfg = speech.MfccConfig(n_fft=n_fft, win_length=min(400, n_fft))
+    for kind in ("mfcc", "fbank"):
+        before = k5.extract.launches
+        got, fl = k5.extract(wav, lens, cfg, kind)
+        assert k5.extract.launches == before + 1
+        want, _ = k5.extract_plain(wav, lens, cfg, kind)
+        valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+        torch.testing.assert_close(got[valid], want[valid], **MFCC_TOL)
+
+
+@pytest.mark.parametrize("n_fft,win,hop", [(512, 400, 160), (400, 400, 160), (401, 400, 161),
+                                           (255, 255, 100)])
+@pytest.mark.parametrize("length", [4000, 9921, 28160])
+def test_k5_runs_straddle_blocks_and_row_ends(dev, length, n_fft, win, hop):
+    """Rows whose frame count is not a multiple of a block's run (23, 60
+    and 174 frames at the defaults), rows cut from one buffer at an offset
+    that leaves their samples unaligned, and rows whose last samples are
+    large, so a pre-emphasis that reached across a row start would show;
+    through the FFT (512) and the direct DFT, its span padded (an even hop)
+    or not (an odd one)."""
+    rng = np.random.default_rng(length)
+    flat = (0.2 * rng.standard_normal(5 * length + 3)).astype(np.float32)
+    flat[length - 2: length + 1] = 50.0  # the end of row 0 and the start of row 1
+    buf = torch.as_tensor(flat, device=dev)
+    cfg = speech.MfccConfig(n_fft=n_fft, win_length=win, hop_length=hop)
+    for off in (0, 1, 3):
+        wav = buf[off: off + 5 * length].view(5, length)
+        got, fl = k5.extract(wav, None, cfg)
+        want, _ = k5.extract_plain(wav, None, cfg)
+        assert got.shape == want.shape == (5, speech.num_frames(length, cfg), 13)
+        torch.testing.assert_close(got, want, **MFCC_TOL)
+
+
+def test_k5_preemphasis_starts_each_row(dev):
+    """y[0] = x[0] at the start of every row: row 1's first frame equals
+    that of a batch holding row 1 alone, and differs from a row whose
+    first sample were pre-emphasized against row 0's last."""
+    cfg = speech.MfccConfig()
+    wav = torch.zeros((2, 800), device=dev)
+    wav[0, -1] = 1.0
+    wav[1, 0] = 0.5
+    got, _ = k5.extract(wav, None, cfg, "fbank")
+    alone, _ = k5.extract(wav[1:].contiguous(), None, cfg, "fbank")
+    torch.testing.assert_close(got[1], alone[0], rtol=0, atol=0)
+    want, _ = k5.extract_plain(wav, None, cfg, "fbank")
+    torch.testing.assert_close(got, want, **MFCC_TOL)
 
 
 def test_entry_points_default_to_the_card(dev):
@@ -633,6 +690,60 @@ def test_k7_validates_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         k1.pair_counts(gamma.transpose(1, 2).contiguous().transpose(1, 2), corpus.src,
                        concepts, 4, 4)
+
+
+def _k7_random(n, ts, s, f, e, seed, all_null=False):
+    rng = np.random.default_rng(seed)
+    gamma = rng.random((n, ts, s)).astype(np.float32)
+    gamma[rng.random((n, ts, s)) < 0.3] = 0.0
+    src = rng.integers(0, f, (n, ts)).astype(np.int32)
+    conc = rng.integers(1, e, (n, s)).astype(np.int32)
+    conc[rng.random((n, s)) < 0.5] = 0
+    if all_null:
+        conc[:] = 0
+    return [torch.as_tensor(x) for x in (gamma, src, conc)]
+
+
+def test_k7_table_in_device_memory(dev):
+    """The same posteriors with n_cols=4096 (a 49 x 4096 table, beyond
+    shared memory, added straight into counts): the first 401 columns equal
+    the narrow result (table in shared memory) and the rest stay 0."""
+    gamma, src, conc = (x.to(dev) for x in _k7_random(64, 181, 128, 49, 401, 0))
+    narrow = k1.pair_counts(gamma, src, conc, 49, 401)
+    wide = k1.pair_counts(gamma, src, conc, 49, 4096)
+    scale = float(narrow.max())
+    torch.testing.assert_close(wide[:, :401], narrow, rtol=1e-5, atol=1e-4 * scale)
+    assert not wide[:, 401:].any()
+    want = k1.pair_counts_plain(gamma, src, conc, 49, 4096)
+    torch.testing.assert_close(wide, want, rtol=1e-5, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("s", [12, 128, 200, 33, 5, 64])
+@pytest.mark.parametrize("all_null", [False, True])
+def test_k7_null_rows_match_plain(dev, s, all_null):
+    """Rows whose states are all null (every posterior to concept 0), and
+    nulls scattered over the row, at S = 12 (float4 loads, a row a segment
+    of 4 lanes, 8 rows a warp), 5 (scalar loads, segments of 8 lanes), 64
+    (float4, segments of 16), 128 (float4, a row a warp), 200 and 33
+    (scalar loads over chunks of 32)."""
+    gamma, src, conc = (x.to(dev) for x in _k7_random(40, 30, s, 49, 401, s, all_null))
+    before = k1.pair_counts.launches
+    got = k1.pair_counts(gamma, src, conc, 49, 401)
+    assert k1.pair_counts.launches == before + 1
+    want = k1.pair_counts_plain(gamma, src, conc, 49, 401)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * float(want.max()))
+    if all_null:
+        assert not got[:, 1:].any()
+
+
+def test_k7_empty_gamma_launches_nothing(dev):
+    before = k1.pair_counts.launches
+    for n, ts in ((0, 5), (4, 0)):
+        got = k1.pair_counts(torch.zeros((n, ts, 12), device=dev),
+                             torch.zeros((n, ts), dtype=torch.int32, device=dev),
+                             torch.zeros((n, 12), dtype=torch.int32, device=dev), 49, 61)
+        assert got.shape == (49, 61) and not got.any()
+    assert k1.pair_counts.launches == before
 
 
 def _normal(shape, scale, seed, dev):

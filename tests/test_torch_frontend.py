@@ -14,7 +14,9 @@ Tolerances, and why:
   another order);
 - the kernel's twiddle table times the window against the reference's
   cos/sin tables with the window folded in: rtol 1e-6, atol 1e-7 (one
-  float32 product against a float64 product rounded once).
+  float32 product against a float64 product rounded once);
+- the float64 models of the kernel's FFT and direct-DFT plans against
+  np.fft.rfft: rtol/atol 1e-9 (float64 rounding only).
 """
 
 import dataclasses
@@ -94,49 +96,113 @@ def test_tables_equal_jax(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_kernel_tables_match_reference_operands(name):
-    """K5's tables: one n_fft-entry twiddle table indexed by (t * k) mod
-    n_fft, times the window, gives the reference kernel's cos/sin tables
-    (mfcc_pallas.py:_operands); each filter's [lo, hi) bin range holds all
-    of its nonzero weights."""
+    """K5's tables against the reference kernel's operands
+    (mfcc_pallas.py:_operands): one n_fft-entry twiddle table indexed by
+    (t * k) mod n_fft, times the window, gives its cos/sin tables; the FFT
+    stages' twiddles are rows of that table; the filters' pieces, with
+    the packed weights, rebuild its filterbank (each piece inside its mel's
+    range of pieces), and the transposed DCT is its DCT."""
     jcfg, tcfg = _cfgs(name)
     cos_w, sin_w, fb_t, dct_t = jmfcc._operands(jcfg)
-    tw, window, fb, ranges, dct = (x.numpy() for x in tmfcc._tables(tcfg, torch.device("cpu")))
+    tw, stw, window, fb_w, plan, dct = (
+        x.numpy() for x in tmfcc._tables(tcfg, torch.device("cpu")))
     win, n_bins = tcfg.win_length, tcfg.n_fft // 2 + 1
     idx = (np.arange(win)[:, None] * np.arange(n_bins)[None, :]) % tcfg.n_fft
     tol = dict(rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(tw[idx, 0] * window[:, None], cos_w[:win, :n_bins], **tol)
     np.testing.assert_allclose(-tw[idx, 1] * window[:, None], sin_w[:win, :n_bins], **tol)
+    assert tmfcc.uses_fft(tcfg.n_fft)
+    np.testing.assert_array_equal(stw, tw[tmfcc.stage_twiddle_index(tcfg.n_fft)])
+    _, pieces, first = tmfcc.mel_pieces(tcfg)
+    assert plan.dtype == np.int32
+    np.testing.assert_array_equal(plan, np.concatenate([pieces.reshape(-1), first]))
+    fb = np.zeros((tcfg.n_mels, n_bins), np.float32)
+    for q, (m, lo, hi, off) in enumerate(pieces):
+        assert first[m] <= q < first[m + 1] and lo < hi
+        fb[m, lo:hi] = fb_w[off:off + hi - lo]
     np.testing.assert_array_equal(fb, fb_t[:n_bins, : tcfg.n_mels].T)
-    np.testing.assert_array_equal(dct, dct_t[: tcfg.n_mels, : tcfg.n_mfcc].T)
-    cols = np.arange(n_bins)[None, :]
-    outside = (cols < ranges[:, :1]) | (cols >= ranges[:, 1:])
-    assert not fb[outside].any()
-    assert ranges.dtype == np.int32 and (ranges[:, 0] <= ranges[:, 1]).all()
+    np.testing.assert_array_equal(dct, dct_t[: tcfg.n_mels, : tcfg.n_mfcc])
 
 
-@pytest.mark.parametrize("n_fft", [32, 256, 512])
-def test_kernel_dft_plan_gives_the_power_spectrum(n_fft):
-    """The DFT plan of csrc/mfcc.cu, in float64 numpy: base bins
-    k < n_fft/4 from even / odd partial sums over one twiddle table, bin
-    n_fft/2 - k as E - O (its twiddles are bin k's up to (-1)^t), bin
-    n_fft/4 on its own, gives rfft's power spectrum."""
+def _stockham_power(x, n_fft):
+    """csrc/mfcc.cu's FFT branch in float64: pack z[m] = x[2m] + i x[2m+1]
+    (zero-padded to N = n_fft / 2), the Stockham stages in the kernel's
+    order with the stages' twiddles as the kernel indexes them, then the
+    split of each pair (k, N - k) and power / n_fft."""
+    n = n_fft // 2
+    xp = np.zeros((x.shape[0], n_fft))
+    xp[:, : x.shape[1]] = x
+    z = xp[:, 0::2] + 1j * xp[:, 1::2]
+    ang = 2 * np.pi * np.arange(n_fft) / n_fft
+    tw = np.cos(ang) + 1j * np.sin(ang)  # the host's (cos, sin) table
+    stw = tw[tmfcc.stage_twiddle_index(n_fft)]
+    ns, off = 1, 0
+    for s, r_ in enumerate(tmfcc.fft_radices(n_fft)):
+        nb = n // r_
+        out = np.empty_like(z)
+        for jb in range(nb):
+            jm = jb % ns
+            v = z[:, jb + nb * np.arange(r_)]
+            if s > 0:
+                v[:, 1:] *= np.conj(stw[off + jm * (r_ - 1): off + (jm + 1) * (r_ - 1)])
+            v = np.fft.fft(v, axis=1)  # the radix-r_ butterfly
+            out[:, (jb // ns) * ns * r_ + jm + ns * np.arange(r_)] = v
+        if s > 0:
+            off += ns * (r_ - 1)
+        z, ns = out, ns * r_
+    power = np.zeros((x.shape[0], n + 1))
+    for k in range(n // 2 + 1):
+        a, b = z[:, k], z[:, (n - k) % n]
+        for kk, p, q in ((k, a, b), (n - k, b, a)):
+            e, d = (p + np.conj(q)) / 2, p - np.conj(q)
+            xk = e - 0.5j * np.conj(tw[kk]) * d
+            power[:, kk] = np.abs(xk) ** 2 / n_fft
+    return power
+
+
+@pytest.mark.parametrize("n_fft", [32, 256, 512, 1024, 2048])
+def test_kernel_fft_plan_gives_the_power_spectrum(n_fft):
+    """The FFT plan of csrc/mfcc.cu (radix-8, then radix-4 stages of a
+    Stockham FFT of n_fft / 2 points, then the real split) against
+    np.fft.rfft's power spectrum."""
     rng = np.random.default_rng(n_fft)
-    win = n_fft * 3 // 4 + 1  # odd, so the last pair reads a zero
+    x = rng.normal(size=(3, n_fft * 3 // 4 + 1))  # odd: the last pair's odd sample is padding
+    assert np.prod(tmfcc.fft_radices(n_fft)) == n_fft // 2
+    assert set(tmfcc.fft_radices(n_fft)) <= {4, 8}
+    want = np.abs(np.fft.rfft(x, n=n_fft)) ** 2 / n_fft
+    np.testing.assert_allclose(_stockham_power(x, n_fft), want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("n_fft", [384, 400, 401, 402])
+def test_kernel_dft_plan_gives_the_power_spectrum(n_fft):
+    """The direct-DFT branch of csrc/mfcc.cu, for n_fft that is not a power
+    of two, in float64 numpy: one twiddle table indexed by (t * k) mod
+    n_fft; where n_fft is even (384, 400, 402) base bins k < (n_fft + 2)/4
+    from even / odd partial sums, bin n_fft/2 - k as E - O (its twiddles
+    are bin k's up to (-1)^t), and where n_fft % 4 == 0 (384, 400) bin
+    n_fft/4 on its own; where it is odd (401) every bin as E + O on its
+    own.  It gives rfft's power spectrum."""
+    assert not tmfcc.uses_fft(n_fft)
+    rng = np.random.default_rng(n_fft)
+    win = n_fft * 3 // 4 + 1  # odd, so the last pair's odd sample is padding
     x = rng.normal(size=(5, win))
     ang = 2 * np.pi * np.arange(n_fft) / n_fft
     cos, sin = np.cos(ang), np.sin(ang)
-    quarter = n_fft // 4
+    power = np.zeros((5, n_fft // 2 + 1))
     xp = np.pad(x, ((0, 0), (0, 1)))
     t = np.arange(0, win, 2)
-    power = np.zeros((5, n_fft // 2 + 1))
-    for k in range(quarter):
+    even = n_fft % 2 == 0
+    for k in range((n_fft + 2) // 4 if even else n_fft // 2 + 1):
         we, wo = (t * k) % n_fft, ((t + 1) * k) % n_fft
         ec, es = xp[:, t] @ cos[we], xp[:, t] @ sin[we]
         oc, os_ = xp[:, t + 1] @ cos[wo], xp[:, t + 1] @ sin[wo]
         power[:, k] = (ec + oc) ** 2 + (es + os_) ** 2
-        power[:, n_fft // 2 - k] = (ec - oc) ** 2 + (es - os_) ** 2
-    tq = np.arange(win)
-    power[:, quarter] = (x @ cos[(tq * quarter) % n_fft]) ** 2 + (x @ sin[(tq * quarter) % n_fft]) ** 2
+        if even:
+            power[:, n_fft // 2 - k] = (ec - oc) ** 2 + (es - os_) ** 2
+    if n_fft % 4 == 0:
+        quarter = n_fft // 4
+        tq = (np.arange(win) % 4) * quarter  # (t * n_fft/4) mod n_fft
+        power[:, quarter] = (x @ cos[tq]) ** 2 + (x @ sin[tq]) ** 2
     want = np.abs(np.fft.rfft(x, n=n_fft)) ** 2
     np.testing.assert_allclose(power, want, rtol=1e-9, atol=1e-9)
 
@@ -216,15 +282,40 @@ def test_extract_short_and_empty_waveforms():
 
 
 def test_kernel_config_limits():
-    """What K5 refuses (checked before a CUDA launch); an unknown kind fails
-    on every device."""
-    tmfcc._check_config(tspeech.MfccConfig(), "mfcc")
-    for bad in (dict(n_fft=1024, win_length=1000), dict(n_fft=384), dict(win_length=600),
-                dict(n_mels=300), dict(n_mfcc=30, n_mels=26), dict(hop_length=0)):
+    """What K5 takes and refuses (checked before a CUDA launch): any n_fft
+    from win_length up to MAX_N_FFT (powers of two from 32 through the FFT,
+    the rest through the direct DFT), nothing above it; an unknown kind
+    fails on every device."""
+    assert tmfcc.MAX_N_FFT == 2048
+    for good in (dict(), dict(n_fft=384, win_length=384), dict(n_fft=400), dict(n_fft=1024),
+                 dict(n_fft=1024, win_length=1000), dict(n_fft=2048, win_length=2048)):
+        tmfcc._check_config(tspeech.MfccConfig(**good), "mfcc")
+    assert [tmfcc.uses_fft(n) for n in (16, 32, 384, 400, 512, 1024, 2048)] == [
+        False, True, False, False, True, True, True]
+    for bad in (dict(n_fft=4096, win_length=1000), dict(n_fft=2049, win_length=2049),
+                dict(n_fft=384), dict(win_length=600), dict(n_mels=300),
+                dict(n_mfcc=30, n_mels=26), dict(hop_length=0)):
         with pytest.raises(ValueError):
             tmfcc._check_config(tspeech.MfccConfig(**bad), "mfcc")
+    with pytest.raises(ValueError, match="2048"):
+        tmfcc._check_config(tspeech.MfccConfig(n_fft=4096), "mfcc")
     with pytest.raises(ValueError, match="kind"):
         tmfcc.extract(torch.zeros((1, 800)), None, tspeech.MfccConfig(), "spectrogram")
+
+
+@pytest.mark.parametrize("n_fft", [400, 1024])
+def test_extract_other_n_fft_matches_reference_kernel(wavs, n_fft):
+    """An n_fft the kernel takes through its direct DFT (400) and one past
+    the old 512 limit (1024): the port's plain extract against the
+    reference kernel in interpret mode, which takes any n_fft >= win."""
+    wav, lens = wavs
+    jcfg = jspeech.MfccConfig(n_fft=n_fft)
+    tcfg = tspeech.MfccConfig(n_fft=n_fft)
+    tmfcc._check_config(tcfg, "mfcc")
+    want, jl = jmfcc.extract_pallas(jnp.asarray(wav), jnp.asarray(lens), jcfg, interpret=True)
+    got, tl = tmfcc.extract(torch.as_tensor(wav), torch.as_tensor(lens), tcfg)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    _valid_close(got.numpy(), np.asarray(want), np.asarray(jl), **MFCC_TOL)
 
 
 @pytest.mark.parametrize("width", [1, 2])
