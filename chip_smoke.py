@@ -55,7 +55,9 @@ gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
 Ts=401, S=64, V_src=64), where the teacher's EM trajectory is also held
 against the plain path's and one of its EM iterations is profiled; the
 JSON line gives K2's and K2-bf16's launches, time and bound per launch
-shape, and K3's at each shape it decodes.  K4,
+shape, K3's at each shape it decodes, and K1's at its three launch shapes
+(headline, path 8, VQ teacher: bit-equal to the plain gather, CUDA-event
+and device time, bound, the library double-index gather).  K4,
 K4-bf16 and K6 (the remat E-step, reached through its entry point
 ``hmm_estep(remat=True)``, which no model path calls) are checked at the
 stretch shape and at S=128, K6 at two chunk lengths and against K4; each
@@ -85,8 +87,12 @@ summed in float64, and with a table too wide for shared memory
 9's scan hands it, on a synthetic row whose largest product lies 250 nats
 below its maximum (where the factored form underflows), and on the prefix
 products of path 9's step matrices (their widest row's span and the
-factored form's error there are printed); K8-bf16 against its plain bf16
-version, against K8 and as rounding.
+factored form's error there are printed), each with the share of elements
+its underflow guard took and summed again (and over the forwards'
+combines); path 9's library time is the broadcast torch.logsumexp in batch
+chunks; K8-bf16 against its plain bf16 version, against K8 and as
+rounding.  K5 also runs at n_fft 4096 and at 300 mels (past its old
+limits) against plain.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after.  It then times kernels and paths against their plain versions with
@@ -155,6 +161,9 @@ MFCC_TOL = dict(rtol=1e-3, atol=2e-3)  # K5's bound, tests/test_mfcc_pallas.py:3
 # odd ones through the unfolded direct DFT: 401, and 255 (with a 255-sample
 # window)
 K5_N_FFT = (512, 400, 1024, 401, 255)
+# past the run kernel's old limits (n_fft 2048, 256 mels): a 256 ms window
+# (a frame a warp) and 300 mels at the pipeline's n_fft
+K5_LARGE = ((4096, None), (512, 300))
 # the JAX package's documented F1 of the stretch recipe at N=4000
 # (docs/PERFORMANCE.md:457-461); it draws other random numbers, so only
 # printed beside this run's value
@@ -652,14 +661,11 @@ def teacher_phase(fc, card: str) -> dict:
                             f"({lw[-1]} vs {lp[-1]}, rel {rel[-1]:.3e})")
 
     concepts = hmm_core.state_concepts(codes)
-    times = {
-        "k1_ms": _gpu_ms(lambda: k1.table_lookup(p0.log_emit, codes.src, concepts), 20),
-        "k1_plain_ms": _gpu_ms(lambda: k1.table_lookup_plain(p0.log_emit, codes.src,
-                                                             concepts), 20),
-    }
+    times = {"k1": k1_check("the VQ teacher's shape", p0.log_emit, codes.src, concepts, 20)}
     print(f"  [{card}] at the VQ teacher's shape: K1 table_lookup kernel "
-          f"{times['k1_ms']:.4f} ms, plain {times['k1_plain_ms']:.4f} ms; K2 hmm_estep_counts "
-          f"kernel {errs['k2']['ms']:.4f} ms, plain {errs['k2']['plain_ms']:.4f} ms")
+          f"{times['k1']['ms']:.4f} ms (device {times['k1']['device_ms']:.4f}), plain "
+          f"{times['k1']['plain_ms']:.4f} ms; K2 hmm_estep_counts kernel "
+          f"{errs['k2']['ms']:.4f} ms, plain {errs['k2']['plain_ms']:.4f} ms")
     _profile(lambda: hmm.em_step(p0, codes), "one VQ-teacher EM iteration (K1, K2, M-step)", card)
     return errs | times
 
@@ -877,7 +883,7 @@ def _profile(fn, what: str, card: str) -> dict[str, float]:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"K1 lookup": ("mwd_table_lookup",), "K7 pair counts": ("mwd_pair_counts",),
-                "K8 log_matmul": ("mwd_log_matmul",),
+                "K8 log_matmul": ("mwd_lm_",),
                 "K5 mfcc": ("mwd_mfcc",), "K2 forward": ("mwd_estep_counts_fwd",),
                 "K2 backward with counts": ("mwd_estep_counts_bwd",),
                 "K2 table and xi sum": ("mwd_estep_counts_prep", "mwd_estep_counts_xi"),
@@ -973,6 +979,26 @@ def k5_phase(card: str, synth) -> dict:
                    f"{what} {tuple(got.shape)}: valid frames within rtol 1e-3 atol 2e-3 of "
                    f"plain (max abs err {errs[key]})")
             del got, want
+    large = {}
+    for n_fft, n_mels in K5_LARGE:
+        cfg_n = dataclasses.replace(cfg, n_fft=n_fft, n_mels=n_mels or cfg.n_mels)
+        key = f"n_fft {n_fft}" if n_mels is None else f"n_mels {n_mels}"
+        for kind in speech.KINDS:
+            what = f"K5 {kind} {key}"
+            before = k5.extract.launches
+            got, fl = k5.extract(wav, wav_len, cfg_n, kind)
+            want, _ = k5.extract_plain(wav, wav_len, cfg_n, kind)
+            _check(k5.extract.launches == before + 1, f"{what}: launched")
+            valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+            errs[f"{kind} {key}"] = err = _max_abs(got[valid], want[valid])
+            _check(torch.allclose(got[valid], want[valid], **MFCC_TOL),
+                   f"{what} {tuple(got.shape)}: valid frames within rtol 1e-3 atol 2e-3 of "
+                   f"plain (max abs err {err})")
+            del got, want
+        large[key] = (cfg_n, {
+            "ms": _gpu_ms(lambda: k5.extract(wav[:PIPELINE_N], wav_len[:PIPELINE_N], cfg_n), 3),
+            "plain_ms": _gpu_ms(lambda: k5.extract_plain(wav[:PIPELINE_N], wav_len[:PIPELINE_N],
+                                                         cfg_n), 2)})
     pre = speech.preemphasize(wav[:6], cfg.preemphasis)
     frames = speech.frame_signal(pre, cfg).reshape(-1, cfg.win_length)[:1000].contiguous()
     for kind in speech.KINDS:
@@ -1002,6 +1028,12 @@ def k5_phase(card: str, synth) -> dict:
     r["direct_400_bound_ms"] = _bound(_nbytes(wav, wav_len, feats, fl), mfcc_ops(
         cfg_400, "mfcc", feats.shape[0] * feats.shape[1], wav.numel()))["bound_ms"]
     m = feats.shape[0] * feats.shape[1]
+    for key, (cfg_n, t) in large.items():
+        t["bound_ms"] = _bound(_nbytes(wav, wav_len, feats, fl), mfcc_ops(
+            cfg_n, "mfcc", m, wav.numel()))["bound_ms"]
+        r[key.replace(" ", "_")] = t
+        print(f"  [{card}] K5 extract at {key} (pipeline batch, mfcc): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
     print(f"  [{card}] K5 extract at N={PIPELINE_N}, L={wav.shape[1]} ({m} frames, mfcc): "
           f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
           f"ms ({r['bound_by']}); torch.fft.rfft of the windowed frames (the spectrum alone) "
@@ -1097,6 +1129,35 @@ def extract_features_phase(here: str) -> None:
                    f"of the plain version on the CPU")
 
 
+def k1_check(what: str, table, src, concepts, reps: int) -> dict:
+    """K1 at one launch shape: bit-equal to its plain gather, then timed by
+    CUDA events over back-to-back calls (paced by the host at these sizes)
+    and by its device time (torch.profiler), beside the plain gather, the
+    library double-index gather (timed only; the port never calls it) and
+    the bound (table and ids read once, the output written once)."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.ops import counts as k1
+    from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import device_ms
+
+    got = k1.table_lookup(table, src, concepts)
+    want = k1.table_lookup_plain(table, src, concepts)
+    _check(torch.equal(got, want), f"K1 at {what} {tuple(got.shape)}: bit-equal to the plain "
+                                   f"gather")
+    lib = lambda: table[src.long()[..., None], concepts.long()[:, None, :]]  # noqa: E731
+    r = {"err": _max_abs(got, want),
+         "ms": _gpu_ms(lambda: k1.table_lookup(table, src, concepts), reps),
+         "device_ms": device_ms(lambda: k1.table_lookup(table, src, concepts), reps,
+                                "table_lookup"),
+         "plain_ms": _gpu_ms(lambda: k1.table_lookup_plain(table, src, concepts), reps),
+         "library_ms": _gpu_ms(lib, reps)} | _bound(_nbytes(table, src, concepts, got), 0)
+    print(f"  K1 table_lookup at {what} {tuple(got.shape)}, table {tuple(table.shape)}: kernel "
+          f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+          f"library gather {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})")
+    return r
+
+
 def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict:
     """K7 on K4's posteriors ``gamma`` against its plain version and
     against the plain posteriors summed in float64 (rtol 1e-5, atol 1e-4 x
@@ -1175,18 +1236,22 @@ def k8_check(what: str, a, b, want=None, bf16_too: bool = False, reps: int = 0,
     import torch
 
     from multimodalworddiscovery_tpu_torch.ops import log_semiring as k8
+    from multimodalworddiscovery_tpu_torch.scripts.bench_kernels import device_ms
 
+    k8.reset_guard(a.device)
     got = k8.log_matmul(a, b)
+    took, summed = k8.guard_counts(a.device)
     if want is None:
         want = k8.log_matmul_plain(a, b)
     err = _max_abs(got, want)
     live = want > -1e30 / 2
     print(f"K8 at {what}: a {tuple(a.shape)} x b {tuple(b.shape)}; max abs err vs plain {err}; "
           f"NEG_INF outputs {int((~live).sum())} of {want.numel()} (equal: "
-          f"{bool(torch.equal(got[~live], want[~live]))})")
+          f"{bool(torch.equal(got[~live], want[~live]))}); the guard took {took} elements "
+          f"({took / got.numel():.4g}), {summed} of them summed again ({summed / got.numel():.4g})")
     _check(torch.allclose(got, want, **K8_TOL), f"K8 at {what} within rtol 1e-4 atol 1e-4 of "
                                                 f"the broadcast oracle")
-    r = {"err": err}
+    r = {"err": err, "guard_share": took / got.numel(), "guard_summed_share": summed / got.numel()}
     if bf16_too:
         bf = k8.log_matmul(a, b, "bfloat16")
         bf_plain = k8.log_matmul_plain(a, b, "bfloat16")
@@ -1199,6 +1264,7 @@ def k8_check(what: str, a, b, want=None, bf16_too: bool = False, reps: int = 0,
         _rounding_check(f"K8-bf16 at {what}", (("output", bf, bf_plain, got),))
     if reps:
         r |= {"ms": _gpu_ms(lambda: k8.log_matmul(a, b), reps),
+              "device_ms": device_ms(lambda: k8.log_matmul(a, b), reps, "mwd_lm_", "mwd_lm_f32"),
               "plain_ms": _gpu_ms(lambda: k8.log_matmul_plain(a, b), max(reps // 5, 1)),
               "library_ms": (_gpu_ms(lambda: torch.logsumexp(a[..., :, :, None]
                                                              + b[..., None, :, :], dim=-2),
@@ -1206,10 +1272,30 @@ def k8_check(what: str, a, b, want=None, bf16_too: bool = False, reps: int = 0,
         r |= _k8_bound(a, b, got, bf16=False)
         if bf16_too:
             r |= {"bf16_ms": _gpu_ms(lambda: k8.log_matmul(a, b, "bfloat16"), reps),
+                  "bf16_device_ms": device_ms(lambda: k8.log_matmul(a, b, "bfloat16"), reps,
+                                              "mwd_lm_bf16"),
                   "bf16_plain_ms": _gpu_ms(lambda: k8.log_matmul_plain(a, b, "bfloat16"),
                                            max(reps // 5, 1)),
                   "bf16_bound": _k8_bound(a, b, got, bf16=True)}
     return r
+
+
+K8_LIBRARY_CHUNK_BYTES = 8 << 30  # the broadcast library form's batch chunks at path 9
+
+
+def _logsumexp_chunked(a, b):
+    """The library form of K8 (one broadcast torch.logsumexp over [B, I, K,
+    J]) in chunks of the batch small enough to fit the card."""
+    import torch
+
+    a3, b3 = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+    per = a.shape[-2] * a.shape[-1] * b.shape[-1] * 4
+    step = max(1, K8_LIBRARY_CHUNK_BYTES // per)
+    out = torch.empty((a3.shape[0], a.shape[-2], b.shape[-1]), device=a.device)
+    for z in range(0, a3.shape[0], step):
+        out[z:z + step] = torch.logsumexp(a3[z:z + step, :, :, None] + b3[z:z + step, None],
+                                          dim=-2)
+    return out
 
 
 def _wide_range(dev):
@@ -1309,6 +1395,7 @@ def dense_phase(card: str, counters, dev) -> dict:
     concepts, fact = _estep_inputs(params, corpus)
     gamma = k24.hmm_estep(*fact, k1.table_lookup(params.log_emit, corpus.src, concepts),
                           corpus.src_len)[0]
+    k1r = k1_check("path 8's shape", params.log_emit, corpus.src, concepts, 20)
     k7 = k7_check("path 8's shape", gamma, corpus.src, concepts, v_src, v_trg, 20)
     del gamma
     p0 = hmm.init(corpus)
@@ -1324,7 +1411,7 @@ def dense_phase(card: str, counters, dev) -> dict:
           f"{k7['plain_ms']:.4f} ms, library bincount {k7['library_ms']:.4f} ms, bound "
           f"{k7['bound_ms']:.4f} ms ({k7['bound_by']})")
     _profile(lambda: hmm.em_step(p0, corpus), "one path 8 EM iteration (K1, K4, K7, M-step)", card)
-    return {"launches": launches, "k7": k7, "ms_per_iter": (ms_k, ms_p)}
+    return {"launches": launches, "k1": k1r, "k7": k7, "ms_per_iter": (ms_k, ms_p)}
 
 
 def assoc_phase(card: str, counters, dev) -> dict:
@@ -1357,11 +1444,18 @@ def assoc_phase(card: str, counters, dev) -> dict:
         valid = ((torch.arange(ts, device=dev)[:, None, None] < corpus.src_len[None, :, None])
                  & hmm_core.state_mask(corpus)[None])
         _reset(counters)
+        k8.reset_guard(dev)
+        elements = k8.log_matmul.elements
         runs = {"associative": hmm_core.forward_associative(*args),
                 f"blocked({ASSOC_BLOCK})": hmm_core.forward_blocked(*args, block=ASSOC_BLOCK)}
         torch.cuda.synchronize()
         got = _counts(counters)
-        print(f"  kernel launches: {got}")
+        took, summed = k8.guard_counts(dev)
+        elements = k8.log_matmul.elements - elements
+        guard = {"guard_share": took / elements, "guard_summed_share": summed / elements}
+        print(f"  kernel launches: {got}; K8's guard took {took} of the combines' {elements} "
+              f"output elements ({guard['guard_share']:.4g}), {summed} of them summed again "
+              f"({guard['guard_summed_share']:.4g}; the rest had no live term in common)")
         _check(got["log_matmul"] > 0 and sum(got.values()) == got["log_matmul"],
                f"path 9 at {label}: the combines launched K8 and nothing else")
         launches = got if launches is None else {k: v + got[k] for k, v in launches.items()}
@@ -1381,6 +1475,7 @@ def assoc_phase(card: str, counters, dev) -> dict:
         del runs
         m = hmm_core.step_matrices(log_trans, log_emit, corpus.src_len)
         r = k8_check(f"path 9's first combine at {label}", m[0:-1:2], m[1::2], reps=5)
+        r["library_ms"] = _gpu_ms(lambda: _logsumexp_chunked(m[0:-1:2], m[1::2]), 1)
         prefixes = hmm_core.associative_scan(k8.log_matmul, m)
         live = prefixes > -1e30 / 2
         span = (torch.where(live, prefixes, -torch.inf).amax(-1)
@@ -1404,11 +1499,13 @@ def assoc_phase(card: str, counters, dev) -> dict:
                  f"blocked({ASSOC_BLOCK}) (K8)": lambda: hmm_core.forward_blocked(
                      *args, block=ASSOC_BLOCK)}
         r["times"] = {k: _gpu_ms(fn, 1) for k, fn in times.items()}
+        r["combines"] = guard
         print(f"  [{card}] path 9 at {label}, ms per call (CUDA events): {r['times']}")
         print(f"  [{card}] K8 at the first combine: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), exp-rate "
-              f"bound {r['exp_bound_ms']:.4f} ms; library broadcast: not run (its [B, I, K, J] "
-              f"sum would take {bcast:.3g} bytes)")
+              f"bound {r['exp_bound_ms']:.4f} ms; library: the broadcast torch.logsumexp in "
+              f"batch chunks of at most {K8_LIBRARY_CHUNK_BYTES / 2**30:.0f} GiB (its whole "
+              f"[B, I, K, J] sum would take {bcast:.3g} bytes) {r['library_ms']:.4f} ms")
         out[label] = r
         if label == bench_assoc.SHAPES[-1][0]:
             _profile(lambda: hmm_core.forward_associative(*args),
@@ -1694,16 +1791,9 @@ def main() -> int:
     params = kern["params"]
     concepts, (log_init, base, rowz, colmask) = _estep_inputs(params, corpus)
     emit = k1.table_lookup(params.log_emit, corpus.src, concepts)
-    k1_ms = _gpu_ms(lambda: k1.table_lookup(params.log_emit, corpus.src, concepts), 50)
-    k1_plain_ms = _gpu_ms(lambda: k1.table_lookup_plain(params.log_emit, corpus.src, concepts), 50)
-    # the one PyTorch call that computes K1's gather (without its masking
-    # of padded states); timed only, the port never calls it
-    k1_library_ms = _gpu_ms(lambda: params.log_emit[corpus.src[..., None],
-                                                    concepts[:, None, :]], 50)
-    k1_bound = _bound(_nbytes(params.log_emit, corpus.src, concepts, emit), 0)
-    print(f"  [{card}] K1 table_lookup: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
-          f"library gather {k1_library_ms:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms "
-          f"({k1_bound['bound_by']})")
+    k1_head = k1_check("the headline shape", params.log_emit, corpus.src, concepts, 50)
+    print(f"  [{card}] K1 at the headline shape: kernel {k1_head['ms']:.4f} ms (device "
+          f"{k1_head['device_ms']:.4f}), bound {k1_head['bound_ms']:.4f} ms")
     k3_s12 = k3_parity("headline shape (S=12)", (log_init, base, rowz, colmask, emit,
                                                  corpus.src_len), 20)
     print(f"  [{card}] K3 viterbi at S=12: kernel {k3_s12['ms']:.4f} ms, "
@@ -2034,6 +2124,17 @@ def main() -> int:
     print(f"[{card}] K6 per shape (ms): "
           f"{json.dumps({k: r['k6_ms'] for k, (r, _, _) in k4_runs.items()})}")
     print(f"[{card}] K3 per shape: {json.dumps(k3_shapes)}")
+    # K1's launch shapes: the headline (paths 1 and 5), path 8, the VQ
+    # teacher (path 3's seeding)
+    k1_launch = {"S12_headline": (k1_head, launches_headline["table_lookup"]
+                                  + launches_bf16["table_lookup"]),
+                 "S128_dense": (dense["k1"], dense["launches"]["table_lookup"]),
+                 "S64_teacher": (teacher["k1"], teach["table_lookup"])}
+    k1_runs = [r for r, _ in k1_launch.values()]
+    k1_shapes = {k: {"launches": n, **{f: r[f] for f in ("ms", "device_ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms")}}
+                 for k, (r, n) in k1_launch.items()}
+    print(f"[{card}] K1 per launch shape: {json.dumps(k1_shapes)}")
     k8_big = k8_r[K8_SIZES[-1]]
     k8_errs = [r["err"] for r in k8_r.values()] + [
         e for r in assoc["shapes"].values() for e in (r["err"], r["prefix_err"])]
@@ -2042,8 +2143,9 @@ def main() -> int:
          "source": "multimodalworddiscovery_tpu_torch/csrc/counts.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/counts_pallas.py:92",
          "launches": launches["table_lookup"],
-         "max_abs_err": max(errs["k1_err"], teacher["k1_err"]),
-         "ms": k1_ms, "plain_ms": k1_plain_ms, **k1_bound, "library_ms": k1_library_ms},
+         "max_abs_err": max(errs["k1_err"], teacher["k1_err"], *(r["err"] for r in k1_runs)),
+         **{k: k1_head[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}, "shapes": k1_shapes},
         {"name": "hmm_estep_counts", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/hmm_estep_counts.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/hmm_fwdbwd_pallas.py:758",
@@ -2107,7 +2209,11 @@ def main() -> int:
          "replaces": "multimodalworddiscovery_tpu/ops/log_semiring.py:90",
          "launches": launches["log_matmul"], "max_abs_err": max(k8_errs),
          "ms": k8_big["ms"], "plain_ms": k8_big["plain_ms"], "bound_ms": k8_big["bound_ms"],
-         "bound_by": k8_big["bound_by"], "library_ms": k8_big["library_ms"]},
+         "bound_by": k8_big["bound_by"], "library_ms": k8_big["library_ms"],
+         "guard_share": k8_big["guard_share"], "shapes": {
+             f"path9_first_combine_{k}": {f: r[f] for f in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "guard_share",
+                 "guard_summed_share", "combines")} for k, r in assoc["shapes"].items()}},
         {"name": "log_matmul_bf16", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/log_semiring.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/log_semiring.py:90",

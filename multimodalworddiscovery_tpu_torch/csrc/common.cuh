@@ -15,6 +15,19 @@
 #define MWD_SMEM_OPTIN_MAX 232448
 #define MWD_SMEM_SM 233472
 
+// The current device's SM count, queried once per device.
+static inline int mwd_sms() {
+    static int sms[16] = {0};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 132;
+    if (sms[dev] == 0) {
+        int v = 0;
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+        sms[dev] = v > 0 ? v : 132;
+    }
+    return sms[dev];
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 static int mwd_smem_optin(Kernel kernel, size_t bytes) {

@@ -5,12 +5,24 @@
 // Replaces multimodalworddiscovery_tpu/ops/counts_pallas.py:
 // table_lookup_pallas (_lookup_kernel), which did the lookup as a one-hot
 // MXU matmul plus per-lane masked selects in the TPU's lane-major layout.
-// On the H100 it is a gather: one thread per output element, utterance-major
-// [N, Ts, S] output.  It is bound by memory (it writes N*Ts*S floats and
-// reads a table that stays in L1/L2), so the design only keeps the stores
-// coalesced: consecutive threads write consecutive k of one (n, t) row.
+// On the H100 it is a gather into the utterance-major [N, Ts, S] output,
+// bound by the bytes it writes (N Ts S floats; the ids and the table are
+// small).  The design:
+// - A persistent grid of a few blocks an SM (K7's pattern), each over a
+//   contiguous range of utterances, taken a chunk at a time: the chunk's
+//   src rows and conc rows are staged in shared memory, then its output,
+//   one contiguous range of chunk Ts S floats, is written with 16-byte
+//   stores (scalar ones at the range's unaligned head and tail).
+// - Index math in 32 bits inside the chunk, from one 64-bit base: the
+//   (utterance, t, k) of an element by a float reciprocal and one
+//   correction (exact below 2^24), stepped across a store's four elements.
+// - The table in shared memory where it fits and the chunks' output
+//   outweighs loading it (12 KB at the headline, 51 KB at the VQ teacher,
+//   78 KB at the dense captions); otherwise read through __ldg, a layout
+//   choice.
 // An id outside the table yields NaN, so a bad corpus poisons the
-// log-likelihood instead of reading out of bounds.
+// log-likelihood instead of reading out of bounds; the result is the plain
+// gather's, bit for bit.
 
 #include <stdint.h>
 
@@ -18,22 +30,187 @@
 
 #include "counts.cuh"
 
-__global__ void mwd_table_lookup_kernel(
+#define MWD_K1_NT 256
+#define MWD_K1_BPS 4        // blocks an SM at most
+#define MWD_K1_STAGE 8192   // ints of a chunk's staged src and conc rows (32 KB)
+#define MWD_K1_FLAT (1 << 24)  // elements a chunk: the reciprocal division is exact below
+
+// x / d for 0 <= x < 2^24 and d >= 1, with inv = 1 / d (or by integer
+// division where the chunk is longer: exact).
+__device__ __forceinline__ int mwd_k1_div(int x, int d, float inv, bool exact) {
+    if (exact) return x / d;
+    int q = __float2int_rz((float)x * inv);
+    const int r = x - q * d;
+    q += r < 0 ? -1 : (r >= d ? 1 : 0);
+    return q;
+}
+
+// TAB: the table in shared memory; STAGED: the chunk's id rows too (else
+// read from device memory: rows longer than the staging area).
+template <bool TAB, bool STAGED>
+__global__ void __launch_bounds__(MWD_K1_NT) mwd_table_lookup_kernel(
     const float* __restrict__ table,  // [F, E]
     const int* __restrict__ src,      // [N, Ts]
     const int* __restrict__ conc,     // [N, S]
     float* __restrict__ out,          // [N, Ts, S]
-    long long total, int ts, int s, int f, int e) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += stride) {
-        const int k = (int)(i % s);
-        const long long nt = i / s;
-        const long long n = nt / ts;
-        const int ph = src[nt];
-        const int c = conc[n * s + k];
-        out[i] = (ph >= 0 && ph < f && c >= 0 && c < e) ? __ldg(&table[ph * e + c]) : NAN;
+    int n, int ts, int s, int f, int e, int per_block, int chunk) {
+    extern __shared__ float4 smem4[];
+    float* tab = reinterpret_cast<float*>(smem4);
+    int* st = reinterpret_cast<int*>(tab + (TAB ? (f * e + 3) / 4 * 4 : 0));  // [chunk][ts]
+    int* ct = st + chunk * ts;                                                // [chunk][s]
+    const int tid = threadIdx.x;
+    if constexpr (TAB) {
+        const int fe = f * e;
+        if ((reinterpret_cast<uintptr_t>(table) & 15) == 0) {
+            for (int q = tid; q < fe / 4; q += MWD_K1_NT)
+                reinterpret_cast<float4*>(tab)[q] = __ldg(reinterpret_cast<const float4*>(table) + q);
+            for (int q = fe / 4 * 4 + tid; q < fe; q += MWD_K1_NT) tab[q] = __ldg(table + q);
+        } else {
+            for (int q = tid; q < fe; q += MWD_K1_NT) tab[q] = __ldg(table + q);
+        }
     }
+    const int len = ts * s;
+    const float inv_s = 1.f / (float)s, inv_len = 1.f / (float)len;
+    const bool exact = (long long)chunk * len > MWD_K1_FLAT;
+    const int n0 = blockIdx.x * per_block, n1 = min(n, n0 + per_block);
+    for (int c0 = n0; c0 < n1; c0 += chunk) {
+        const int cu = min(chunk, n1 - c0);
+        const int* sr = src + (long long)c0 * ts;
+        const int* cr = conc + (long long)c0 * s;
+        if constexpr (STAGED) {
+            __syncthreads();  // the previous chunk's readers are done
+            for (int q = tid; q < cu * ts; q += MWD_K1_NT) st[q] = __ldg(sr + q);
+            for (int q = tid; q < cu * s; q += MWD_K1_NT) ct[q] = __ldg(cr + q);
+        }
+        __syncthreads();  // the ids (and, the first time, the table) are in
+        auto value = [&](int u, int t, int k) -> float {
+            const int ph = STAGED ? st[u * ts + t] : __ldg(sr + u * ts + t);
+            const int cj = STAGED ? ct[u * s + k] : __ldg(cr + u * s + k);
+            if (ph < 0 || ph >= f || cj < 0 || cj >= e) return NAN;
+            return TAB ? tab[ph * e + cj] : __ldg(table + (long long)ph * e + cj);
+        };
+        auto at = [&](int x, int& u, int& t, int& k) {
+            u = mwd_k1_div(x, len, inv_len, exact);
+            const int r = x - u * len;
+            t = mwd_k1_div(r, s, inv_s, exact);
+            k = r - t * s;
+        };
+        float* dst = out + (long long)c0 * len;
+        const int total = cu * len;
+        const int head = min(total, (int)((4 - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3));
+        const int nv = (total - head) / 4;
+        for (int x = tid; x < head; x += MWD_K1_NT) {
+            int u, t, k;
+            at(x, u, t, k);
+            dst[x] = value(u, t, k);
+        }
+        for (int v = tid; v < nv; v += MWD_K1_NT) {
+            const int x = head + 4 * v;
+            int u, t, k;
+            at(x, u, t, k);
+            float o[4];
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+                o[w] = value(u, t, k);
+                if (++k == s) {
+                    k = 0;
+                    if (++t == ts) {
+                        t = 0;
+                        ++u;
+                    }
+                }
+            }
+            *reinterpret_cast<float4*>(dst + x) = make_float4(o[0], o[1], o[2], o[3]);
+        }
+        for (int x = head + 4 * nv + tid; x < total; x += MWD_K1_NT) {
+            int u, t, k;
+            at(x, u, t, k);
+            dst[x] = value(u, t, k);
+        }
+    }
+}
+
+// The SMs and the blocks an SM (at most cap) of `kernel` with `nt` threads
+// and `smem` bytes of shared memory on the current device; queried once per
+// (device, kernel, smem) and kept.  The kernel's opt-in is set to the whole
+// 227 KB, so a launch of any size after a cached query finds it set.
+template <typename Kernel>
+static int mwd_occupancy(Kernel kernel, int nt, size_t smem, int cap, int* sms, int* per_sm) {
+    struct Entry {
+        int dev;
+        Kernel kernel;
+        size_t smem;
+        int sms, per_sm;
+    };
+    static std::mutex mu;
+    static Entry seen[16];
+    static int n_seen = 0;
+    int dev = 0, st = (int)cudaGetDevice(&dev);
+    if (st != 0) return st;
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < n_seen; ++i) {
+        const Entry& en = seen[i];
+        if (en.dev == dev && en.kernel == kernel && en.smem == smem) {
+            *sms = en.sms;
+            *per_sm = en.per_sm;
+            return 0;
+        }
+    }
+    if ((st = mwd_smem_optin(kernel, MWD_SMEM_OPTIN_MAX)) != 0) return st;
+    *sms = mwd_sms();
+    if ((st = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, nt, smem)) != 0)
+        return st;
+    if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    *per_sm = *per_sm < cap ? *per_sm : cap;
+    seen[n_seen < 16 ? n_seen++ : 15] = Entry{dev, kernel, smem, *sms, *per_sm};
+    return 0;
+}
+
+typedef void (*MwdK1Kernel)(const float*, const int*, const int*, float*, int, int, int, int, int,
+                            int, int);
+
+extern "C" int mwd_table_lookup(const float* table, const int* src, const int* conc,
+                                float* out, int n, int ts, int s, int f, int e,
+                                void* stream) {
+    if (n < 0 || ts < 0 || s < 0 || f < 0 || e < 0) return (int)cudaErrorInvalidValue;
+    if ((long long)n * ts * s == 0) return (int)cudaGetLastError();
+    if ((long long)ts * s >= (1LL << 31) || (long long)f * e >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    const long long len = (long long)ts * s;
+    const bool staged = ts + s <= MWD_K1_STAGE;
+    // a chunk: as many utterances as the staging area holds, its flat index
+    // below 2^31 (and below 2^24 where one utterance allows, for the
+    // reciprocal division)
+    long long chunk = staged ? MWD_K1_STAGE / (ts + s) : n;
+    const long long flat = len < MWD_K1_FLAT ? MWD_K1_FLAT : (1LL << 31) - 1;
+    if (chunk > flat / len) chunk = flat / len;
+    if (chunk < 1) chunk = 1;
+    // first a grid of up to MWD_K1_BPS blocks an SM without the table, to
+    // learn the SMs; the table goes to shared memory if it fits and the
+    // blocks' output is at least twice its size
+    int sms = 0, per_sm = 0;
+    const size_t ids = staged ? sizeof(int) * (size_t)chunk * (ts + s) : 0;
+    MwdK1Kernel kernel = staged ? &mwd_table_lookup_kernel<false, true>
+                                : &mwd_table_lookup_kernel<false, false>;
+    int st = mwd_occupancy(kernel, MWD_K1_NT, ids, MWD_K1_BPS, &sms, &per_sm);
+    if (st != 0) return st;
+    long long blocks = n < (long long)sms * per_sm ? n : (long long)sms * per_sm;
+    const size_t tab = sizeof(float) * (((size_t)f * e + 3) / 4 * 4);
+    size_t smem = ids;
+    if (tab + ids <= MWD_SMEM_OPTIN_MAX && (long long)f * e * 2 <= (n + blocks - 1) / blocks * len) {
+        MwdK1Kernel k_tab = staged ? &mwd_table_lookup_kernel<true, true>
+                                   : &mwd_table_lookup_kernel<true, false>;
+        if ((st = mwd_occupancy(k_tab, MWD_K1_NT, tab + ids, MWD_K1_BPS, &sms, &per_sm)) != 0)
+            return st;
+        kernel = k_tab;
+        smem = tab + ids;
+        blocks = n < (long long)sms * per_sm ? n : (long long)sms * per_sm;
+    }
+    const int per_block = (int)((n + blocks - 1) / blocks);
+    blocks = (n + per_block - 1) / per_block;
+    kernel<<<(unsigned)blocks, MWD_K1_NT, smem, (cudaStream_t)stream>>>(
+        table, src, conc, out, n, ts, s, f, e, per_block, (int)chunk);
+    return (int)cudaGetLastError();
 }
 
 // K7: expected (phone, concept) pair counts from the state posteriors,
@@ -140,59 +317,7 @@ __global__ void __launch_bounds__(MWD_K7_NT, MWD_K7_BPS) mwd_pair_counts_rows(
     }
 }
 
-static long long mwd_counts_blocks(long long total, int threads) {
-    const long long blocks = (total + threads - 1) / threads;
-    return blocks > 132LL * 32 ? 132LL * 32 : blocks;  // grid-stride beyond this
-}
-
-extern "C" int mwd_table_lookup(const float* table, const int* src, const int* conc,
-                                float* out, int n, int ts, int s, int f, int e,
-                                void* stream) {
-    const long long total = (long long)n * ts * s;
-    if (total == 0) return (int)cudaGetLastError();
-    const int threads = 256;
-    mwd_table_lookup_kernel<<<(unsigned)mwd_counts_blocks(total, threads), threads, 0,
-                              (cudaStream_t)stream>>>(table, src, conc, out, total, ts, s, f, e);
-    return (int)cudaGetLastError();
-}
-
 typedef void (*MwdK7Kernel)(const float*, MwdCnt, int, int, int, int, int);
-
-// The SMs and the blocks an SM (at most MWD_K7_BPS) of `kernel` with `smem`
-// bytes of shared memory on the current device, its shared-memory opt-in
-// set; queried once per (device, kernel, smem) and kept.
-static int mwd_k7_occupancy(MwdK7Kernel kernel, size_t smem, int* sms, int* per_sm) {
-    struct Entry {
-        int dev;
-        MwdK7Kernel kernel;
-        size_t smem;
-        int sms, per_sm;
-    };
-    static std::mutex mu;
-    static Entry seen[16];
-    static int n_seen = 0;
-    int dev = 0, st = (int)cudaGetDevice(&dev);
-    if (st != 0) return st;
-    std::lock_guard<std::mutex> lock(mu);
-    for (int i = 0; i < n_seen; ++i) {
-        const Entry& e = seen[i];
-        if (e.dev == dev && e.kernel == kernel && e.smem == smem) {
-            *sms = e.sms;
-            *per_sm = e.per_sm;
-            return 0;
-        }
-    }
-    if ((st = mwd_smem_optin(kernel, smem)) != 0) return st;
-    if ((st = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
-        return st;
-    if ((st = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, MWD_K7_NT,
-                                                                 smem)) != 0)
-        return st;
-    if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    *per_sm = *per_sm < MWD_K7_BPS ? *per_sm : MWD_K7_BPS;
-    seen[n_seen < 16 ? n_seen++ : 15] = Entry{dev, kernel, smem, *sms, *per_sm};
-    return 0;
-}
 
 extern "C" int mwd_pair_counts(const float* gamma, const int* src, const int* conc,
                                float* counts, int n, int ts, int s, int f, int e,
@@ -211,7 +336,7 @@ extern "C" int mwd_pair_counts(const float* gamma, const int* src, const int* co
     int sp = 1;
     while (sp < need && sp < 32) sp <<= 1;
     int sms = 0, per_sm = 0;
-    const int st = mwd_k7_occupancy(kernel, smem, &sms, &per_sm);
+    const int st = mwd_occupancy(kernel, MWD_K7_NT, smem, MWD_K7_BPS, &sms, &per_sm);
     if (st != 0) return st;
     // persistent: at most per_sm (<= 2) blocks an SM, and no block without
     // a pass of rows for each of its warps

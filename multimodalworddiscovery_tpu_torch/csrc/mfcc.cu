@@ -56,8 +56,23 @@
 //   lanes' loops are about even), the log with the floor, the DCT-II
 //   (its coefficients staged in shared memory);
 //   the run's features are staged and written as one contiguous, coalesced
-//   range of [M, n_out] rows, with no padded columns.
-// - Limits: n_fft <= 2048, win <= n_fft, n_mels <= 256.
+//   range of [M, n_out] rows, with no padded columns.  A run shrinks (fewer
+//   frames) where its layout would pass the block's 227 KB (many mels, or
+//   log-mel outputs).
+// - Above n_fft = 2048, or where even a run of one frame does not fit, a
+//   second kernel (mwd_mfcc_big) takes a frame a warp, a layout choice
+//   inside the same entry point, so only the card's memory bounds n_fft,
+//   win and n_mels: the tables are read through the cache, the frame's
+//   pre-emphasized, windowed samples straight from the signal, and each
+//   warp has a buffer of its own: a power of two keeps the real FFT, its
+//   Stockham stages in the same radix-8 / radix-4 plan but between two
+//   buffers (so a lane holds one butterfly at a time, whatever n_fft), any
+//   other n_fft a direct DFT with lanes over bins (2 win (n_fft / 2 + 1)
+//   FMAs a frame: slow, and correct).  As many warps a block as their
+//   buffers fit (8 down to 1); where one warp's buffer passes 227 KB (a
+//   power of two from n_fft = 32768) the buffers live in a workspace in
+//   device memory, one slice a warp of a persistent grid.
+// - win <= n_fft.
 
 #include <stdint.h>
 
@@ -67,8 +82,7 @@
 #define MWD_MFCC_NW (MWD_MFCC_NT / 32)
 #define MWD_MFCC_TF 60         // most frames of a block's run (3 blocks an SM)
 #define MWD_MFCC_SPAN 12288    // most samples of a run's span (48 KB)
-#define MWD_MFCC_MAX_NFFT 2048
-#define MWD_MFCC_MAX_MELS 256
+#define MWD_MFCC_RUN_NFFT 2048  // the largest n_fft of the run kernel (ops/mfcc.py RUN_N_FFT)
 #define MWD_MFCC_DFT_NB 8      // base bins a warp takes a pass in the direct DFT
 #define MWD_MFCC_DFT_PW 16384  // most floats of the direct DFT's power spectra
 #define MWD_MFCC_DCT_SM 4096   // most DCT coefficients staged in shared memory
@@ -85,7 +99,7 @@ struct MwdMfcc {
     const float* dct;     // [n_mels, n_out] DCT-II transposed, or null: log-mels
     float* out;           // [n_rows * frames_per_row, n_out]
     long long row_stride, sig_len;
-    int frames_per_row, frame_stride, runs, tf, win, n_fft, n_stw, n_fbw, n_pieces, n_mels;
+    int n_rows, frames_per_row, frame_stride, runs, tf, win, n_fft, n_stw, n_fbw, n_pieces, n_mels;
     int n_out, dct_sm, span_cap, bufsz;
     int dft, pad;  // the direct DFT (n_fft not a power of two), and its padded span
     float coef, log_floor;
@@ -557,6 +571,183 @@ __global__ void __launch_bounds__(MWD_MFCC_NT) mwd_mfcc_kernel(MwdMfcc a) {
     for (int i = tid; i < nf * a.n_out; i += MWD_MFCC_NT) dst[i] = out_sh[i];
 }
 
+// ---------------------------------------------------------------------------
+// A frame a warp (n_fft above MWD_MFCC_RUN_NFFT, or a run of one frame too
+// large for the block): the warp's buffer holds, for the FFT, two complex
+// buffers of N = n_fft / 2 points (padded as mwd_pad) between which the
+// Stockham stages go, then the power spectrum, the mel scratch and the
+// pieces' partial sums over the second; for the direct DFT the frame's
+// windowed samples, then those.
+struct MwdMfccBig {
+    int padn;   // complex entries of one FFT buffer
+    int pw;     // float offset of the power spectrum in the warp's buffer
+    int bufsz;  // floats a warp
+    int nw;     // warps a block
+    int ws;     // buffers in the workspace (else shared memory)
+    long long grid;
+};
+
+// One Stockham stage between the warp's buffers, radix R, sub-transform
+// size Ns = 2^lns, butterflies jb = lane, lane + 32, ..: as mwd_fft_stage,
+// one butterfly at a time; FIRST packs the windowed frame (y: the row's
+// samples from the frame's start, pre-emphasized on the fly).
+template <int R, bool FIRST>
+__device__ __forceinline__ void mwd_big_stage(float2* dst, const float2* src, const float2* stw,
+                                              int n, int lns, const MwdMfcc& a, long long g,
+                                              long long pos0) {
+    const int nb = n / R, ns = 1 << lns, lane = threadIdx.x & 31;
+    for (int jb = lane; jb < nb; jb += 32) {
+        float2 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int m = jb + r * nb;
+            if constexpr (FIRST) {
+                float y[2];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int t = 2 * m + h;
+                    y[h] = 0.f;
+                    if (t < a.win) {
+                        float x = __ldg(a.sig + g + t);
+                        if (pos0 + t > 0) x -= a.coef * __ldg(a.sig + g + t - 1);
+                        y[h] = x * __ldg(a.window + t);
+                    }
+                }
+                v[r] = make_float2(y[0], y[1]);
+            } else {
+                v[r] = src[mwd_pad(m)];
+            }
+        }
+        const int jm = jb & (ns - 1);
+        if constexpr (!FIRST) {
+#pragma unroll
+            for (int r = 1; r < R; ++r) v[r] = mwd_c_mul_conj(v[r], __ldg(stw + jm * (R - 1) + r - 1));
+        }
+        mwd_dft<R>(v);
+        const int d = (jb >> lns) * ns * R + jm;
+#pragma unroll
+        for (int r = 0; r < R; ++r) dst[mwd_pad(d + r * ns)] = v[r];
+    }
+    __syncwarp();
+}
+
+template <bool FFT, bool WS>
+__global__ void __launch_bounds__(MWD_MFCC_NT) mwd_mfcc_big(MwdMfcc a, MwdMfccBig b, float* ws) {
+    extern __shared__ float4 smem4[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float* buf = WS ? ws + ((long long)blockIdx.x * b.nw + warp) * b.bufsz
+                    : reinterpret_cast<float*>(smem4) + warp * b.bufsz;
+    const int n = a.n_fft, n_bins = n / 2 + 1;
+    float* pw = buf + b.pw;
+    float* lm = pw + mwd_round4(n_bins);
+    float* part = lm + a.n_mels;
+    const float inv = 1.f / (float)n;
+    const long long total = (long long)a.n_rows * a.frames_per_row;
+    for (long long m = (long long)blockIdx.x * b.nw + warp; m < total;
+         m += (long long)gridDim.x * b.nw) {
+        const long long r = m / a.frames_per_row;
+        const long long pos0 = (m - r * a.frames_per_row) * a.frame_stride;  // in the row
+        const long long g = r * a.row_stride + pos0;                         // in sig
+        if constexpr (FFT) {
+            // N = n / 2 complex points: radix-8 stages, then the one or two
+            // radix-4 stages log2 N = 3 a8 + 2 b4 leaves (MwdFftPlan's plan)
+            const int half = n / 2, logn = __ffs(half) - 1;
+            const int b4 = logn % 3 == 0 ? 0 : (logn % 3 == 2 ? 1 : 2), a8 = (logn - 2 * b4) / 3;
+            // the last stage writes z[0], so the power spectrum and the mel
+            // scratch go over z[1]
+            float2* z[2] = {reinterpret_cast<float2*>(buf),
+                            reinterpret_cast<float2*>(buf) + b.padn};
+            const int nst = a8 + b4;
+            int lns = 0, off = 0;
+            for (int st = 0; st < nst; ++st) {
+                float2* dst = z[(nst - 1 - st) & 1];
+                const float2* src = z[(nst - st) & 1];
+                const float2* stw = a.stw + off;
+                if (st == 0) {
+                    if (a8 > 0)
+                        mwd_big_stage<8, true>(dst, src, stw, half, 0, a, g, pos0);
+                    else
+                        mwd_big_stage<4, true>(dst, src, stw, half, 0, a, g, pos0);
+                } else if (st < a8) {
+                    mwd_big_stage<8, false>(dst, src, stw, half, lns, a, g, pos0);
+                } else {
+                    mwd_big_stage<4, false>(dst, src, stw, half, lns, a, g, pos0);
+                }
+                const int rad = st < a8 ? 8 : 4;
+                if (st > 0) off += (1 << lns) * (rad - 1);
+                lns += rad == 8 ? 3 : 2;
+            }
+            const float2* zf = z[0];
+            const float inv2 = 1.f / (float)n;
+            // the split, as mwd_power_fft: bins k and N - k from Z[k], Z[N - k]
+            for (int k = lane; k <= half / 2; k += 32) {
+                const float2 p0 = zf[mwd_pad(k)], q0 = zf[mwd_pad(k == 0 ? 0 : half - k)];
+                const float2 w0 = __ldg(reinterpret_cast<const float2*>(a.tw) + k);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float2 p = h ? q0 : p0, q = h ? p0 : q0;
+                    const float2 wk = h ? make_float2(-w0.x, w0.y) : w0;
+                    const float er = 0.5f * (p.x + q.x), ei = 0.5f * (p.y - q.y);
+                    const float dr = p.x - q.x, di = p.y + q.y;
+                    const float wr = fmaf(wk.x, dr, wk.y * di), wi = fmaf(wk.x, di, -wk.y * dr);
+                    const float xr = fmaf(0.5f, wi, er), xi = fmaf(-0.5f, wr, ei);
+                    pw[h ? half - k : k] = fmaf(xr, xr, xi * xi) * inv2;
+                }
+            }
+        } else {
+            // the windowed frame, then a bin a lane: (t k) mod n stepped
+            for (int t = lane; t < a.win; t += 32) {
+                float x = __ldg(a.sig + g + t);
+                if (pos0 + t > 0) x -= a.coef * __ldg(a.sig + g + t - 1);
+                buf[t] = x * __ldg(a.window + t);
+            }
+            __syncwarp();
+            for (int k = lane; k < n_bins; k += 32) {
+                float re = 0.f, im = 0.f;
+                int idx = 0;
+#pragma unroll 4
+                for (int t = 0; t < a.win; ++t) {
+                    const float2 w = __ldg(reinterpret_cast<const float2*>(a.tw) + idx);
+                    re = fmaf(buf[t], w.x, re);
+                    im = fmaf(buf[t], w.y, im);
+                    idx += k;
+                    idx = idx >= n ? idx - n : idx;
+                }
+                pw[k] = (re * re + im * im) * inv;
+            }
+        }
+        __syncwarp();
+        // mel sums over the filters' pieces, each mel's pieces, the log
+        const int* first = a.fb_plan + 4 * a.n_pieces;
+        for (int q = lane; q < a.n_pieces; q += 32) {
+            const int lo = __ldg(a.fb_plan + 4 * q + 1), hi = __ldg(a.fb_plan + 4 * q + 2);
+            const float* wq = a.fb_w + __ldg(a.fb_plan + 4 * q + 3) - lo;
+            float acc = 0.f;
+#pragma unroll 8
+            for (int k = lo; k < hi; ++k) acc = fmaf(__ldg(wq + k), pw[k], acc);
+            part[q] = acc;
+        }
+        __syncwarp();
+        for (int mm = lane; mm < a.n_mels; mm += 32) {
+            float acc = 0.f;
+            for (int q = __ldg(first + mm); q < __ldg(first + mm + 1); ++q) acc += part[q];
+            lm[mm] = logf(fmaxf(acc, a.log_floor));
+        }
+        __syncwarp();
+        float* dst = a.out + m * a.n_out;
+        for (int c = lane; c < a.n_out; c += 32) {
+            float v = lm[c];
+            if (a.dct != nullptr) {
+                v = 0.f;
+#pragma unroll 8
+                for (int i = 0; i < a.n_mels; ++i) v = fmaf(__ldg(a.dct + i * a.n_out + c), lm[i], v);
+            }
+            dst[c] = v;
+        }
+        __syncwarp();  // the buffer is free for the next frame
+    }
+}
+
 typedef void (*MwdMfccKernel)(MwdMfcc);
 
 static MwdMfccKernel mwd_mfcc_pick(int n_fft) {
@@ -572,21 +763,115 @@ static MwdMfccKernel mwd_mfcc_pick(int n_fft) {
     }
 }
 
+// The run kernel's plan for runs of at most tf_max frames: frames a run,
+// evened out over the row's runs (174 frames: 3 runs of 58), and the
+// buffers' sizes; its shared memory in bytes.
+static size_t mwd_mfcc_plan_runs(MwdMfcc& a, int tf_max) {
+    const bool fft = !a.dft;
+    const int n_bins = a.n_fft / 2 + 1;
+    int tf = tf_max;
+    a.runs = (a.frames_per_row + tf - 1) / tf;
+    tf = (a.frames_per_row + a.runs - 1) / a.runs;
+    a.tf = tf;
+    // the staged chunks cover [off, off + count) rounded out to 4 samples,
+    // plus a float of padding every frame_stride of them
+    const int count = (tf - 1) * a.frame_stride + a.win;
+    a.span_cap = mwd_round4(count + 8 + (a.pad ? (count + 8) / a.frame_stride + 1 : 0));
+    const int half = a.n_fft / 2;
+    const int z = fft ? 2 * (half + half / 8) : 0;
+    const int p = (fft ? n_bins : 0) + a.n_mels + a.n_pieces;
+    a.bufsz = mwd_round4(z > p ? z : p);
+    return (size_t)mwd_mfcc_layout(a).total * sizeof(float);
+}
+
+// The frame-a-warp kernel's plan: its buffers, warps a block (as many of
+// them as fit, at most 8; none fits: the workspace, 8 warps, a block an
+// SM).
+static MwdMfccBig mwd_mfcc_plan_big(const MwdMfcc& a, int sms) {
+    MwdMfccBig b;
+    const int n_bins = a.n_fft / 2 + 1, half = a.n_fft / 2;
+    const int scratch = mwd_round4(n_bins) + a.n_mels + a.n_pieces;
+    b.padn = a.dft ? 0 : half + half / 8;
+    b.pw = a.dft ? mwd_round4(a.win) : 2 * b.padn;  // the FFT: over the second buffer
+    b.bufsz = mwd_round4(b.pw + (a.dft || scratch > 2 * b.padn ? scratch : 2 * b.padn));
+    const long long fit = MWD_SMEM_OPTIN_MAX / ((long long)b.bufsz * sizeof(float));
+    b.ws = fit < 1;
+    b.nw = b.ws || fit > MWD_MFCC_NW ? MWD_MFCC_NW : (int)fit;
+    const long long frames = (long long)a.n_rows * a.frames_per_row;
+    b.grid = (frames + b.nw - 1) / b.nw;
+    const long long cap = (long long)sms * (b.ws ? 1 : 32);
+    b.grid = b.grid < cap ? b.grid : cap;
+    return b;
+}
+
+// Fill a from the entry point's arguments; the run kernel's plan where
+// n_fft <= MWD_MFCC_RUN_NFFT and some run fits the block, else big->ws set
+// by mwd_mfcc_plan_big (return: 1 for the frame-a-warp kernel).
+static int mwd_mfcc_plan(MwdMfcc& a, MwdMfccBig& big, size_t& smem, int win, int n_fft,
+                         int n_stw, int n_fbw, int n_pieces, int n_mels, int n_out, int do_dct) {
+    const bool fft = n_fft >= 32 && (n_fft & (n_fft - 1)) == 0;
+    a.win = win;
+    a.n_fft = n_fft;
+    a.n_stw = fft ? n_stw : 0;
+    a.n_fbw = n_fbw;
+    a.n_pieces = n_pieces;
+    a.n_mels = n_mels;
+    a.n_out = n_out;
+    a.dct_sm = do_dct && n_mels * n_out <= MWD_MFCC_DCT_SM;
+    // the direct DFT pads its span where the stride is even, so the frames'
+    // stride in shared memory is odd
+    a.dft = !fft;
+    a.pad = !fft && a.frame_stride % 2 == 0;
+    if (n_fft <= MWD_MFCC_RUN_NFFT) {
+        // frames a run: within the span's budget (and the direct DFT's power
+        // spectra's), then fewer while the layout passes the block's limit
+        const int n_bins = n_fft / 2 + 1;
+        int tf = (MWD_MFCC_SPAN - win) / a.frame_stride + 1;
+        if (!fft && tf > MWD_MFCC_DFT_PW / n_bins) tf = MWD_MFCC_DFT_PW / n_bins;
+        tf = tf < 1 ? 1 : (tf > MWD_MFCC_TF ? MWD_MFCC_TF : tf);
+        for (;; tf = tf / 2) {
+            smem = mwd_mfcc_plan_runs(a, tf);
+            if (smem <= MWD_SMEM_OPTIN_MAX) return 0;
+            if (tf == 1) break;
+        }
+    }
+    big = mwd_mfcc_plan_big(a, mwd_sms());
+    smem = big.ws ? 0 : (size_t)big.nw * big.bufsz * sizeof(float);
+    return 1;
+}
+
+// Floats of the workspace mwd_mfcc needs (0: none).
+extern "C" long long mwd_mfcc_work(int n_rows, int frames_per_row, int frame_stride, int win,
+                                   int n_fft, int n_stw, int n_fbw, int n_pieces, int n_mels,
+                                   int n_out, int do_dct) {
+    MwdMfcc a;
+    a.n_rows = n_rows;
+    a.frames_per_row = frames_per_row;
+    a.frame_stride = frame_stride < 1 ? 1 : frame_stride;
+    MwdMfccBig big;
+    size_t smem = 0;
+    if ((long long)n_rows * frames_per_row == 0 || n_fft < 1 || win < 1 ||
+        !mwd_mfcc_plan(a, big, smem, win, n_fft, n_stw, n_fbw, n_pieces, n_mels, n_out, do_dct) ||
+        !big.ws)
+        return 0;
+    return big.grid * big.nw * (long long)big.bufsz;
+}
+
 // Frame m = (row r, index j) starts at sig + r * row_stride + j *
 // frame_stride; sig_len samples are readable from sig.  coef is the
 // pre-emphasis (0: off).  n_stw: the FFT stages' twiddles (ignored by the
 // direct DFT).  fb_plan: the filters' pieces and each mel's first piece (ops/mfcc.py
-// mel_pieces).  dct is [n_mels, n_out], used when do_dct.
+// mel_pieces).  dct is [n_mels, n_out], used when do_dct.  ws:
+// mwd_mfcc_work floats (may be null where that is 0).
 extern "C" int mwd_mfcc(const float* sig, const float* tw, const float* stw, const float* window,
                         const float* fb_w, const int* fb_plan, const float* dct, float* out,
-                        int n_rows, int frames_per_row, long long row_stride, int frame_stride,
-                        long long sig_len, int win, int n_fft, int n_stw, int n_fbw,
-                        int n_pieces, int n_mels, int n_out, int do_dct, float coef,
+                        float* ws, int n_rows, int frames_per_row, long long row_stride,
+                        int frame_stride, long long sig_len, int win, int n_fft, int n_stw,
+                        int n_fbw, int n_pieces, int n_mels, int n_out, int do_dct, float coef,
                         float log_floor, void* stream) {
-    if (n_fft < 1 || n_fft > MWD_MFCC_MAX_NFFT || win < 1 || win > n_fft || n_mels < 1
-        || n_mels > MWD_MFCC_MAX_MELS || n_out < 1 || n_out > n_mels || n_rows < 0
-        || frames_per_row < 0 || row_stride < 0 || frame_stride < 1 || n_stw < 0 || n_fbw < 0
-        || n_pieces < 0)
+    if (n_fft < 1 || win < 1 || win > n_fft || n_mels < 1 || n_out < 1 || n_out > n_mels
+        || n_rows < 0 || frames_per_row < 0 || row_stride < 0 || frame_stride < 1 || n_stw < 0
+        || n_fbw < 0 || n_pieces < 0)
         return (int)cudaErrorInvalidValue;
     if ((long long)n_rows * frames_per_row == 0) return (int)cudaGetLastError();
     MwdMfcc a;
@@ -600,49 +885,31 @@ extern "C" int mwd_mfcc(const float* sig, const float* tw, const float* stw, con
     a.out = out;
     a.row_stride = row_stride;
     a.sig_len = sig_len;
+    a.n_rows = n_rows;
     a.frames_per_row = frames_per_row;
     a.frame_stride = frame_stride;
-    const bool fft = n_fft >= 32 && (n_fft & (n_fft - 1)) == 0;
-    if (fft && n_stw < 1) return (int)cudaErrorInvalidValue;
-    const int n_bins = n_fft / 2 + 1;
-    // frames a run: within the span's budget (and the direct DFT's power
-    // spectra's), then evened out over the row's runs (174 frames: 3 runs
-    // of 58)
-    int tf = (MWD_MFCC_SPAN - win) / frame_stride + 1;
-    if (!fft && tf > MWD_MFCC_DFT_PW / n_bins) tf = MWD_MFCC_DFT_PW / n_bins;
-    tf = tf < 1 ? 1 : (tf > MWD_MFCC_TF ? MWD_MFCC_TF : tf);
-    a.runs = (frames_per_row + tf - 1) / tf;
-    tf = (frames_per_row + a.runs - 1) / a.runs;
-    a.tf = tf;
-    a.win = win;
-    a.n_fft = n_fft;
-    a.n_stw = fft ? n_stw : 0;
-    a.n_fbw = n_fbw;
-    a.n_pieces = n_pieces;
-    a.n_mels = n_mels;
-    a.n_out = n_out;
-    a.dct_sm = do_dct && n_mels * n_out <= MWD_MFCC_DCT_SM;
-    // the direct DFT pads its span where the stride is even, so the frames'
-    // stride in shared memory is odd
-    a.dft = !fft;
-    a.pad = !fft && frame_stride % 2 == 0;
-    // the staged chunks cover [off, off + count) rounded out to 4 samples,
-    // plus a float of padding every frame_stride of them
-    const int count = (tf - 1) * frame_stride + win;
-    a.span_cap = mwd_round4(count + 8 + (a.pad ? (count + 8) / frame_stride + 1 : 0));
-    const int half = n_fft / 2;
-    const int z = fft ? 2 * (half + half / 8) : 0;
-    const int p = (fft ? n_bins : 0) + n_mels + n_pieces;
-    a.bufsz = mwd_round4(z > p ? z : p);
     a.coef = coef;
     a.log_floor = log_floor;
+    const bool fft = n_fft >= 32 && (n_fft & (n_fft - 1)) == 0;
+    if (fft && n_stw < 1) return (int)cudaErrorInvalidValue;
+    MwdMfccBig big;
+    size_t smem = 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (mwd_mfcc_plan(a, big, smem, win, n_fft, n_stw, n_fbw, n_pieces, n_mels, n_out, do_dct)) {
+        if (big.ws && ws == nullptr) return (int)cudaErrorInvalidValue;
+        void (*kernel)(MwdMfcc, MwdMfccBig, float*) =
+            fft ? (big.ws ? &mwd_mfcc_big<true, true> : &mwd_mfcc_big<true, false>)
+                : (big.ws ? &mwd_mfcc_big<false, true> : &mwd_mfcc_big<false, false>);
+        const int st = mwd_smem_optin(kernel, smem);
+        if (st != 0) return st;
+        kernel<<<(unsigned)big.grid, 32 * big.nw, smem, s>>>(a, big, ws);
+        return (int)cudaGetLastError();
+    }
     const long long blocks = (long long)n_rows * a.runs;
     if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)mwd_mfcc_layout(a).total * sizeof(float);
-    if (smem > MWD_SMEM_OPTIN_MAX) return (int)cudaErrorInvalidValue;
     const MwdMfccKernel kernel = mwd_mfcc_pick(n_fft);
     const int st = mwd_smem_optin(kernel, smem);
     if (st != 0) return st;
-    kernel<<<(unsigned)blocks, MWD_MFCC_NT, smem, (cudaStream_t)stream>>>(a);
+    kernel<<<(unsigned)blocks, MWD_MFCC_NT, smem, s>>>(a);
     return (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "mwd_table_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mwd_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mwd_log_matmul": [_P] * 3 + [_I] * 5 + [_L] * 4 + [_I, _P],
+    "mwd_log_matmul": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_I, ctypes.c_float, _P],
+    "mwd_log_matmul_work": [_I] * 6,
     "mwd_estep_counts_work": [_I] * 3,
     "mwd_estep_counts": [_P] * 12 + [_I] * 6 + [_P],
     "mwd_estep_work": [_I] * 4,
@@ -47,10 +48,12 @@ SIGNATURES = {
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],
     "mwd_viterbi_work": [_I] * 3,
     "mwd_viterbi_bp_in_smem": [_I, _I],
-    "mwd_mfcc": [_P] * 8 + [_I, _I, _L, _I, _L] + [_I] * 8 + [ctypes.c_float] * 2 + [_P],
+    "mwd_mfcc": [_P] * 9 + [_I, _I, _L, _I, _L] + [_I] * 8 + [ctypes.c_float] * 2 + [_P],
+    "mwd_mfcc_work": [_I] * 11,
 }
 RESTYPES = {"mwd_error_string": ctypes.c_char_p, "mwd_estep_work": _L,
-            "mwd_estep_counts_work": _L, "mwd_viterbi_work": _L}
+            "mwd_estep_counts_work": _L, "mwd_viterbi_work": _L, "mwd_log_matmul_work": _L,
+            "mwd_mfcc_work": _L}
 
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None

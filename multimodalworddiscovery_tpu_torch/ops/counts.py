@@ -4,9 +4,12 @@ versions.  CUDA source of both: ``csrc/counts.cu``.
 K1: emit[n, t, k] = table[src[n, t], concepts[n, k]]  ->  [N, Ts, S] float32.
 Replaces ``multimodalworddiscovery_tpu/ops/counts_pallas.py:
 table_lookup_pallas`` (body ``_lookup_kernel``).  On the H100 the lookup is a
-gather bound by memory (it writes N*Ts*S floats; the table stays in cache),
-so the kernel is one thread per output element with coalesced stores.  The
-output is utterance-major and unpadded, so the TPU kernel's padded-state rows
+gather bound by the bytes it writes, so the kernel is a persistent grid of a
+few blocks an SM, each over a contiguous range of utterances: a chunk's src
+and concept rows staged in shared memory, its contiguous output written with
+16-byte stores, 32-bit index math inside the chunk, and the table in shared
+memory where it fits (else read through the cache).  The output is
+utterance-major and unpadded, so the TPU kernel's padded-state rows
 (``k_real``) and NULL-row shortcut have no counterpart: NULL states already
 carry concept 0 in ``hmm_core.state_concepts``.
 

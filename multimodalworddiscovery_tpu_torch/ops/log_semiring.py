@@ -8,16 +8,20 @@ kernel is rank-2 and vmapped; this one is batched: ``[..., I, K] x [..., K,
 J] -> [..., I, J]``, leading dimensions broadcast, and a rank-2 call is a
 batch of one.
 
-``dot_dtype="float32"`` is exact in the sense of the broadcast oracle
-(``core/logsemiring.log_matmul``): the kernel keeps a running maximum per
-output element, one exp per term, so no term underflows against a tile
-maximum (the trap of the reference's factored form, on rows that span more
-than ~87 nats).  ``dot_dtype="bfloat16"`` is the reference's
-factored form: per K tile of ``BLOCK_K`` the row and column maxima, exp(A -
-m_a) and exp(B - m_b) rounded to bf16, their product summed in float32, and
-the running combine; ``log_matmul_plain(..., "bfloat16")`` is the same
-arithmetic in torch.  What bounds the kernel on the H100 is the exp rate of
-the special-function units (see the CUDA source's header).
+``dot_dtype="float32"`` gives what the broadcast oracle
+(``core/logsemiring.log_matmul``) gives, on every input.  The kernel takes
+the factored form, exp(A - M) @ exp(B - N) with each row's maximum M and
+each column's N over all of K (2 I J K fp32 FMAs, (I + J) K exps), and an
+underflow guard: an element whose sum falls below ``guard_threshold(K)``,
+where the terms the form flushed to 0 could matter, is summed again term by
+term (the trap of the factored form, on rows that span more than ~87 nats).
+The elements that took the guard are counted on the card
+(``guard_counts``).  ``dot_dtype="bfloat16"`` is the reference's factored
+form: per K tile of ``BLOCK_K`` the row and column maxima, exp(A - m_a) and
+exp(B - m_b) rounded to bf16, their product summed in float32 (on the
+tensor cores), and the running combine; ``log_matmul_plain(...,
+"bfloat16")`` is the same arithmetic in torch.  What bounds each variant on
+the H100 is in the CUDA source's header.
 
 The kernel takes two strided batch dimensions over row-major matrices, so
 the wrapper hands it views whose leading dimensions merge into at most two
@@ -34,8 +38,42 @@ from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.core.logsemiring import log_matmul as log_matmul_f32
 from multimodalworddiscovery_tpu_torch.ops import _build
 
-BLOCK_K = 32  # csrc/log_semiring.cu MWD_LM_TK: the K tile of the bf16 variant's maxima
+BLOCK_K = 128  # csrc/log_semiring.cu MWD_LM_TK: the K tile of the bf16 variant's maxima
 DOT_DTYPES = ("float32", "bfloat16")
+
+
+def guard_threshold(nk: int) -> float:
+    """The float32 kernel's guard: below this sum (in units of exp(M_i +
+    N_j)) an element is summed again term by term.  Each of the K terms the
+    factored form flushes, and each rounding of its K FMAs, loses less than
+    2^-126, so above K 2^-101 what was lost is under 2^-24 of the sum."""
+    return float(max(nk, 1)) * 2.0**-101
+
+
+_guarded: dict[torch.device, torch.Tensor] = {}
+
+
+def _guard_counter(device) -> torch.Tensor:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _guarded:
+        _guarded[device] = torch.zeros((2,), dtype=torch.int64, device=device)
+    return _guarded[device]
+
+
+def guard_counts(device) -> tuple[int, int]:
+    """Output elements that took the float32 kernel's guard on ``device``
+    since the last ``reset_guard``, and of them those summed again term by
+    term (their row and column have a live k in common; the rest, a banded
+    product's zero-support elements, leave at once as NEG_INF).  Reads the
+    card's counters."""
+    took, summed = _guard_counter(device).tolist()
+    return took, summed
+
+
+def reset_guard(device) -> None:
+    _guard_counter(device).zero_()
 
 
 def _is_bf16(dot_dtype: str) -> bool:
@@ -147,18 +185,23 @@ def log_matmul(a: torch.Tensor, b: torch.Tensor, dot_dtype: str = "float32") -> 
     if out.numel() == 0:
         return out
     lib = _build.load()
+    n_work = int(lib.mwd_log_matmul_work(nb1, nb2, ni, nk, nj, int(bf16)))
+    work = torch.empty((n_work,), dtype=torch.float32, device=dev) if n_work else None
     with torch.cuda.device(dev):
         status = lib.mwd_log_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), nb1, nb2, ni, nk, nj,
-            sa1, sa2, sb1, sb2, int(bf16), torch.cuda.current_stream(dev).cuda_stream,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr() if n_work else None,
+            _guard_counter(dev).data_ptr(), nb1, nb2, ni, nk, nj, sa1, sa2, sb1, sb2,
+            int(bf16), guard_threshold(nk), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "mwd_log_matmul")
     if bf16:
         log_matmul.launches_bf16 += 1
     else:
         log_matmul.launches += 1
+        log_matmul.elements += out.numel()
     return out
 
 
 log_matmul.launches = 0
 log_matmul.launches_bf16 = 0
+log_matmul.elements = 0  # output elements of the float32 launches (the guard's share)

@@ -12,10 +12,14 @@ frames' samples once and pre-emphasizes them as they land (``extract``
 hands the kernel the raw waveform, with the hop as the frame stride, so
 neither the pre-emphasized waveform nor the overlapping frame tensor
 reaches device memory), and a warp computes a frame's spectrum by a real
-FFT in fp32 (n_fft a power of two from 32 to 2048: a complex Stockham FFT
-of n_fft / 2 points in radix-8 and radix-4 stages, then the split), or by
-a direct DFT for any other n_fft up to 2048.  The frames' work in shared memory, not the bytes, sets
-its pace in practice (see the CUDA source's header).
+FFT in fp32 (n_fft a power of two from 32: a complex Stockham FFT of n_fft /
+2 points in radix-8 and radix-4 stages, then the split), or by a direct DFT
+for any other n_fft.  The frames' work in shared memory, not the bytes, sets
+its pace in practice (see the CUDA source's header).  Above n_fft = 2048
+(``RUN_N_FFT``), or where a block's run of frames would not fit in shared
+memory (many mels), a second kernel takes a frame a warp, its buffers in
+shared memory or, past 227 KB a warp, in a workspace in device memory; so
+any n_fft >= win_length and any n_mels are taken, as by the reference.
 
 The plain versions are ``frontend/speech.features_from_frames`` and
 ``frontend/speech.extract`` (``torch.fft.rfft``).  A wrapper takes them for
@@ -33,9 +37,8 @@ from multimodalworddiscovery_tpu_torch.frontend import speech
 from multimodalworddiscovery_tpu_torch.frontend.speech import MfccConfig
 from multimodalworddiscovery_tpu_torch.ops import _build
 
-MAX_N_FFT = 2048  # csrc/mfcc.cu MWD_MFCC_MAX_NFFT
+RUN_N_FFT = 2048  # csrc/mfcc.cu MWD_MFCC_RUN_NFFT: above it, a frame a warp
 MIN_FFT = 32      # the smallest n_fft the FFT branch takes (16 complex points)
-MAX_MELS = 256    # csrc/mfcc.cu MWD_MFCC_MAX_MELS
 
 mfcc_from_frames_plain = speech.features_from_frames
 extract_plain = speech.extract
@@ -44,12 +47,12 @@ extract_plain = speech.extract
 def _check_config(cfg: MfccConfig, kind: str) -> None:
     speech._check_kind(kind)
     n = cfg.n_fft
-    if not 1 <= n <= MAX_N_FFT:
-        raise ValueError(f"the MFCC kernel takes n_fft <= {MAX_N_FFT}, got {n}")
+    if n < 1:
+        raise ValueError(f"n_fft must be >= 1, got {n}")
     if not 1 <= cfg.win_length <= n:
         raise ValueError(f"win_length must lie in [1, n_fft={n}], got {cfg.win_length}")
-    if not 1 <= cfg.n_mfcc <= cfg.n_mels <= MAX_MELS:
-        raise ValueError(f"the MFCC kernel takes 1 <= n_mfcc <= n_mels <= {MAX_MELS}, got "
+    if not 1 <= cfg.n_mfcc <= cfg.n_mels:
+        raise ValueError(f"the MFCC kernel takes 1 <= n_mfcc <= n_mels, got "
                          f"n_mfcc={cfg.n_mfcc}, n_mels={cfg.n_mels}")
     if cfg.hop_length < 1:
         raise ValueError(f"hop_length must be >= 1, got {cfg.hop_length}")
@@ -57,7 +60,7 @@ def _check_config(cfg: MfccConfig, kind: str) -> None:
 
 def uses_fft(n_fft: int) -> bool:
     """Whether the kernel takes the FFT branch (else the direct DFT)."""
-    return MIN_FFT <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
+    return MIN_FFT <= n_fft and n_fft & (n_fft - 1) == 0
 
 
 def fft_radices(n_fft: int) -> list[int]:
@@ -156,12 +159,20 @@ def _launch(sig: torch.Tensor, n_rows: int, frames_per_row: int, row_stride: int
     tw, stw, window, fb_w, fb_plan, dct = _tables(cfg, dev)
     n_stw = stw.shape[0] if uses_fft(cfg.n_fft) else 0
     n_pieces = (fb_plan.numel() - cfg.n_mels - 1) // 4
+    lib = _build.load()
+    do_dct = int(kind == "mfcc")
     with torch.cuda.device(dev):
-        status = _build.load().mwd_mfcc(
+        # the frame-a-warp kernel's buffers where one passes shared memory
+        work = torch.empty((int(lib.mwd_mfcc_work(
+            n_rows, frames_per_row, frame_stride, cfg.win_length, cfg.n_fft, n_stw,
+            fb_w.numel(), n_pieces, cfg.n_mels, n_out, do_dct)),),
+            dtype=torch.float32, device=dev)
+        status = lib.mwd_mfcc(
             sig.data_ptr(), tw.data_ptr(), stw.data_ptr(), window.data_ptr(), fb_w.data_ptr(),
-            fb_plan.data_ptr(), dct.data_ptr(), out.data_ptr(), n_rows, frames_per_row,
+            fb_plan.data_ptr(), dct.data_ptr(), out.data_ptr(),
+            work.data_ptr() if work.numel() else None, n_rows, frames_per_row,
             row_stride, frame_stride, sig.numel(), cfg.win_length, cfg.n_fft, n_stw,
-            fb_w.numel(), n_pieces, cfg.n_mels, n_out, int(kind == "mfcc"), coef,
+            fb_w.numel(), n_pieces, cfg.n_mels, n_out, do_dct, coef,
             cfg.log_floor,
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -1,8 +1,10 @@
-"""Time one source tree's K5 / K7 benchmarks and path 8's EM, on the card.
+"""Time one source tree's K1 / K5 / K7 / K8 benchmarks, path 8's EM and path
+9's associative forward, on the card.
 
 To compare two trees in one call, unpack the parent with ``git archive``
-under ``build/parent`` (copy this tree's ``scripts/bench_kernels.py`` in if
-the parent's lacks the ``mfcc`` entry) and run the trees in turns:
+under ``build/parent`` (copy this tree's ``scripts/bench_kernels.py`` in
+where the parent's lacks an entry: K1's device times and shapes, K8's
+path-9 shapes, K5's larger configurations) and run the trees in turns:
 
     for t in build/parent . . build/parent; do
         python multimodalworddiscovery_tpu_torch/scripts/ab_tree.py "$(realpath $t)"
@@ -10,9 +12,12 @@ the parent's lacks the ``mfcc`` entry) and run the trees in turns:
 
 For the tree at ROOT it prints one JSON line for path 8 (chip_smoke.py's
 dense-caption corpus: ms per EM iteration over 3 runs of 10 iterations by
-CUDA events, and K7's device time per iteration from torch.profiler), then
-runs that tree's ``scripts/bench_kernels.py --only mfcc counts`` (JSON lines
-on stdout, records under ROOT/build/bench/).
+CUDA events, and K7's device time per iteration from torch.profiler), one
+for path 9 (``forward_associative`` at bench_assoc's S64 and S128 shapes,
+parameters after 10 EM iterations as in chip_smoke.py: ms per call over 3
+calls by CUDA events), then runs that tree's ``scripts/bench_kernels.py
+--only mfcc counts log_matmul`` (JSON lines on stdout, records under
+ROOT/build/bench/).
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ def main(argv: list[str]) -> None:
 
     import multimodalworddiscovery_tpu_torch as pkg
     from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
-    from multimodalworddiscovery_tpu_torch.models import hmm
-    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
+    from multimodalworddiscovery_tpu_torch.scripts import bench_assoc, bench_kernels
 
     if not pkg.__file__.startswith(root + os.sep):
         raise SystemExit(f"imported {pkg.__file__}, not the tree at {root}")
@@ -63,7 +68,19 @@ def main(argv: list[str]) -> None:
              if e.device_type == torch.autograd.DeviceType.CUDA and "mwd_pair_counts" in e.key)
     print(json.dumps({"tree": root, "card": bench_kernels.card(), "path8_ms_per_iter": runs,
                       "path8_k7_device_ms_per_iter": k7 / 1e3 / RUNS}))
-    bench_kernels.main(["--only", "mfcc", "counts", "--reps", reps])
+    del corpus, p0
+    assoc = {}
+    for label, gen in bench_assoc.SHAPES:
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        params = hmm.train(hmm.init(corpus), corpus, ITERS)[0]
+        log_init, log_trans, log_emit = hmm._machinery(params, corpus)
+        args = (log_init, log_trans, log_emit, corpus.src_len)
+        assoc[label] = bench_kernels.gpu_ms(lambda: hmm_core.forward_associative(*args), RUNS)
+        del corpus, params, args
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": root, "card": bench_kernels.card(),
+                      "path9_forward_associative_ms": assoc}))
+    bench_kernels.main(["--only", "mfcc", "counts", "log_matmul", "--reps", reps])
 
 
 if __name__ == "__main__":

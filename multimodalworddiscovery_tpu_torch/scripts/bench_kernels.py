@@ -5,12 +5,17 @@ the port has: ``mfcc`` (K5's ``extract`` against its plain version, with
 ``torch.fft.rfft`` of the windowed frames timed beside them as a yardstick
 of the spectrum alone, on the reference's batch of 64 x 48,000 samples at
 the default config and on the waveform pipeline's N=2000 batch, each at
-n_fft 512, 400 and 1024), ``counts`` (K1 lookup and K7 pair counts against
-their plain versions and the library scatter, at the headline shape
-N=8000, Ts=31, S=12 and at the dense-caption shape N=512, Ts=181, S=128,
-gamma from K4) and ``log_matmul`` (K8 and K8-bf16 at square sizes 512,
+n_fft 512, 400, 401, 1024 and 4096, and 300 mels at n_fft 512), ``counts``
+(K1 lookup and K7 pair counts against their plain versions and the library
+scatter, at the headline shape N=8000, Ts=31, S=12 and at the dense-caption
+shape N=512, Ts=181, S=128, gamma from K4; K1 also at the VQ teacher's
+shape N=4004, Ts=401, S=64 on random ids, each K1 row with its device time
+from torch.profiler, since back-to-back calls of so short a kernel are
+paced by the host) and ``log_matmul`` (K8 and K8-bf16 at square sizes 512,
 1024 and 2048 from 5 * normal, the broadcast library form at <= 1024, as
-the reference).  The reference's other entries (em, hmm_estep, viterbi,
+the reference; then K8 on the first combine of ``scripts/bench_assoc.py``'s
+S64 and S128 step matrices, parameters after 10 EM iterations, with the
+share of elements its guard took where the tree counts them).  The reference's other entries (em, hmm_estep, viterbi,
 models, model1_align, detector, retrieval) wait for their modules
 (ROADMAP queue 1).
 
@@ -51,8 +56,12 @@ COUNTS_SHAPES = {
 }
 MFCC_REFERENCE_BATCH = (64, 48000)  # scripts/bench_kernels.py:37-39
 MFCC_PIPELINE_N = 2000  # configs/pipeline_full.py:19
-# the default, the direct-DFT branch (even, and odd), a 64 ms window
-MFCC_N_FFT = (512, 400, 401, 1024)
+# (n_fft, n_mels): the default, the direct-DFT branch (even, and odd), a 64
+# ms window, a 256 ms window (a frame a warp), and 300 mels
+MFCC_CASES = ((512, None), (400, None), (401, None), (1024, None), (4096, None), (512, 300))
+# the VQ teacher's code corpus as K1 meets it (chip_smoke.py's stretch
+# recipe: N=4000 + 4 empty, Ts=401, S=64, 64 codes x 201 concepts)
+K1_TEACHER = dict(n=4004, ts=401, s=64, f=64, e=201)
 # one NVIDIA H100 SXM at its full 700 W (data sheet, dense rates): device
 # memory rate, the float32 rate outside the tensor cores, and the bf16
 # tensor-core rate (also chip_smoke.py's and bench_estep.py's)
@@ -111,6 +120,26 @@ class Recorder:
         return rec
 
 
+def device_ms(fn, reps: int, key: str, per: str | None = None) -> float:
+    """Device time per call of ``fn`` in the kernels whose name holds
+    ``key``, from torch.profiler over ``reps`` calls after a warm-up: their
+    total over the count of kernels named by ``per`` (default ``key``: one
+    kernel a call), so the profiler's dropping of a window's first kernels
+    does not bias the mean."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = sum(e.count for e in events if (per or key) in e.key)
+    total = sum(e.self_device_time_total for e in events if key in e.key)
+    return total / 1e3 / calls if calls else float("nan")
+
+
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> dict:
     """The least time one H100 could take: bytes over its memory rate or
     operations (float32 ``ops`` over the float32 rate plus ``bf16_ops``,
@@ -141,7 +170,7 @@ def bench_mfcc(record: Recorder, reps: int, dev: torch.device) -> None:
     """K5's ``extract`` against its plain version on the reference's batch
     (64 x 48,000 samples of 0.1 * normal, the default config) and on the
     waveform pipeline's (N=2000 synthesized waveforms, its config), at
-    each n_fft of MFCC_N_FFT; ``torch.fft.rfft`` of the pre-emphasized,
+    each (n_fft, n_mels) of MFCC_CASES; ``torch.fft.rfft`` of the pre-emphasized,
     windowed frames beside them (the spectrum only, timed as a yardstick).
     A config the kernel refuses is recorded as refused."""
     from multimodalworddiscovery_tpu_torch.frontend import speech
@@ -159,8 +188,8 @@ def bench_mfcc(record: Recorder, reps: int, dev: torch.device) -> None:
                      rp.MFCC),
     }
     for batch, (wav, wav_len, base) in batches.items():
-        for n_fft in MFCC_N_FFT:
-            cfg = dataclasses.replace(base, n_fft=n_fft)
+        for n_fft, n_mels in MFCC_CASES:
+            cfg = dataclasses.replace(base, n_fft=n_fft, n_mels=n_mels or base.n_mels)
             feats, fl = k5.extract_plain(wav, wav_len, cfg)
             frames = speech.frame_signal(speech.preemphasize(wav, cfg.preemphasis), cfg)
             window = torch.as_tensor(speech.hann_window(cfg.win_length), device=dev)
@@ -178,6 +207,7 @@ def bench_mfcc(record: Recorder, reps: int, dev: torch.device) -> None:
                 got = k5.extract(wav, wav_len, cfg)[0]
             except ValueError as e:
                 record(**rec, ms=None, refused=str(e))
+                del feats, frames, windowed
                 continue
             valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
             rec["max_abs_err_vs_plain"] = float((got - feats)[valid].abs().max())
@@ -211,11 +241,10 @@ def bench_counts(record: Recorder, reps: int, dev: torch.device) -> None:
                                                     e)).abs().max())
         k7_bound = bound(4 * (gamma.numel() + corpus.src.numel() + concepts.numel()
                               + counts.numel()), float(gamma.numel()))
+        lookup_args = (params.log_emit, corpus.src, concepts)
         for name, fn in (
-            ("table_lookup_plain", lambda: k17.table_lookup_plain(params.log_emit, corpus.src,
-                                                                  concepts)),
-            ("table_lookup_kernel", lambda: k17.table_lookup(params.log_emit, corpus.src,
-                                                             concepts)),
+            ("table_lookup_plain", lambda: k17.table_lookup_plain(*lookup_args)),
+            ("table_lookup_kernel", lambda: k17.table_lookup(*lookup_args)),
             ("pair_counts_plain", lambda: k17.pair_counts_plain(gamma, corpus.src, concepts,
                                                                 f, e)),
             ("pair_counts_kernel", lambda: k17.pair_counts(gamma, corpus.src, concepts, f, e)),
@@ -226,16 +255,49 @@ def bench_counts(record: Recorder, reps: int, dev: torch.device) -> None:
             if name == "pair_counts_kernel":
                 rec |= dict(max_abs_err_vs_plain=err, largest_count=float(counts.max()),
                             nonzero=int((gamma != 0).sum()), **k7_bound)
+            if name == "table_lookup_kernel":
+                rec |= bench_lookup(*lookup_args, reps)
             record(**rec)
         del corpus, emit, gamma, flat, weights
         torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    t = K1_TEACHER
+    table = torch.as_tensor(rng.normal(size=(t["f"], t["e"])).astype(np.float32), device=dev)
+    src = torch.as_tensor(rng.integers(0, t["f"], (t["n"], t["ts"])), dtype=torch.int32,
+                          device=dev)
+    conc = torch.as_tensor(rng.integers(0, t["e"], (t["n"], t["s"])), dtype=torch.int32,
+                           device=dev)
+    record(kernel="table_lookup_kernel", shape="S64_teacher", N=t["n"], T=t["ts"], S=t["s"],
+           F=t["f"], E=t["e"], ms=gpu_ms(lambda: k17.table_lookup(table, src, conc), reps),
+           **bench_lookup(table, src, conc, reps))
+
+
+def bench_lookup(table, src, conc, reps: int) -> dict:
+    """K1 at one launch shape: its device time (torch.profiler), exactness,
+    the plain gather's time, the library double-index gather's, and the
+    bound (the table and ids read once, the output written once)."""
+    from multimodalworddiscovery_tpu_torch.ops import counts as k17
+
+    got = k17.table_lookup(table, src, conc)
+    lib = lambda: table[src.long()[..., None], conc.long()[:, None, :]]  # noqa: E731
+    return dict(device_ms=device_ms(lambda: k17.table_lookup(table, src, conc), reps,
+                                    "table_lookup"),
+                exact=bool(torch.equal(got, k17.table_lookup_plain(table, src, conc))),
+                plain_ms=gpu_ms(lambda: k17.table_lookup_plain(table, src, conc), reps),
+                library_ms=gpu_ms(lib, reps),
+                **bound(4 * (table.numel() + src.numel() + conc.numel() + got.numel()), 0.0))
 
 
 def bench_log_matmul(record: Recorder, reps: int, dev: torch.device) -> None:
     """K8 and K8-bf16 at square sizes from 5 * normal, and the broadcast
     library form where it fits; bf16 rows carry their largest distance from
-    the float32 kernel."""
+    the float32 kernel.  Then K8 on the first combine of bench_assoc's
+    step matrices (parameters after 10 EM iterations), with its plain
+    version, its bound and the share of its elements that took the guard."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
     from multimodalworddiscovery_tpu_torch.ops import log_semiring as k8
+    from multimodalworddiscovery_tpu_torch.scripts import bench_assoc
 
     rng = np.random.default_rng(1)
     for size in LOG_MATMUL_SIZES:
@@ -250,10 +312,37 @@ def bench_log_matmul(record: Recorder, reps: int, dev: torch.device) -> None:
         for name, fn in impls:
             ms = gpu_ms(fn, reps)
             rec = dict(kernel=name, size=size, ms=ms, gflops_equiv=2 * size**3 / ms / 1e6)
+            if name != "log_matmul_library":
+                rec["device_ms"] = device_ms(fn, reps, "mwd_lm_",
+                                             "mwd_lm_bf16" if "bf16" in name else "mwd_lm_f32")
             if name != "log_matmul_kernel":
                 rec["max_abs_log_err_vs_f32"] = float((fn() - ref).abs().max())
             record(**rec)
         del a, b, ref
+        torch.cuda.empty_cache()
+    for label, gen in bench_assoc.SHAPES:
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        params = hmm.train(hmm.init(corpus), corpus, 10)[0]
+        _, log_trans, log_emit = hmm._machinery(params, corpus)
+        m = hmm_core.step_matrices(log_trans, log_emit, corpus.src_len)
+        a, b = m[0:-1:2], m[1::2]
+        guard = hasattr(k8, "guard_counts")
+        if guard:
+            k8.reset_guard(dev)
+        out = k8.log_matmul(a, b)
+        took, summed = k8.guard_counts(dev) if guard else (None, None)
+        rec = dict(kernel="log_matmul_kernel", shape=f"path9_first_combine_{label}",
+                   batch=list(a.shape[:-2]), S=a.shape[-1], ms=gpu_ms(lambda: k8.log_matmul(a, b),
+                                                                      reps),
+                   device_ms=device_ms(lambda: k8.log_matmul(a, b), reps, "mwd_lm_", "mwd_lm_f32"),
+                   plain_ms=gpu_ms(lambda: k8.log_matmul_plain(a, b), max(reps // 5, 1)),
+                   max_abs_err_vs_plain=float((out - k8.log_matmul_plain(a, b)).abs().max()),
+                   **bound(4 * (a.numel() + b.numel() + out.numel()),
+                           2.0 * out.numel() * a.shape[-1]))
+        if guard:
+            rec |= dict(guard_share=took / out.numel(), guard_summed_share=summed / out.numel())
+        record(**rec)
+        del corpus, params, log_trans, log_emit, m, a, b, out
         torch.cuda.empty_cache()
 
 

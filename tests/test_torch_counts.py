@@ -74,6 +74,90 @@ def test_cpu_lookup_launches_no_kernel(lookup_case):
     assert k1.table_lookup.launches == before
 
 
+def _k1_div(x, d):
+    """csrc/counts.cu mwd_k1_div in float32 numpy: q = trunc(float(x) * (1 /
+    d)), then one correction by the remainder."""
+    inv = np.float32(1.0) / np.float32(d)
+    q = np.trunc(np.asarray(x, np.float32) * inv).astype(np.int64)
+    r = np.asarray(x, np.int64) - q * d
+    return q + np.where(r < 0, -1, np.where(r >= d, 1, 0))
+
+
+@pytest.mark.parametrize("d", [1, 3, 7, 12, 13, 64, 128, 372, 23168, 25664, 4099])
+def test_k1_reciprocal_division_is_exact(d):
+    """K1's 32-bit index math: x / d by a float reciprocal and one
+    correction is exact for every x below 2^24 (the chunk's flat length),
+    checked at multiples of d and their neighbours (every one, or a million
+    spread over the range and the last thousand), and at random x."""
+    k = np.arange(0, (1 << 24) // d + 1, dtype=np.int64)
+    k = np.unique(np.concatenate([k[:: max(1, k.size >> 20)], k[-1000:]]))
+    x = np.concatenate([k * d - 1, k * d, k * d + 1,
+                        np.random.default_rng(d).integers(0, 1 << 24, 100_000)])
+    x = x[(x >= 0) & (x < (1 << 24))]
+    np.testing.assert_array_equal(_k1_div(x, d), x // d)
+
+
+def _k1_model(table, src, conc, per_block, chunk, base_off=0):
+    """csrc/counts.cu's K1 plan in numpy: blocks over contiguous utterance
+    ranges, chunks of them, each chunk's flat output walked as an unaligned
+    head, 4-element stores stepping (u, t, k), and a tail; ``base_off``
+    shifts the output's start off a 16-byte boundary."""
+    n, ts = src.shape
+    s = conc.shape[1]
+    length = ts * s
+    flat = np.full(base_off + n * length, np.nan, np.float32)
+    for n0 in range(0, n, per_block):
+        n1 = min(n, n0 + per_block)
+        for c0 in range(n0, n1, chunk):
+            cu = min(chunk, n1 - c0)
+            start = base_off + c0 * length
+            total = cu * length
+            head = min(total, (4 - start % 4) % 4)
+            nv = (total - head) // 4
+
+            def at(x):
+                u = int(_k1_div(x, length))
+                r = x - u * length
+                t = int(_k1_div(r, s))
+                return u, t, r - t * s
+
+            def put(x, u, t, k):
+                flat[start + x] = table[src[c0 + u, t], conc[c0 + u, k]]
+
+            for x in range(head):
+                put(x, *at(x))
+            for v in range(nv):
+                x = head + 4 * v
+                u, t, k = at(x)
+                for w in range(4):
+                    put(x + w, u, t, k)
+                    k += 1
+                    if k == s:
+                        k, t = 0, t + 1
+                        if t == ts:
+                            t, u = 0, u + 1
+            for x in range(head + 4 * nv, total):
+                put(x, *at(x))
+    return flat[base_off:].reshape(n, ts, s)
+
+
+@pytest.mark.parametrize("s, ts, per_block, chunk, off", [
+    (12, 31, 16, 5, 0), (7, 23, 9, 4, 1), (13, 1, 50, 50, 3), (64, 9, 3, 2, 2), (5, 3, 1, 1, 1)])
+def test_k1_plan_model_equals_gather(s, ts, per_block, chunk, off):
+    """The index walk of K1's kernel (chunks, head, 16-byte stores, tail)
+    writes every element of the plain gather exactly once, whatever the
+    row length's remainder mod 4 and the output's alignment."""
+    rng = np.random.default_rng(s * ts)
+    n = 23
+    table = rng.normal(size=(11, 17)).astype(np.float32)
+    src = rng.integers(0, 11, (n, ts))
+    conc = rng.integers(0, 17, (n, s))
+    got = _k1_model(table, src, conc, per_block, chunk, off)
+    want = tcounts.table_lookup(torch.as_tensor(table), torch.as_tensor(src),
+                                torch.as_tensor(conc)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("k", [6, 40])  # reference's broadcast / einsum forms
 def test_pair_counts_matches_jax(k):
     rng = np.random.default_rng(k)

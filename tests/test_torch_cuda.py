@@ -67,6 +67,46 @@ def test_k1_kernel_exact(dev, name):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("f, e", [(49, 61), (49, 401), (300, 250)])
+@pytest.mark.parametrize("s, n, ts", [(12, 1003, 31), (64, 67, 401), (128, 9, 181), (7, 301, 23),
+                                      (13, 50, 1)])
+def test_k1_launch_shapes_bit_equal(dev, s, n, ts, f, e):
+    """K1 at S = 12, 64, 128 and at S not a multiple of 4, its table in
+    shared memory and (300 x 250 floats, above 227 KB) read through the
+    cache: equal to the plain gather bit for bit; an id outside the table
+    gives NaN there and nowhere else."""
+    rng = np.random.default_rng(s * n + f)
+    table = torch.as_tensor(rng.normal(size=(f, e)).astype(np.float32), device=dev)
+    src = torch.as_tensor(rng.integers(0, f, (n, ts)), dtype=torch.int32, device=dev)
+    conc = torch.as_tensor(rng.integers(0, e, (n, s)), dtype=torch.int32, device=dev)
+    before = k1.table_lookup.launches
+    got = k1.table_lookup(table, src, conc)
+    assert k1.table_lookup.launches == before + 1
+    assert torch.equal(got, k1.table_lookup_plain(table, src, conc))
+    src[n // 2, ts // 2] = f
+    conc[n - 1, s - 1] = -1
+    got = k1.table_lookup(table, src, conc)
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    bad[n // 2, ts // 2, :] = True
+    bad[n - 1, :, s - 1] = True
+    assert torch.equal(torch.isnan(got), bad)
+    want = k1.table_lookup_plain(table, src.clamp(0, f - 1), conc.clamp(0, e - 1))
+    assert torch.equal(got[~bad], want[~bad])
+
+
+def test_k1_table_sizes_in_any_order(dev):
+    """Tables of 150 KB, then 80 KB, then 150 KB again in shared memory (the
+    launch configuration is cached per shape, so a later launch must not
+    find the shared-memory opt-in lowered by an earlier, smaller one)."""
+    rng = np.random.default_rng(9)
+    for f, e in ((60, 640), (50, 400), (60, 640)):
+        table = torch.as_tensor(rng.normal(size=(f, e)).astype(np.float32), device=dev)
+        src = torch.as_tensor(rng.integers(0, f, (2000, 400)), dtype=torch.int32, device=dev)
+        conc = torch.as_tensor(rng.integers(0, e, (2000, 64)), dtype=torch.int32, device=dev)
+        assert torch.equal(k1.table_lookup(table, src, conc),
+                           k1.table_lookup_plain(table, src, conc))
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_k2_kernel_matches_plain(dev, name):
     corpus, params, concepts, (log_init, base, rowz, colmask) = _inputs(name, dev)
@@ -574,9 +614,9 @@ def test_k5_wrappers_validate_inputs(dev):
         k5.mfcc_from_frames(torch.zeros((400, 10), device=dev).t())
     with pytest.raises(ValueError, match="shape"):
         k5.mfcc_from_frames(frames[:, :399].contiguous())
-    with pytest.raises(ValueError, match="n_fft"):
+    with pytest.raises(ValueError, match="win_length"):
         k5.mfcc_from_frames(torch.zeros((10, 4000), device=dev),
-                            speech.MfccConfig(win_length=4000, n_fft=4096))
+                            speech.MfccConfig(win_length=4000, n_fft=2048))
 
 
 @pytest.mark.parametrize("n_fft", [255, 256, 400, 401, 402, 512, 1024, 2048])
@@ -594,6 +634,30 @@ def test_k5_n_fft_matches_plain(dev, n_fft):
         want, _ = k5.extract_plain(wav, lens, cfg, kind)
         valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
         torch.testing.assert_close(got[valid], want[valid], **MFCC_TOL)
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(4096, 26), (8192, 26), (3000, 26), (32768, 26),
+                                           (512, 300), (512, 512), (4096, 300)])
+def test_k5_large_n_fft_and_mels_match_plain(dev, n_fft, n_mels):
+    """Past the run kernel's old limits: powers of two above 2048 through the
+    frame-a-warp FFT (32768: its buffers in the device workspace), 3000
+    through its direct DFT, and 300 / 512 mels (runs shrunk to fit, the
+    log-mel outputs wider than a block's staging); extract and
+    mfcc_from_frames, both kinds, launched."""
+    wav, lens = _waveforms(dev, [8000, 6000, 3000, 0, 399, 400, 401], 8000)
+    cfg = speech.MfccConfig(n_fft=n_fft, n_mels=n_mels)
+    frames = speech.frame_signal(speech.preemphasize(wav[:2], cfg.preemphasis), cfg)
+    frames = frames.reshape(-1, cfg.win_length)[:70].contiguous()
+    for kind in ("mfcc", "fbank"):
+        before = k5.extract.launches, k5.mfcc_from_frames.launches
+        got, fl = k5.extract(wav, lens, cfg, kind)
+        want, _ = k5.extract_plain(wav, lens, cfg, kind)
+        valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+        torch.testing.assert_close(got[valid], want[valid], **MFCC_TOL)
+        torch.testing.assert_close(k5.mfcc_from_frames(frames, cfg, kind),
+                                   k5.mfcc_from_frames_plain(frames, cfg, kind), **MFCC_TOL)
+        assert (k5.extract.launches, k5.mfcc_from_frames.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
 
 
 @pytest.mark.parametrize("n_fft,win,hop", [(512, 400, 160), (400, 400, 160), (401, 400, 161),
@@ -812,6 +876,77 @@ def test_k8_bf16_matches_plain(dev):
     f32 = k8.log_matmul(a, b)
     torch.testing.assert_close(got, f32, rtol=0, atol=5e-2)
     _assert_rounds(got, k8.log_matmul_plain(a, b, "bfloat16"), f32)
+
+
+def _oracle64(a, b):
+    return torch.logsumexp(a.double()[..., :, :, None] + b.double()[..., None, :, :],
+                           dim=-2).float().clamp(min=NEG_INF)
+
+
+@pytest.mark.parametrize("k", [96, 200])
+def test_k8_guard_keeps_terms_below_the_maxima(dev, k):
+    """A log-space identity (a frozen carry) times a b whose columns span 200
+    nats: out[i, j] = b[i, j], most of it more than 87 nats below its
+    column's maximum, where the factored form flushes it; the guard sums
+    those elements again (its count rises), with K in one tile (96) and
+    streamed (200)."""
+    eye = torch.full((k, k), NEG_INF, device=dev)
+    eye.fill_diagonal_(0.0)
+    b = -200.0 * torch.as_tensor(np.random.default_rng(k).random((k, 72)), dtype=torch.float32,
+                                 device=dev)
+    k8.reset_guard(dev)
+    got = k8.log_matmul(eye, b)
+    took, summed = k8.guard_counts(dev)
+    assert took >= summed > 0
+    torch.testing.assert_close(got, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, k8.log_matmul_plain(eye, b), rtol=1e-4, atol=1e-4)
+    # and as the scan meets it: b's rows spanning 200 nats times the identity
+    torch.testing.assert_close(k8.log_matmul(b.t().contiguous(), eye), b.t(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_k8_wide_range_rows_against_float64(dev):
+    """The 250-nat wide-range rows against the float64 oracle, taking the
+    guard (row 0's dominant term lies 250 nats below its maximum)."""
+    a = torch.full((64, 96), -300.0, device=dev)
+    b = torch.full((96, 48), -300.0, device=dev)
+    a[1:, :10], b[:10, 1:] = _normal((63, 10), 5.0, 12, dev), _normal((10, 47), 5.0, 13, dev)
+    a[0, 0], a[0, 5], b[0, 0], b[5, 0] = 0.0, -250.0, -400.0, 240.0
+    k8.reset_guard(dev)
+    got = k8.log_matmul(a, b)
+    assert k8.guard_counts(dev)[1] >= 1
+    torch.testing.assert_close(got, _oracle64(a, b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (17, 130, 257), (257, 17, 130), (130, 257, 17),
+                                   (1, 257, 130), (257, 1, 17), (200, 129, 200)])
+def test_k8_odd_shapes_and_masked_tiles(dev, shape):
+    """I, J and K off every tile, in one K tile and streamed; NEG_INF rows,
+    columns and a whole 64 x 64 tile's rows over a K range (zero support)."""
+    i, k, j = shape
+    a, b = _normal((i, k), 5.0, i + k, dev), _normal((k, j), 5.0, k + j, dev)
+    for dot_dtype in ("float32", "bfloat16"):
+        torch.testing.assert_close(k8.log_matmul(a, b, dot_dtype),
+                                   k8.log_matmul_plain(a, b, dot_dtype), rtol=1e-4,
+                                   atol=1e-4 if dot_dtype == "float32" else 2e-2)
+    a[: i // 2, : k // 2] = NEG_INF
+    b[k // 2:, : j // 3] = NEG_INF
+    a[-1] = NEG_INF
+    b[:, -1] = NEG_INF
+    got = k8.log_matmul(a, b)
+    torch.testing.assert_close(got, k8.log_matmul_plain(a, b), rtol=1e-4, atol=1e-4)
+    assert torch.all(got[-1] == NEG_INF) and torch.all(got[:, -1] == NEG_INF)
+
+
+@pytest.mark.parametrize("shape", [(17, 130, 33), (50, 257, 70), (1, 5, 3), (96, 64, 130)])
+def test_k8_bf16_odd_shapes_match_plain(dev, shape):
+    """K8-bf16 (tensor cores) against its plain bf16 version at sizes that
+    are not multiples of 16, within 2e-2, and within 5e-2 of K8."""
+    i, k, j = shape
+    a, b = _normal((i, k), 4.0, i, dev), _normal((k, j), 4.0, j + 1, dev)
+    got = k8.log_matmul(a, b, "bfloat16")
+    torch.testing.assert_close(got, k8.log_matmul_plain(a, b, "bfloat16"), rtol=0, atol=2e-2)
+    torch.testing.assert_close(got, k8.log_matmul(a, b), rtol=0, atol=5e-2)
 
 
 @pytest.mark.parametrize("name", ["S12", "S40"])

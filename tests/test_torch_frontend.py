@@ -160,11 +160,12 @@ def _stockham_power(x, n_fft):
     return power
 
 
-@pytest.mark.parametrize("n_fft", [32, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("n_fft", [32, 256, 512, 1024, 2048, 4096, 8192])
 def test_kernel_fft_plan_gives_the_power_spectrum(n_fft):
     """The FFT plan of csrc/mfcc.cu (radix-8, then radix-4 stages of a
     Stockham FFT of n_fft / 2 points, then the real split) against
-    np.fft.rfft's power spectrum."""
+    np.fft.rfft's power spectrum; above 2048 the frame-a-warp kernel runs
+    the same plan between two buffers."""
     rng = np.random.default_rng(n_fft)
     x = rng.normal(size=(3, n_fft * 3 // 4 + 1))  # odd: the last pair's odd sample is padding
     assert np.prod(tmfcc.fft_radices(n_fft)) == n_fft // 2
@@ -283,31 +284,35 @@ def test_extract_short_and_empty_waveforms():
 
 def test_kernel_config_limits():
     """What K5 takes and refuses (checked before a CUDA launch): any n_fft
-    from win_length up to MAX_N_FFT (powers of two from 32 through the FFT,
-    the rest through the direct DFT), nothing above it; an unknown kind
-    fails on every device."""
-    assert tmfcc.MAX_N_FFT == 2048
+    from win_length up (powers of two from 32 through the FFT, the rest
+    through the direct DFT; above RUN_N_FFT a frame a warp) and any n_mels
+    from n_mfcc up, as the reference; a window longer than n_fft, more
+    MFCCs than mels or a hop of 0 are refused, and an unknown kind fails on
+    every device."""
+    assert tmfcc.RUN_N_FFT == 2048
     for good in (dict(), dict(n_fft=384, win_length=384), dict(n_fft=400), dict(n_fft=1024),
-                 dict(n_fft=1024, win_length=1000), dict(n_fft=2048, win_length=2048)):
+                 dict(n_fft=1024, win_length=1000), dict(n_fft=2048, win_length=2048),
+                 dict(n_fft=4096), dict(n_fft=8192, win_length=8192), dict(n_fft=3000),
+                 dict(n_mels=300), dict(n_mels=300, n_mfcc=300)):
         tmfcc._check_config(tspeech.MfccConfig(**good), "mfcc")
-    assert [tmfcc.uses_fft(n) for n in (16, 32, 384, 400, 512, 1024, 2048)] == [
-        False, True, False, False, True, True, True]
-    for bad in (dict(n_fft=4096, win_length=1000), dict(n_fft=2049, win_length=2049),
-                dict(n_fft=384), dict(win_length=600), dict(n_mels=300),
-                dict(n_mfcc=30, n_mels=26), dict(hop_length=0)):
+    assert [tmfcc.uses_fft(n) for n in (16, 32, 384, 400, 512, 1024, 2048, 3000, 4096, 8192)] == [
+        False, True, False, False, True, True, True, False, True, True]
+    for bad in (dict(n_fft=384), dict(win_length=600), dict(n_fft=2049, win_length=2050),
+                dict(n_mfcc=30, n_mels=26), dict(hop_length=0), dict(n_mels=0, n_mfcc=0)):
         with pytest.raises(ValueError):
             tmfcc._check_config(tspeech.MfccConfig(**bad), "mfcc")
-    with pytest.raises(ValueError, match="2048"):
-        tmfcc._check_config(tspeech.MfccConfig(n_fft=4096), "mfcc")
+    with pytest.raises(ValueError, match="win_length"):
+        tmfcc._check_config(tspeech.MfccConfig(n_fft=256), "mfcc")
     with pytest.raises(ValueError, match="kind"):
         tmfcc.extract(torch.zeros((1, 800)), None, tspeech.MfccConfig(), "spectrogram")
 
 
-@pytest.mark.parametrize("n_fft", [400, 1024])
+@pytest.mark.parametrize("n_fft", [400, 1024, 4096, 3000])
 def test_extract_other_n_fft_matches_reference_kernel(wavs, n_fft):
-    """An n_fft the kernel takes through its direct DFT (400) and one past
-    the old 512 limit (1024): the port's plain extract against the
-    reference kernel in interpret mode, which takes any n_fft >= win."""
+    """An n_fft the kernel takes through its direct DFT (400), one past the
+    old 512 limit (1024), and two past the old 2048 limit (4096, a power
+    of two, and 3000): the port's plain extract against the reference
+    kernel in interpret mode, which takes any n_fft >= win."""
     wav, lens = wavs
     jcfg = jspeech.MfccConfig(n_fft=n_fft)
     tcfg = tspeech.MfccConfig(n_fft=n_fft)
@@ -316,6 +321,29 @@ def test_extract_other_n_fft_matches_reference_kernel(wavs, n_fft):
     got, tl = tmfcc.extract(torch.as_tensor(wav), torch.as_tensor(lens), tcfg)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     _valid_close(got.numpy(), np.asarray(want), np.asarray(jl), **MFCC_TOL)
+
+
+@pytest.mark.parametrize("kind", ["mfcc", "fbank"])
+@pytest.mark.parametrize("cfg_kw", [dict(n_mels=300), dict(n_fft=4096, n_mels=40, n_mfcc=20),
+                                    dict(n_fft=8192, n_mels=300)])
+def test_large_configs_match_reference_kernel(wavs, cfg_kw, kind):
+    """Past the old limits (n_mels 256, n_fft 2048): the port's plain extract
+    and mfcc_from_frames (the K5 wrappers on CPU tensors) against the
+    reference kernel in interpret mode, on a batch of three waveforms."""
+    wav, lens = wavs
+    jcfg, tcfg = jspeech.MfccConfig(**cfg_kw), tspeech.MfccConfig(**cfg_kw)
+    tmfcc._check_config(tcfg, kind)
+    want, jl = jmfcc.extract_pallas(jnp.asarray(wav), jnp.asarray(lens), jcfg, kind=kind,
+                                    interpret=True)
+    got, tl = tmfcc.extract(torch.as_tensor(wav), torch.as_tensor(lens), tcfg, kind)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    _valid_close(got.numpy(), np.asarray(want), np.asarray(jl), **MFCC_TOL)
+    pre = tspeech.preemphasize(torch.as_tensor(wav), tcfg.preemphasis)
+    frames = tspeech.frame_signal(pre, tcfg).reshape(-1, tcfg.win_length)[:40].contiguous()
+    want_f = np.asarray(jmfcc.mfcc_from_frames(jnp.asarray(frames.numpy()), jcfg, kind=kind,
+                                               interpret=True))
+    np.testing.assert_allclose(tmfcc.mfcc_from_frames(frames, tcfg, kind).numpy(), want_f,
+                               **MFCC_TOL)
 
 
 @pytest.mark.parametrize("width", [1, 2])

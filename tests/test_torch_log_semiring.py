@@ -148,6 +148,65 @@ def test_plain_bf16_matches_pallas_bf16():
     assert not np.array_equal(got, f32)
 
 
+@pytest.mark.parametrize("shape", [(40, 300, 56), (33, 17, 9), (128, 129, 64)])
+def test_plain_bf16_at_block_k_matches_pallas_bf16(shape):
+    """The plain bf16 version over K tiles of BLOCK_K (128): one partial
+    tile, and several, against the reference's bf16 kernel at the same
+    block_k in interpret mode."""
+    i, k, j = shape
+    a, b = _pair(i, k, j, scale=4.0, seed=k)
+    want = np.asarray(log_matmul_pallas(jnp.asarray(a), jnp.asarray(b), block_k=k8.BLOCK_K,
+                                        dot_dtype="bfloat16", interpret=True))
+    np.testing.assert_allclose(_port(a, b, "bfloat16"), want, rtol=0, atol=BF16_VS_BF16)
+
+
+def _guarded_model(a, b):
+    """csrc/log_semiring.cu's float32 design in torch: the factored form
+    with each row's and column's maximum over all of K, and the elements
+    whose sum falls below guard_threshold(K) (both maxima live) summed
+    again exactly; (out, the guard's mask)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    m, n = a.amax(-1, keepdim=True), b.amax(-2, keepdim=True)
+    live = (m > NEG_INF / 2) & (n > NEG_INF / 2)
+    p = torch.exp(a - torch.where(m > NEG_INF / 2, m, 0.0))
+    q = torch.exp(b - torch.where(n > NEG_INF / 2, n, 0.0))
+    acc = p @ q
+    guard = live & (acc < k8.guard_threshold(a.shape[-1]))
+    out = torch.where(live, m + n + torch.log(acc), NEG_INF)
+    return torch.where(guard, tsemi.log_matmul(a, b), out), guard
+
+
+@pytest.mark.parametrize("case", ["normal", "identity", "wide", "steps"])
+def test_guarded_factored_form_matches_oracle(case, mini):
+    """The float32 kernel's arithmetic against the float64 oracle: 5 *
+    normal (no element takes the guard), a log-space identity times columns
+    spanning 200 nats and the wide-range rows (the guard keeps what the
+    factored form flushes: without it these fail), and step matrices of the
+    mini corpus with their prefix products (whose zero-support elements take
+    the guard and stay NEG_INF)."""
+    if case == "normal":
+        a, b = _pair(64, 200, 48, seed=5)
+    elif case == "identity":
+        a = np.full((96, 96), NEG_INF, np.float32)
+        np.fill_diagonal(a, 0.0)
+        b = (-200.0 * np.random.default_rng(6).random((96, 40))).astype(np.float32)
+    elif case == "wide":
+        a, b = _wide_range()
+    else:
+        _, (_, log_trans, log_emit, src_len) = mini
+        m = tcore.step_matrices(*(torch.as_tensor(x) for x in (log_trans, log_emit, src_len)))
+        pre = tcore.associative_scan(tsemi.log_matmul, m)
+        a, b = pre[:-1].numpy(), m[1:].numpy()
+    want = tsemi.log_matmul(torch.as_tensor(a).double(), torch.as_tensor(b).double())
+    got, guard = _guarded_model(a, b)
+    np.testing.assert_allclose(got.numpy(), want.float().numpy(), **TOL)
+    if case == "normal":
+        assert not bool(guard.any())
+    if case in ("identity", "wide"):
+        unguarded = torch.where(guard, NEG_INF, got)
+        assert not np.allclose(unguarded.numpy(), want.float().numpy(), **TOL)
+
+
 def test_dot_dtype_is_validated():
     a, b = _pair(8, 8, 8)
     with pytest.raises(ValueError, match="dot_dtype"):
