@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives nine paths through the kernels
-(paths 1-4, 6 and 8 also through the plain path) on the same card:
+shapes the main paths give it, then drives thirteen paths through the kernels
+(paths 1-4, 6, 8, 10 and 12 also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
    N=8000 utterances, S=12 states): 10 EM iterations through K1 + K2, then
@@ -48,16 +48,41 @@ shapes the main paths give it, then drives nine paths through the kernels
    ``scripts/bench_assoc.py``'s S64 (N=256, Ts=147) and S128 (N=64, Ts=176)
    shapes, held to the sequential plain forward and to K4's logZ; then the
    port's ``scripts/bench_assoc.py`` and ``scripts/bench_kernels.py --only
-   counts log_matmul`` once each, with few repetitions.
+   counts log_matmul`` once each, with few repetitions;
+10. Model-1 (BASELINE config #1) on the headline corpus (the reference's
+    ``model1_align`` Tt6 shape): 10 EM iterations (the final loglik held
+    to the JAX reference's), align through K1, segmentation and the four
+    metric families, the decode through K1 equal to the plain gather's, F1
+    against the JAX reference's value; the concept-space decode against
+    the dense one there and at the Tt32 shape (N=2048, 24-32 concepts);
+11. config #3's attention aligner on the N=8192 corpus of the reference's
+    ``bench_models`` at dim 128: B=512 AdamW minibatch steps, unguided and
+    guided by the discrete HMM teacher (``hmm.train`` through K1 + K2; each
+    batch's guide from K4's gamma on K1's emissions), the guided run's F1
+    above the unguided one's; then ``configs/attention_guided_frames.py``
+    (N=800, 13-dim frames) with its Gaussian teacher (15 EM iterations
+    through K4, the guide from K4 at every step);
+12. grounding (B=256 Adam minibatch steps on the same corpus, its pooled
+    recall@5 rising) and pooled retrieval (pool 32, both directions) for
+    Model-1 through K1 (against its plain route), the discrete HMM and
+    grounding, with recall@1/5/10;
+13. segmental k-means and its GMM variant on 13-dim frames at the
+    pipeline's scale (N=2000, 10 iterations each), boundary recall against
+    a uniform segmentation, and the DTW coherence of the gold segments of
+    ``test_golden_dtw_coherence``'s corpus against tests/golden_metrics.json.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
 gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
 Ts=401, S=64, V_src=64), where the teacher's EM trajectory is also held
 against the plain path's and one of its EM iterations is profiled; the
 JSON line gives K2's and K2-bf16's launches, time and bound per launch
-shape, K3's at each shape it decodes, and K1's at its three launch shapes
-(headline, path 8, VQ teacher: bit-equal to the plain gather, CUDA-event
-and device time, bound, the library double-index gather).  K4,
+shape, K3's at each shape it decodes, and K1's at each of its launch shapes
+(bit-equal to the plain gather, CUDA-event and device time, bound, the
+library double-index gather); K1, K2, K3 and K4 are also checked at the
+shapes paths 10-12 give them (Model-1's two shapes, path 11's teacher
+corpus, guide batch and guided frames, pooled retrieval's chunk), and the
+script fails unless every launch of K1-K4 on the paths lies at a checked
+shape.  K4,
 K4-bf16 and K6 (the remat E-step, reached through its entry point
 ``hmm_estep(remat=True)``, which no model path calls) are checked at the
 stretch shape and at S=128, K6 at two chunk lengths and against K4; each
@@ -231,6 +256,34 @@ K8_BF16_VS_F32 = 5e-2  # tests/test_log_semiring_pallas.py:67
 # product: about 0.016 in log space
 K8_BF16_VS_PLAIN = 2e-2
 ASSOC_BLOCK = 16  # forward_blocked's default block
+# path 10: Model-1 (BASELINE config #1) at the reference's model1_align
+# shapes, bench_kernels.MODEL1_SHAPES (its Tt6 row is HEADLINE); paths 11-13
+# take their corpora, widths, batches and pool from bench_kernels too.
+# Alignment F1 of the JAX reference on the CPU after 10 EM iterations from
+# model1.init (deterministic) on the headline corpus, then model1.align:
+# tests/model1_reference.py (P 0.87923, R 0.89028)
+REFERENCE_MODEL1_F1 = 0.88472
+REFERENCE_MODEL1_LL = -353686.75  # its loglik at the 10th iteration
+# paths 11 and 12: steps on bench_kernels.MODELS_CORPUS
+ATT_STEPS = 200  # cut from config #3's 300 steps
+GROUND_STEPS = 150
+TEACHER_ITERS = 10  # the discrete teacher's EM iterations (the guide's default is 15)
+# configs/attention_guided_frames.py on core/config.py's base_config (seed
+# 0, max_jump 3), copied here: configs/ imports the JAX package.  The corpus
+# as the CLI's _load_data builds it; the Gaussian teacher seeded seed + 1.
+GUIDED_FRAMES = dict(n_utterances=800, n_concepts=40, n_phones=48, min_concepts=2,
+                     max_concepts=4, seed=0)
+GUIDED_FRAMES_FEAT = dict(feat_dim=13, seed=0)
+GUIDED_TEACHER_ITERS = 15
+GUIDED_STEPS = 60  # cut from the config's 400
+SEGKMEANS_ITERS = 10  # path 13: on bench_kernels' SEGKMEANS_CORPUS frames
+# tests/test_golden_metrics.py test_golden_dtw_coherence: its corpus and
+# tests/golden_metrics.json "dtw_gold_segments", held within rtol 0.02
+# (atol 1e-3) as that test holds them
+DTW_CORPUS = dict(n_utterances=60, seed=42)
+DTW_FRAMES = dict(feat_dim=8, noise=0.05, seed=42)
+DTW_MAX_SEG_LEN = 16
+GOLDEN_DTW = {"within": 0.0787, "across": 6.9912, "ratio": 0.0113}
 
 
 def _run(cmd: list[str]) -> str:
@@ -1600,7 +1653,7 @@ def many_states_phase(card: str, counters, dev) -> dict:
 
     from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
     from multimodalworddiscovery_tpu_torch.eval.metrics import alignment_prf
-    from multimodalworddiscovery_tpu_torch.models import hmm
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
     from multimodalworddiscovery_tpu_torch.ops import counts as k1
 
     out = {}
@@ -1653,13 +1706,14 @@ def many_states_phase(card: str, counters, dev) -> dict:
     _check(abs(float(lw[-1]) - float(lp[-1])) <= 1e-4 * abs(float(lp[-1])),
            f"S~200 final loglik within rtol 1e-4 of plain ({lw[-1]} vs {lp[-1]})")
     _check(abs(f1 - f1_p) <= 0.002, f"S~200 F1 within 0.002 of plain ({f1:.5f} vs {f1_p:.5f})")
+    k1r = k1_check("the S~200 corpus", p.log_emit, corpus.src, hmm_core.state_concepts(corpus), 10)
     for label, r in out.items():
         k4r, k3r = r["k4"], r["k3"]
         print(f"  [{card}] {label} (S={r['S']}): K4 {k4r['ms']:.4f} ms (plain "
               f"{k4r['plain_ms']:.4f}, bound {k4r['bound_ms']:.4f}), K4-bf16 {k4r['bf16_ms']:.4f} "
               f"ms, K6 {k4r['k6_ms']:.4f} ms; K3 {k3r['ms']:.4f} ms (plain "
               f"{k3r['plain_ms']:.4f}, bound {k3r['bound_ms']:.4f})")
-    return {"shapes": out, "launches": launches}
+    return {"shapes": out, "launches": launches, "k1": k1r}
 
 
 def bench_phase(here: str, counters) -> dict:
@@ -1679,6 +1733,449 @@ def bench_phase(here: str, counters) -> dict:
            "bench_kernels launched K5, K7, K8 and K8-bf16")
     bench_assoc.main(["--reps", "2", "--out", os.path.join(out_dir, "bench_assoc.jsonl")])
     return launches
+
+
+def _timed(fn):
+    """(fn(), its CUDA-event time in ms) for one run."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _unit_metrics(alignment, corpus, gold) -> dict:
+    """The four metric families of an alignment against the gold: alignment
+    P/R/F1, word IoU F1, boundary F1 (tolerance 1) and purity."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.eval import metrics
+    from multimodalworddiscovery_tpu_torch.segment import boundaries_from_segments, segment_corpus
+
+    gold_t = torch.as_tensor(gold.alignment, device=corpus.device)
+    segs, mask = segment_corpus(alignment, corpus)
+    gsegs, gmask = segment_corpus(gold_t, corpus)
+    t = corpus.max_src_len
+    prf = metrics.alignment_prf(alignment, gold_t, corpus.src_mask())
+    return {"alignment": {k: float(v) for k, v in prf.items()},
+            "word_iou_f1": float(metrics.word_iou(segs, mask, gsegs, gmask)["f1"]),
+            "boundary_f1": float(metrics.boundary_prf(
+                boundaries_from_segments(segs, mask, t), boundaries_from_segments(gsegs, gmask, t),
+                tolerance=1)["f1"]),
+            "purity": float(metrics.cluster_purity(segs, mask, gsegs, gmask, corpus.trg_vocab)),
+            "segs": segs, "seg_mask": mask}
+
+
+def model1_phase(card: str, counters, dev) -> dict:
+    """Path 10: Model-1 (config #1) at the model1_align Tt6 shape: 10 EM
+    iterations (two float32 products over the corpus's count statistics, no
+    kernel; the loglik held to the JAX reference's), then align through K1,
+    segmentation and the four metric families; align through the plain
+    gather, its alignment held equal; the concept-space decode against the
+    dense one at Tt6 and Tt32; K1 at Model-1's shapes."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import model1
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    corpus, gold, _ = make_flickr8k_mini(**bk.MODEL1_SHAPES["Tt6"], device=dev)
+    print(f"path 10 (Model-1): N={corpus.n}, Ts={corpus.max_src_len}, 1+Tt="
+          f"{1 + corpus.max_trg_len}, V_src={corpus.src_vocab}, V_trg={corpus.trg_vocab}, "
+          f"{EM_ITERS} EM iterations")
+    _reset(counters)
+    params, lls = model1.train(model1.init(corpus), corpus, EM_ITERS)
+    runs = {}
+    for use_kernels in (True, False):
+        if not use_kernels:
+            _reset(counters)
+        alignment = model1.align(params, corpus, use_kernels=use_kernels)
+        metrics = _unit_metrics(alignment, corpus, gold)
+        torch.cuda.synchronize()
+        runs[use_kernels] = dict(alignment=alignment, metrics=metrics, launches=_counts(counters))
+    kern, plain = runs[True], runs[False]
+    launches = kern["launches"]
+    lw = lls.cpu().numpy()
+    print(f"  loglik per iteration: {lw.tolist()}")
+    print(f"  kernel launches on path 10: {launches}")
+    for name, r in (("kernel", kern), ("plain", plain)):
+        m = r["metrics"]
+        print(f"  {name} path: alignment {m['alignment']}, word IoU F1 {m['word_iou_f1']:.5f}, "
+              f"boundary F1 {m['boundary_f1']:.5f}, purity {m['purity']:.5f}")
+    _check(launches["table_lookup"] == 1 and sum(launches.values()) == 1,
+           "path 10: K1 launched once (the decode's pair log-probs), no other kernel")
+    _check(sum(plain["launches"].values()) == 0, "path 10 plain decode: no kernel launched")
+    _check(bool(np.all(np.isfinite(lw))) and bool(np.all(np.diff(lw) >= -1e-6 * np.abs(lw[:-1])))
+           and lw[-1] > lw[0], "path 10 loglik finite, monotone and improving")
+    ll = float(lw[-1])
+    _check(abs(ll - REFERENCE_MODEL1_LL) <= 1e-5 * abs(REFERENCE_MODEL1_LL),
+           f"path 10 final loglik within rtol 1e-5 of the JAX reference {REFERENCE_MODEL1_LL} "
+           f"({ll})")
+    _check(torch.equal(kern["alignment"], plain["alignment"]),
+           "path 10: the alignment through K1 equals the plain gather's")
+    f1 = kern["metrics"]["alignment"]["f1"]
+    _check(abs(f1 - REFERENCE_MODEL1_F1) <= 0.005,
+           f"path 10 F1 within 0.005 of the JAX reference {REFERENCE_MODEL1_F1} ({f1:.5f})")
+    segs, mask = kern["metrics"]["segs"], kern["metrics"]["seg_mask"]
+    valid = segs[mask]
+    _check(tuple(segs.shape) == (corpus.n, corpus.max_src_len, 3)
+           and bool(((valid[:, 0] < valid[:, 1]) & (valid[:, 2] > 0)).all())
+           and int(mask.sum()) > 0, f"path 10: {int(mask.sum())} word units, each non-empty "
+                                    f"with a concept")
+    c32, _, _ = make_flickr8k_mini(**bk.MODEL1_SHAPES["Tt32"], device=dev)
+    p32, _ = model1.train(model1.init(c32), c32, EM_ITERS)
+    dense_launches = {}
+    for label, c, p in (("Tt6", corpus, params), ("Tt32", c32, p32)):
+        _reset(counters)
+        _check(torch.equal(model1._align_concept_space(p, c), model1._align_dense(p, c)),
+               f"path 10 at {label} (N={c.n}, 1+Tt={1 + c.max_trg_len}): the concept-space "
+               f"decode equals the dense decode through K1")
+        dense_launches[label] = _counts(counters)
+    k1r = {label: k1_check(f"Model-1's shape ({label})", p.log_t, c.src,
+                           model1._extended_targets(c)[0], 20)
+           for label, c, p in (("Tt6", corpus, params), ("Tt32", c32, p32))}
+    stats = model1._count_stats(corpus)
+    em_ms = _gpu_ms(lambda: model1.em_step(params, corpus, stats=stats), 10)
+    times = {}
+    for label, c, p in (("Tt6", corpus, params), ("Tt32", c32, p32)):
+        dec = _alternate({"plain": lambda c=c, p=p: model1.align(p, c, use_kernels=False),
+                          "kernels": lambda c=c, p=p: model1.align(p, c, use_kernels=True)},
+                         reps=5, rounds=2)
+        cs = _gpu_ms(lambda c=c, p=p: model1._align_concept_space(p, c), 5)
+        times[label] = (dec["kernels"], dec["plain"], cs)
+        print(f"  [{card}] path 10 align at {label}, median of 4 runs of 5: dense through K1 "
+              f"{dec['kernels']:.4f} ms, dense plain {dec['plain']:.4f} ms, concept space "
+              f"{cs:.4f} ms")
+    print(f"  [{card}] path 10 EM ms/iter (CUDA events, mean of 10, the count statistics "
+          f"counted once as train does): {em_ms:.4f} ({corpus.n * 1e3 / em_ms:.1f} utt*iter/s)")
+    _profile(lambda: model1.em_step(params, corpus, stats=stats), "one path 10 EM iteration",
+             card)
+    _profile(lambda: model1.align(params, corpus), "path 10's align (K1)", card)
+    del c32, p32, stats
+    return {"launches": launches, "dense_launches": dense_launches, "k1": k1r,
+            "em_ms": em_ms, "align_ms": times}
+
+
+def _recording(step_fn, losses: list):
+    """``step_fn`` that also keeps each step's loss (on the device)."""
+    def step(state, batch):
+        state, stats = step_fn(state, batch)
+        losses.append(stats["loss"])
+        return state, stats
+    return step
+
+
+def attention_phase(card: str, counters, dev, corpus, gold) -> dict:
+    """Path 11: config #3's attention aligner on the N=8192 corpus at dim
+    128, B=512 AdamW minibatch steps, unguided and guided by the discrete
+    HMM teacher (hmm.train through K1 + K2; each batch's guide from K4's
+    gamma on K1's emissions); then configs/attention_guided_frames.py with
+    its Gaussian teacher (15 EM iterations through K4, the guide from K4
+    every step)."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.eval.metrics import alignment_prf
+    from multimodalworddiscovery_tpu_torch.models import attention, hmm, hmm_gaussian, minibatch
+    from multimodalworddiscovery_tpu_torch.ops import counts as k1
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    print(f"path 11 (attention, config #3): N={corpus.n}, Ts={corpus.max_src_len}, "
+          f"Tt={corpus.max_trg_len}, dim {bk.MODEL_DIM}, B={bk.ATT_BATCH}, {ATT_STEPS} steps; the "
+          f"discrete teacher {TEACHER_ITERS} EM iterations")
+    gold_t = torch.as_tensor(gold.alignment, device=dev)
+    _reset(counters)
+    teacher, t_lls = hmm.train(hmm.init(corpus), corpus, TEACHER_ITERS)
+    t_f1 = float(alignment_prf(hmm.align(teacher, corpus), gold_t, corpus.src_mask())["f1"])
+    launches = {"teacher": _counts(counters)}
+    runs = {}
+    for name in ("unguided", "guided"):
+        state = attention.init(corpus, dim=bk.MODEL_DIM,
+                               generator=torch.Generator().manual_seed(SEED))
+        step_fn = attention.em_step
+        if name == "guided":
+            def step_fn(s, b):
+                return attention.em_step(s, b, guide=attention.hmm_guide_matrix(teacher, b))
+        losses = []
+        _reset(counters)
+        (state, _), ms = _timed(lambda: minibatch.train_minibatch(
+            _recording(step_fn, losses), state, corpus, bk.ATT_BATCH, ATT_STEPS,
+            generator=torch.Generator().manual_seed(SEED)))
+        launches[name] = _counts(counters)
+        prf = alignment_prf(attention.align(state, corpus), gold_t, corpus.src_mask())
+        runs[name] = dict(loss=(float(losses[0]), float(losses[-1])), ms=ms,
+                          prf={k: float(v) for k, v in prf.items()})
+        print(f"  {name}: loss {runs[name]['loss'][0]:.5f} at the first step, "
+              f"{runs[name]['loss'][1]:.5f} at the last; alignment {runs[name]['prf']}; "
+              f"launches {launches[name]}")
+        print(f"  [{card}] path 11 {name}: {ATT_STEPS} steps in {ms:.1f} ms, "
+              f"{ATT_STEPS * 1e3 / ms:.2f} steps/s (CUDA events)")
+        _check(runs[name]["loss"][1] < runs[name]["loss"][0],
+               f"path 11 {name}: the loss falls from the first step to the last")
+        batch = minibatch.gather_batch(corpus, torch.arange(bk.ATT_BATCH, device=dev))
+        _profile(lambda: step_fn(state, batch), f"one path 11 {name} step (B={bk.ATT_BATCH})", card)
+    print(f"  discrete teacher: loglik {t_lls.tolist()}, alignment F1 {t_f1:.5f}, launches "
+          f"{launches['teacher']}")
+    _check(launches["teacher"]["table_lookup"] > 0
+           and launches["teacher"]["hmm_estep_counts"] == TEACHER_ITERS,
+           "path 11: the discrete teacher trains through K1 and K2 (once per EM iteration)")
+    _check(launches["guided"]["hmm_estep"] == ATT_STEPS
+           and launches["guided"]["table_lookup"] == ATT_STEPS,
+           "path 11 guided: each batch's guide through K1 and K4")
+    _check(sum(launches["unguided"].values()) == 0, "path 11 unguided: no kernel")
+    f1_g, f1_u = runs["guided"]["prf"]["f1"], runs["unguided"]["prf"]["f1"]
+    _check(f1_g > f1_u, f"path 11: the guided run's alignment F1 exceeds the unguided run's "
+                        f"({f1_g:.5f} vs {f1_u:.5f})")
+    # the kernels at the shapes this path launches them: the teacher's corpus
+    # (K1, K2 as parity checks them, K3) and the guide's batch (K1, K4)
+    k2_teacher = parity(f"path 11's teacher corpus (N={corpus.n})", corpus)
+    concepts, fact = _estep_inputs(teacher, corpus)
+    k1_teacher = k1_check("path 11's teacher corpus", teacher.log_emit, corpus.src, concepts, 20)
+    k3_teacher = k3_parity(f"path 11's teacher corpus (S={concepts.shape[1]})",
+                           (*fact, k1.table_lookup(teacher.log_emit, corpus.src, concepts),
+                            corpus.src_len), 10)
+    batch = minibatch.gather_batch(corpus, torch.arange(bk.ATT_BATCH, device=dev))
+    k1_guide = k1_check(f"path 11's guide batch (B={bk.ATT_BATCH})", teacher.log_emit, batch.src,
+                        _estep_inputs(teacher, batch)[0], 20)
+    batch = batch.pad_to(batch.n + ZERO_LENGTH_PAD)
+    concepts, fact = _estep_inputs(teacher, batch)
+    k4_guide = k4_parity(f"path 11's guide batch (S={2 * batch.max_trg_len}, B={bk.ATT_BATCH})",
+                         (*fact, k1.table_lookup(teacher.log_emit, batch.src, concepts),
+                          batch.src_len), 10)
+    del batch, fact, concepts
+
+    # configs/attention_guided_frames.py: Gaussian teacher, full-batch steps
+    pc, pg, _ = make_flickr8k_mini(**GUIDED_FRAMES)
+    fc, fg, _ = phones_to_frames(pc, pg, **GUIDED_FRAMES_FEAT, device=dev)
+    print(f"path 11, configs/attention_guided_frames.py: N={fc.n}, Ts={fc.max_src_len}, "
+          f"D={fc.src.shape[-1]}, S={2 * fc.max_trg_len}, Gaussian teacher (K=2) "
+          f"{GUIDED_TEACHER_ITERS} EM iterations, {GUIDED_STEPS} full-batch steps")
+    _reset(counters)
+    gt = hmm_gaussian.init(fc, max_jump=3, n_components=2,
+                           generator=torch.Generator().manual_seed(SEED + 1))
+    gt, g_lls = hmm_gaussian.train(gt, fc, GUIDED_TEACHER_ITERS)
+    state = attention.init(fc, dim=bk.MODEL_DIM, learning_rate=3e-4,
+                           generator=torch.Generator().manual_seed(SEED))
+    losses = []
+
+    def guided_frames():
+        s = state
+        for _ in range(GUIDED_STEPS):
+            g = attention.hmm_guide_matrix(gt, fc, posteriors_fn=hmm_gaussian.posteriors)
+            s, stats = attention.em_step(s, fc, guide=g)
+            losses.append(stats["loss"])
+        return s
+
+    state, ms = _timed(guided_frames)
+    launches["guided_frames"] = _counts(counters)
+    gold_f = torch.as_tensor(fg.alignment, device=dev)
+    f1_s = float(alignment_prf(attention.align(state, fc), gold_f, fc.src_mask())["f1"])
+    f1_t = float(alignment_prf(hmm_gaussian.align(gt, fc), gold_f, fc.src_mask())["f1"])
+    print(f"  teacher loglik {g_lls.tolist()}; loss {float(losses[0]):.5f} at the first step, "
+          f"{float(losses[-1]):.5f} at the last; alignment F1 student {f1_s:.5f}, teacher "
+          f"{f1_t:.5f}; launches {launches['guided_frames']}")
+    print(f"  [{card}] path 11 guided frames: {GUIDED_STEPS} steps in {ms:.1f} ms, "
+          f"{GUIDED_STEPS * 1e3 / ms:.2f} steps/s (CUDA events, the guide's K4 included)")
+    _check(bool(np.all(np.isfinite(g_lls.cpu().numpy()))) and float(losses[-1]) < float(losses[0]),
+           "path 11 guided frames: teacher loglik finite, the student's loss falls")
+    _check(launches["guided_frames"]["hmm_estep"] == GUIDED_TEACHER_ITERS + GUIDED_STEPS,
+           "path 11 guided frames: K4 launched once per teacher EM iteration and per step")
+    # K4 at the guided frames' shape, on the trained Gaussian teacher's emissions
+    padded = fc.pad_to(fc.n + ZERO_LENGTH_PAD)
+    _, fact = _estep_inputs(gt, padded)
+    k4_frames = k4_parity(f"path 11's guided frames (S={2 * fc.max_trg_len}, N={fc.n})",
+                          (*fact, hmm_gaussian._log_emissions(gt, padded), padded.src_len), 10)
+    del padded, fact
+    return {"launches": launches, "teacher": teacher, "runs": runs,
+            "guided_frames_f1": (f1_s, f1_t),
+            "checks": {"k1_teacher": k1_teacher, "k1_guide": k1_guide, "k2_teacher": k2_teacher,
+                       "k3_teacher": k3_teacher, "k4_guide": k4_guide, "k4_frames": k4_frames}}
+
+
+def grounding_retrieval_phase(card: str, counters, dev, corpus, teacher) -> dict:
+    """Path 12: grounding (B=256 Adam minibatch steps on the N=8192 corpus
+    at dim 128; its pooled recall@5 c2i before and after), then pooled
+    retrieval (pool 32, both directions) for Model-1 through K1 (against
+    its plain route), the discrete HMM (path 11's teacher) and grounding."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.eval import retrieval
+    from multimodalworddiscovery_tpu_torch.models import grounding, hmm, minibatch, model1
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    cand = retrieval.sample_candidate_pools(corpus.n, bk.RETRIEVAL_POOL,
+                                            torch.Generator().manual_seed(SEED), device=dev)
+    print(f"path 12 (grounding and pooled retrieval): N={corpus.n}, pool {bk.RETRIEVAL_POOL}, "
+          f"grounding dim {bk.MODEL_DIM}, B={bk.GROUND_BATCH}, {GROUND_STEPS} steps")
+    state = grounding.init(corpus, dim=bk.MODEL_DIM, generator=torch.Generator().manual_seed(SEED))
+
+    def recall5(s):
+        scores = grounding.retrieval_scores_pooled(s, corpus, cand, "c2i")
+        return float(retrieval.recall_at_k_pooled(scores, direction="c2i")["recall@5_c2i"])
+
+    r5_before = recall5(state)
+    losses = []
+    _reset(counters)
+    (state, _), ms = _timed(lambda: minibatch.train_minibatch(
+        _recording(grounding.em_step, losses), state, corpus, bk.GROUND_BATCH, GROUND_STEPS,
+        generator=torch.Generator().manual_seed(SEED)))
+    launches = {"grounding": _counts(counters)}
+    r5_after = recall5(state)
+    print(f"  grounding: loss {float(losses[0]):.5f} at the first step, {float(losses[-1]):.5f} "
+          f"at the last; pooled recall@5 c2i {r5_before:.5f} before, {r5_after:.5f} after")
+    print(f"  [{card}] path 12 grounding: {GROUND_STEPS} steps in {ms:.1f} ms, "
+          f"{GROUND_STEPS * 1e3 / ms:.2f} steps/s (CUDA events)")
+    _check(float(losses[-1]) < float(losses[0]) and r5_after > r5_before,
+           "path 12 grounding: the loss falls and pooled recall@5 c2i rises")
+    batch = minibatch.gather_batch(corpus, torch.arange(bk.GROUND_BATCH, device=dev))
+    _profile(lambda: grounding.em_step(state, batch), f"one grounding step (B={bk.GROUND_BATCH})",
+             card)
+    m1, _ = model1.train(model1.init(corpus), corpus, EM_ITERS)
+    scorers = {
+        "model1": lambda d: retrieval.retrieval_scores_model1_pooled(m1, corpus, cand, d),
+        "hmm": lambda d: retrieval.retrieval_scores_hmm_family_pooled(hmm, teacher, corpus,
+                                                                      cand, d),
+        "grounding": lambda d: grounding.retrieval_scores_pooled(state, corpus, cand, d),
+    }
+    protocols = {}
+    _reset(counters)
+    for d in ("c2i", "i2c"):
+        for name, fn in scorers.items():
+            scores, ms = _timed(lambda: fn(d))
+            rec = retrieval.recall_at_k_pooled(scores, direction=d)
+            protocols[f"{name}_{d}"] = {"ms": ms, **{k: float(v) for k, v in rec.items()}}
+            _check(bool(torch.isfinite(scores).all()) and tuple(scores.shape)
+                   == (corpus.n, bk.RETRIEVAL_POOL), f"path 12 {name} {d}: finite [N, C] scores")
+    launches["retrieval"] = _counts(counters)
+    _profile(lambda: scorers["model1"]("c2i"), "path 12's pooled Model-1 scores, c2i (K1)",
+             card)
+    _profile(lambda: scorers["hmm"]("c2i"), "path 12's pooled HMM scores, c2i", card)
+    for k, r in protocols.items():
+        print(f"  [{card}] path 12 pooled {k}: {r['ms']:.3f} ms (CUDA events), recall@1 "
+              f"{r['recall@1_' + k[-3:]]:.5f}, @5 {r['recall@5_' + k[-3:]]:.5f}, @10 "
+              f"{r['recall@10_' + k[-3:]]:.5f}, median rank {r['median_rank_' + k[-3:]]}")
+    print(f"  kernel launches in path 12's retrieval: {launches['retrieval']}")
+    _check(launches["retrieval"]["table_lookup"] >= 2,
+           "path 12: Model-1's pooled scores through K1 in both directions")
+    for d in ("c2i", "i2c"):
+        got = scorers["model1"](d)
+        want = retrieval.retrieval_scores_model1_pooled(m1, corpus, cand, d, use_kernels=False)
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+        _check(torch.allclose(got, want, rtol=1e-5, atol=0),
+               f"path 12 Model-1 pooled {d}: K1's scores within rtol 1e-5 of plain (max rel "
+               f"{rel:.3e})")
+    rows = retrieval.PAIR_CHUNK_BYTES // (retrieval._model1_pair_bytes(corpus) * bk.RETRIEVAL_POOL)
+    paired = retrieval._paired(corpus, torch.arange(min(rows, corpus.n), device=dev),
+                               cand[:rows], "c2i")
+    k1r = k1_check("pooled retrieval's chunk (rows x C)", m1.log_t, paired.src,
+                   model1._extended_targets(paired)[0], 10)
+    del paired
+    return {"launches": launches, "k1": k1r, "protocols": protocols,
+            "recall5": (r5_before, r5_after)}
+
+
+def _uniform_bounds(seg_mask, src_len, t: int):
+    """The uniform baseline's boundaries [N, t+1]: as many segments per
+    utterance as ``seg_mask`` holds, of equal length (rounded down)."""
+    import torch
+
+    n = seg_mask.shape[0]
+    k = seg_mask.sum(dim=1)
+    j = torch.arange(t + 1, device=seg_mask.device)[None, :]
+    pos = torch.div(j * src_len[:, None].long(), k.clamp(min=1)[:, None], rounding_mode="floor")
+    ok = (j <= k[:, None]) & (k[:, None] > 0)
+    out = torch.zeros((n, t + 2), dtype=torch.bool, device=seg_mask.device)
+    out.scatter_(1, torch.where(ok, pos, t + 1), True)
+    return out[:, : t + 1]
+
+
+def segkmeans_dtw_phase(card: str, counters, dev) -> dict:
+    """Path 13: segmental k-means and its GMM variant on 13-dim frames of
+    N=2000 utterances (10 iterations each), boundary recall against the
+    uniform baseline; the DTW coherence of the gold segments of the golden
+    test's corpus against tests/golden_metrics.json."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.eval import dtw, metrics
+    from multimodalworddiscovery_tpu_torch.models import segmental_kmeans as skm
+    from multimodalworddiscovery_tpu_torch.segment import (
+        boundaries_from_segments, segments_from_alignment,
+    )
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    tok, tok_gold, _ = make_flickr8k_mini(**bk.SEGKMEANS_CORPUS)
+    fc, fg, _ = phones_to_frames(tok, tok_gold, **bk.SEGKMEANS_FRAMES, device=dev)
+    t = fc.max_src_len
+    gs, gm = segments_from_alignment(torch.as_tensor(fg.alignment, device=dev), fc.trg, fc.src_len)
+    gold_b = boundaries_from_segments(gs, gm, t)
+    print(f"path 13 (segmental k-means, DTW): N={fc.n}, Ts={t}, D={fc.src.shape[-1]}, "
+          f"{SEGKMEANS_ITERS} iterations each")
+    _reset(counters)
+    out = {}
+    for name in ("kmeans", "gmm"):
+        gen = torch.Generator().manual_seed(2)
+        if name == "kmeans":
+            p = skm.init(fc, n_clusters=64, generator=gen)
+            (p, lls), ms = _timed(lambda: skm.train(p, fc, SEGKMEANS_ITERS))
+            lls = lls.cpu().numpy()
+        else:
+            p = skm.init_gmm(fc, n_clusters=64, generator=gen)
+
+            def run(p=p):
+                lls = []
+                for _ in range(SEGKMEANS_ITERS):
+                    p, stats = skm.em_step_gmm(p, fc)
+                    lls.append(stats["loglik"])
+                return p, torch.stack(lls)
+
+            (p, lls), ms = _timed(run)
+            lls = lls.cpu().numpy()
+        (segs, mask), d_ms = _timed(lambda: skm.discover(p, fc))
+        pred = metrics.boundary_prf(boundaries_from_segments(segs, mask, t), gold_b, tolerance=1)
+        uni = metrics.boundary_prf(_uniform_bounds(mask, fc.src_len, t), gold_b, tolerance=1)
+        out[name] = dict(lls=lls, ms=ms / SEGKMEANS_ITERS, discover_ms=d_ms,
+                         recall=float(pred["recall"]), uniform_recall=float(uni["recall"]),
+                         f1=float(pred["f1"]), n_segments=int(mask.sum()))
+        print(f"  {name}: -distortion per iteration {lls.tolist()}; {int(mask.sum())} "
+              f"segments; boundary recall {out[name]['recall']:.5f} (F1 {out[name]['f1']:.5f}), "
+              f"uniform baseline recall {out[name]['uniform_recall']:.5f}")
+        print(f"  [{card}] path 13 {name}: {out[name]['ms']:.3f} ms/iter, discover "
+              f"{d_ms:.3f} ms (CUDA events)")
+        _check(bool(np.all(np.isfinite(lls))), f"path 13 {name}: objective finite")
+        _check(out[name]["recall"] > out[name]["uniform_recall"],
+               f"path 13 {name}: boundary recall beats the uniform baseline")
+    _profile(lambda: skm.em_step(skm.init(fc, n_clusters=64,
+                                          generator=torch.Generator().manual_seed(2)), fc),
+             "one path 13 k-means iteration", card)
+    d = -out["kmeans"]["lls"]
+    _check(bool(np.all(np.diff(d) <= 1e-5 * np.abs(d[:-1]))),
+           "path 13 k-means: the distortion does not increase (rtol 1e-5)")
+    launches = _counts(counters)
+    _check(sum(launches.values()) == 0, "path 13 k-means: no kernel (plain torch, as the "
+                                        "reference computes it in plain JAX)")
+    c, g, _ = make_flickr8k_mini(**DTW_CORPUS)
+    dfc, dfg, _ = phones_to_frames(c, g, **DTW_FRAMES, device=dev)
+    segs, mask = segments_from_alignment(torch.as_tensor(dfg.alignment, device=dev), dfc.trg,
+                                         dfc.src_len)
+    coh, ms = _timed(lambda: dtw.cluster_dtw_coherence(dfc.src, segs, mask,
+                                                       max_seg_len=DTW_MAX_SEG_LEN))
+    coh = {k: float(v) for k, v in coh.items()}
+    print(f"  DTW coherence of the gold segments (N={dfc.n}, {int(mask.sum())} segments): "
+          f"{coh}; golden {GOLDEN_DTW}")
+    print(f"  [{card}] path 13 cluster_dtw_coherence: {ms:.3f} ms (CUDA events)")
+    for k, want in GOLDEN_DTW.items():
+        _check(abs(coh[k] - want) <= 1e-3 + 0.02 * abs(want),
+               f"path 13 DTW {k} within rtol 0.02 (atol 1e-3) of tests/golden_metrics.json")
+    return {"launches": launches, "runs": out, "dtw": coh, "dtw_ms": ms}
 
 
 def main() -> int:
@@ -1705,6 +2202,7 @@ def main() -> int:
     from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
     from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
     from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2011,8 +2509,11 @@ def main() -> int:
     r_k, r_p = recipe[True], recipe[False]
     teach, gauss = r_k["launches"]
     _check(teach["table_lookup"] > 0 and teach["hmm_estep_counts"] == EM_ITERS
-           and teach["hmm_estep"] == 0 and teach["pair_counts"] == 0,
-           "K1 launched in the VQ teacher, K2 once per EM iteration, K4 and K7 never")
+           and teach["hmm_estep"] == 3 and teach["pair_counts"] == 0,
+           "K1 launched in the VQ teacher, K2 once per EM iteration, K4 once per seeding "
+           "round (the teacher's posteriors), K7 never")
+    _check(sum(r_p["launches"][0].values()) + sum(r_p["launches"][1].values()) == 0,
+           "the recipe's plain route launched no kernel")
     _check(gauss["hmm_estep"] > 0 and gauss["viterbi"] > 0,
            "K4 and K3 launched on the recipe's Gaussian EM and decode")
     _check(bool(np.all(np.isfinite(r_k["lls"]))), "recipe loglik finite")
@@ -2067,13 +2568,37 @@ def main() -> int:
     assoc = assoc_phase(card, kernels_all, dev)
     print(elapsed())
 
+    # --- path 10: Model-1 (K1), kernels then plain ---
+    m1 = model1_phase(card, kernels_all, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 11: the attention aligner, unguided and guided (K1, K2, K4) ---
+    mc, mg, _ = make_flickr8k_mini(**bk.MODELS_CORPUS, device=dev)
+    att = attention_phase(card, kernels_all, dev, mc, mg)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 12: grounding and pooled retrieval (K1) ---
+    ground = grounding_retrieval_phase(card, kernels_all, dev, mc, att["teacher"])
+    del mc, mg
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 13: segmental k-means and DTW ---
+    skd = segkmeans_dtw_phase(card, kernels_all, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---
     launches_bench = bench_phase(here, kernels_all)
     torch.cuda.empty_cache()
     print(elapsed())
 
     runs = (launches_headline, launches_gauss, teach, gauss, pipe, launches_bf16, launches_k6,
-            *crf["launches"].values(), dense["launches"], assoc["launches"], many["launches"])
+            *crf["launches"].values(), dense["launches"], assoc["launches"], many["launches"],
+            m1["launches"], *m1["dense_launches"].values(), *att["launches"].values(),
+            *ground["launches"].values(), skd["launches"])
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
     launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
     print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
@@ -2081,14 +2606,18 @@ def main() -> int:
     # K4's launch shapes: launches on the paths' kernel runs, time, bound and
     # plain time of each (K4-bf16: path 6's bf16 run at the CRF's S=8)
     crf_l = crf["launches"]
+    al, ac = att["launches"], att["checks"]
     k4_runs = {
-        "S64": (k4_stretch, launches_gauss["hmm_estep"] + gauss["hmm_estep"], 0),
+        "S64": (k4_stretch, launches_gauss["hmm_estep"] + gauss["hmm_estep"]
+                + teach["hmm_estep"], 0),
         "S128": (k4_128, dense["launches"]["hmm_estep"], 0),
         "S8_pipeline": (k4_s8["S8_pipeline"], pipe["hmm_estep"], 0),
         "S8_crf": (k4_s8["S8_crf"], sum(r["hmm_estep"] for r in crf_l.values()),
                    sum(r["hmm_estep_bf16"] for r in crf_l.values())),
         **{f"{k} (S={r['S']})": (r["k4"], many["launches"]["hmm_estep"] if k == "S~200" else 0,
                                  0) for k, r in many["shapes"].items()},
+        "S12_guide": (ac["k4_guide"], al["guided"]["hmm_estep"], 0),
+        "S8_guided_frames": (ac["k4_frames"], al["guided_frames"]["hmm_estep"], 0),
     }
     k4_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
@@ -2105,16 +2634,18 @@ def main() -> int:
         "S8_crf": (k4_s8["S8_crf"]["k3"], sum(r["viterbi"] for r in crf_l.values())),
         **{f"{k} (S={r['S']})": (r["k3"], many["launches"]["viterbi"] if k == "S~200" else 0)
            for k, r in many["shapes"].items()},
+        "S12_teacher": (ac["k3_teacher"], al["teacher"]["viterbi"]),
     }
     k3_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
                  for k, (r, n) in k3_runs.items()}
     # K2's and K2-bf16's: the headline (paths 1 and 5), the gate edge (no
-    # path) and the VQ teacher (path 3's seeding)
+    # path), the VQ teacher (path 3's seeding) and path 11's discrete teacher
     k2_runs = {"S12_headline": (errs, launches_headline["hmm_estep_counts"],
                                 launches_bf16["hmm_estep_counts_bf16"]),
                "S64_gate": (errs_edge, 0, 0),
-               "S64_teacher": (teacher, teach["hmm_estep_counts"], 0)}
+               "S64_teacher": (teacher, teach["hmm_estep_counts"], 0),
+               "S12_teacher": (ac["k2_teacher"], al["teacher"]["hmm_estep_counts"], 0)}
     k2_shapes = {k: {"launches": n, **r["k2"]} for k, (r, n, _) in k2_runs.items()}
     k2bf_shapes = {k: {"launches": nb, **r["k2bf"]} for k, (r, _, nb) in k2_runs.items()}
     print(f"[{card}] K2 per launch shape: {json.dumps(k2_shapes)}")
@@ -2125,16 +2656,35 @@ def main() -> int:
           f"{json.dumps({k: r['k6_ms'] for k, (r, _, _) in k4_runs.items()})}")
     print(f"[{card}] K3 per shape: {json.dumps(k3_shapes)}")
     # K1's launch shapes: the headline (paths 1 and 5), path 8, the VQ
-    # teacher (path 3's seeding)
+    # teacher (path 3's seeding), the S~200 EM, Model-1 (path 10's decode
+    # and its dense decodes against the concept space), path 11's teacher
+    # and guide batches, pooled retrieval (path 12)
+    m1l = {k: m1["dense_launches"][k]["table_lookup"] for k in ("Tt6", "Tt32")}
+    m1l["Tt6"] += m1["launches"]["table_lookup"]
     k1_launch = {"S12_headline": (k1_head, launches_headline["table_lookup"]
                                   + launches_bf16["table_lookup"]),
                  "S128_dense": (dense["k1"], dense["launches"]["table_lookup"]),
-                 "S64_teacher": (teacher["k1"], teach["table_lookup"])}
+                 "S64_teacher": (teacher["k1"], teach["table_lookup"]),
+                 "S~200": (many["k1"], many["launches"]["table_lookup"]),
+                 "model1_Tt6": (m1["k1"]["Tt6"], m1l["Tt6"]),
+                 "model1_Tt32": (m1["k1"]["Tt32"], m1l["Tt32"]),
+                 "S12_teacher": (ac["k1_teacher"], al["teacher"]["table_lookup"]),
+                 "S12_guide": (ac["k1_guide"], al["guided"]["table_lookup"]),
+                 "retrieval_pooled": (ground["k1"],
+                                      ground["launches"]["retrieval"]["table_lookup"])}
     k1_runs = [r for r, _ in k1_launch.values()]
     k1_shapes = {k: {"launches": n, **{f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")}}
                  for k, (r, n) in k1_launch.items()}
     print(f"[{card}] K1 per launch shape: {json.dumps(k1_shapes)}")
+    # every launch of K1-K4 on the paths' kernel runs lies at a shape whose
+    # kernel was held against its plain version above
+    for name, shapes in (("table_lookup", k1_shapes), ("hmm_estep_counts", k2_shapes),
+                         ("hmm_estep_counts_bf16", k2bf_shapes), ("viterbi", k3_shapes),
+                         ("hmm_estep", k4_shapes), ("hmm_estep_bf16", k4bf_shapes)):
+        at = sum(r["launches"] for r in shapes.values())
+        _check(at == launches[name], f"{name}: the {launches[name]} launches on the paths all "
+                                     f"lie at checked shapes ({at})")
     k8_big = k8_r[K8_SIZES[-1]]
     k8_errs = [r["err"] for r in k8_r.values()] + [
         e for r in assoc["shapes"].values() for e in (r["err"], r["prefix_err"])]

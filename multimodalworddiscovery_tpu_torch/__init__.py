@@ -18,7 +18,9 @@ a CPU corpus.
 Ported so far (slice 1, the headline discrete-HMM path; slice 2, the
 Gaussian-HMM aligner of the stretch config; slice 3, the speech frontend
 and config #4's waveform pipeline; slice 4, the DNN-HMM and end-to-end CRF
-aligners and the bf16 and remat E-step variants):
+aligners and the bf16 and remat E-step variants; slice 10, Model-1, the
+attention and grounding aligners, segmental k-means, minibatch training,
+the registry, retrieval and DTW):
 
 core      NEG_INF log-semiring helpers, masking, gather/scatter counts
 data      torch ``Corpus`` (ids or frames), ``GoldAnnotations``,
@@ -29,12 +31,20 @@ ops       K1 emission lookup, K2 fused E-step, K4 general E-step (both
           MFCC (CUDA) + plain versions
 models    hmm_core (state space, fwd/bwd, Viterbi), hmm (discrete EM,
           align), hmm_gaussian (GMM emissions, VQ teacher, annealed EM),
-          hmm_dnn (MLP emissions, generalized EM with Adam) and hmm_crf
-          (gradients through the E-step, CRF transition moments)
+          hmm_dnn (MLP emissions, generalized EM with Adam), hmm_crf
+          (gradients through the E-step, CRF transition moments), model1
+          (IBM Model-1 EM; its pair log-probs through K1), attention
+          (transformer aligner, AdamW, the HMM guide through K4), grounding
+          (matchmap contrastive baseline), segmental_kmeans (ES-KMeans and
+          its GMM variant), minibatch (on-device minibatch steps), registry
+          (name -> aligner) and flax_params (flax trees onto the modules)
 frontend  speech (MFCC / log-mel, deltas, CMVN), vq (k-means quantizer)
 segment   alignment -> word units, boundaries
-eval      alignment, word IoU, boundary, purity and NMI metrics
-scripts   run_pipeline (config #4), extract_features (speech)
+eval      alignment, word IoU, boundary, purity and NMI metrics; retrieval
+          (full and pooled scores, ranks, recall); dtw (batched DTW,
+          segment coherence)
+scripts   run_pipeline (config #4), extract_features (speech), the
+          kernel and model benchmarks
 utils     audio (WAV read and write)
 """
 

@@ -1,5 +1,6 @@
-"""Evaluation metrics, computed on the device: alignment, word IoU,
-boundary, purity and NMI."""
+"""Evaluation on the device: alignment, word IoU, boundary, purity and NMI
+metrics (``metrics``), cross-modal retrieval scores and recall
+(``retrieval``) and segment DTW (``dtw``)."""
 
 from multimodalworddiscovery_tpu_torch.eval.metrics import (
     alignment_prf,

@@ -252,7 +252,15 @@ def align(
     return hmm_core.path_to_alignment(path, corpus)
 
 
-def posteriors(params: HMMParams, corpus: Corpus) -> torch.Tensor:
-    """State posteriors [N, Ts, S] (plain fwd-bwd, as in the reference)."""
+def posteriors(
+    params: HMMParams, corpus: Corpus, use_kernels: bool | None = None
+) -> torch.Tensor:
+    """State posteriors [N, Ts, S]: with ``use_kernels=True`` (None: on a
+    CUDA corpus) K4's gamma (``hmm_core.estep``) on K1's emissions, else
+    the plain forward-backward, as in the reference."""
+    if kernels_for(use_kernels, corpus.device):
+        emit = counts_ops.table_lookup(params.log_emit, corpus.src, hmm_core.state_concepts(corpus))
+        return hmm_core.estep(params.log_jump, params.log_p0, params.max_jump, emit, corpus,
+                              use_kernels=True)[0]
     log_init, log_trans, log_emit = _machinery(params, corpus)
     return hmm_core.posteriors_from(log_init, log_trans, log_emit, corpus)

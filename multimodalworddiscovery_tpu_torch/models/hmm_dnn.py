@@ -38,7 +38,7 @@ from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm_core
 
 # flax's lecun_normal: the std of a unit normal truncated at +-2
-_TRUNC_STD = 0.87962566103423978
+TRUNC_STD = 0.87962566103423978
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
@@ -63,12 +63,12 @@ class EmissionMLP(nn.Module):
         ``generator`` (Dense_0, Dense_1, Dense_2 in order)."""
         with torch.no_grad():
             for layer in self.dense:
-                std = 1.0 / math.sqrt(layer.in_features) / _TRUNC_STD
-                layer.weight.copy_(_truncated_normal(layer.weight.shape, generator) * std)
+                std = 1.0 / math.sqrt(layer.in_features) / TRUNC_STD
+                layer.weight.copy_(truncated_normal(layer.weight.shape, generator) * std)
                 layer.bias.zero_()
 
 
-def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+def truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """Unit normals truncated at +-2, on the CPU: ``torch.randn`` draws with
     the draws outside the interval drawn again.  (``nn.init.trunc_normal_``
     is not used: its algorithm, and so its numbers for one seed, changed
@@ -96,8 +96,13 @@ def adam_init(tensors) -> AdamState:
     return AdamState(count=0, mu=zeros, nu=tuple(torch.zeros_like(z) for z in zeros))
 
 
-def adam_update(grads, state: AdamState, lr: float) -> tuple[list[torch.Tensor], AdamState]:
-    """optax.adam(lr)'s update: (updates to add to the parameters, state)."""
+def adam_update(
+    grads, state: AdamState, lr: float, weight_decay: float = 0.0, params=None,
+) -> tuple[list[torch.Tensor], AdamState]:
+    """optax.adam(lr)'s update: (updates to add to the parameters, state).
+    With ``weight_decay`` it is optax.adamw(lr, weight_decay=...)'s: the
+    decay times ``params`` (every parameter, biases and norm scales too)
+    is added to the Adam direction before the learning rate scales it."""
     count = state.count + 1
     mu = tuple((1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, state.mu))
     nu = tuple((1 - ADAM_B2) * g * g + ADAM_B2 * v for g, v in zip(grads, state.nu))
@@ -105,8 +110,10 @@ def adam_update(grads, state: AdamState, lr: float) -> tuple[list[torch.Tensor],
     # then as Python floats (exact), so no tensor is sent to the device
     bc1 = float(1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** count)
     bc2 = float(1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** count)
-    updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)) for m, v in zip(mu, nu)]
-    return updates, AdamState(count=count, mu=mu, nu=nu)
+    direction = [(m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS) for m, v in zip(mu, nu)]
+    if weight_decay:
+        direction = [u + weight_decay * p.detach() for u, p in zip(direction, params)]
+    return [-lr * u for u in direction], AdamState(count=count, mu=mu, nu=nu)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,6 +38,7 @@ from multimodalworddiscovery_tpu_torch.core.logsemiring import masked_logsumexp
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm as dhmm
 from multimodalworddiscovery_tpu_torch.models import hmm_core
+from multimodalworddiscovery_tpu_torch.ops import kernels_for
 
 _LOG_2PI = 1.8378770664093453
 
@@ -425,9 +426,19 @@ def align(
     return hmm_core.path_to_alignment(path, corpus)
 
 
-def posteriors(params: GaussianHMMParams, corpus: Corpus) -> torch.Tensor:
-    """State posteriors [N, Ts, S] (plain fwd-bwd, as in the reference)."""
-    log_init, log_trans, log_emit = _machinery(params, corpus)
+def posteriors(
+    params: GaussianHMMParams, corpus: Corpus, use_kernels: bool | None = None
+) -> torch.Tensor:
+    """State posteriors [N, Ts, S]: with ``use_kernels=True`` (None: on a
+    CUDA corpus) K4's gamma (``hmm_core.estep``), else the plain
+    forward-backward, as in the reference."""
+    log_emit = _log_emissions(params, corpus)
+    if kernels_for(use_kernels, corpus.device):
+        return hmm_core.estep(params.log_jump, params.log_p0, params.max_jump, log_emit,
+                              corpus, use_kernels=True)[0]
+    log_trans = hmm_core.build_log_trans(params.log_jump, params.log_p0, corpus,
+                                         params.max_jump)
+    log_init = hmm_core.build_log_init(params.log_p0, corpus)
     return hmm_core.posteriors_from(log_init, log_trans, log_emit, corpus)
 
 
@@ -585,7 +596,7 @@ def init_vq_teacher(
          and K2 with ``use_kernels=True``);
       3. ``seed_rounds`` rounds of (teacher-posterior responsibility counts
          -> ``m_step``), the Gaussian emissions fit against the teacher's
-         concept posteriors;
+         concept posteriors (through K1 and K4 with ``use_kernels=True``);
       4. the teacher's transitions (log_jump / log_p0) are copied over.
 
     Follow with annealed EM (``train(anneal=...)``).  ``chunks`` > 1 bounds
@@ -601,7 +612,8 @@ def init_vq_teacher(
         use_kernels=use_kernels,
     )
     return seed_from_teacher(
-        base, corpus, code_corpus, tp, seed_rounds=seed_rounds, chunks=chunks
+        base, corpus, code_corpus, tp, seed_rounds=seed_rounds, chunks=chunks,
+        use_kernels=use_kernels,
     )
 
 
@@ -612,10 +624,13 @@ def seed_from_teacher(
     teacher: dhmm.HMMParams,
     seed_rounds: int = 3,
     chunks: int = 1,
+    use_kernels: bool | None = None,
 ) -> GaussianHMMParams:
     """Fit the Gaussian emissions against a discrete-HMM ``teacher``'s
     concept posteriors over ``code_corpus`` (``seed_rounds`` rounds of
-    pinned-assignment GMM EM), then copy the teacher's transitions."""
+    pinned-assignment GMM EM; the posteriors through K1 and K4 with
+    ``use_kernels``, None: on a CUDA corpus), then copy the teacher's
+    transitions."""
     nchunk = max(int(chunks), 1)
     csz = -(-corpus.n // nchunk)
     zero_w = torch.zeros(2 * base.max_jump + 3, device=base.means.device)
@@ -625,7 +640,8 @@ def seed_from_teacher(
         for i in range(nchunk):
             sl = slice(i * csz, (i + 1) * csz)
             sub_fc, sub_cc = _take(corpus, sl), _take(code_corpus, sl)
-            r = teacher_responsibilities(dhmm.posteriors(teacher, sub_cc), sub_fc)
+            gamma = dhmm.posteriors(teacher, sub_cc, use_kernels=use_kernels)
+            r = teacher_responsibilities(gamma, sub_fc)
             cts = counts_from_responsibilities(gp, sub_fc, r, zero_w)
             total = cts if total is None else {k: total[k] + v for k, v in cts.items()}
         gp = m_step(gp, total)

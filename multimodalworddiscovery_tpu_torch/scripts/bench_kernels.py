@@ -15,12 +15,23 @@ paced by the host) and ``log_matmul`` (K8 and K8-bf16 at square sizes 512,
 1024 and 2048 from 5 * normal, the broadcast library form at <= 1024, as
 the reference; then K8 on the first combine of ``scripts/bench_assoc.py``'s
 S64 and S128 step matrices, parameters after 10 EM iterations, with the
-share of elements its guard took where the tree counts them).  The reference's other entries (em, hmm_estep, viterbi,
-models, model1_align, detector, retrieval) wait for their modules
-(ROADMAP queue 1).
+share of elements its guard took where the tree counts them), and three
+entries of whole functions: ``model1_align`` (Model-1 after 10 EM
+iterations at the reference's Tt6 shape, N=8000, and Tt32 shape, N=2048
+with 24-32 concepts: the EM iteration, the dense decode through K1 and
+through the plain gather, and the concept-space decode), ``models``
+(minibatch steps of the attention aligner at B=512 and of the grounding
+model at B=256 on the N=8192 corpus at dim 128, with each step's
+operations from ``torch.utils.flop_counter``; segmental k-means EM
+iterations and discover on N=2000 utterances of 13-dim frames) and
+``retrieval`` (pooled scores, pool 32, on the N=8192 corpus, both
+directions: Model-1 through K1 and plain, the discrete HMM, grounding).
+The reference's entries em, hmm_estep, viterbi and detector have their
+counterparts in ``bench_estep`` or wait for their modules (ROADMAP queue 1).
 
     python -m multimodalworddiscovery_tpu_torch.scripts.bench_kernels \\
-        [--only mfcc counts log_matmul] [--reps 10] [--out build/bench/kernels.jsonl]
+        [--only mfcc counts log_matmul model1_align models retrieval] [--reps 10] \\
+        [--out build/bench/kernels.jsonl]
 
 Each record is printed as one JSON line and appended to ``--out`` (default
 ``build/bench/kernels.jsonl`` in the repository), with the card's name and
@@ -44,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-BENCHES = ("mfcc", "counts", "log_matmul")
+BENCHES = ("mfcc", "counts", "log_matmul", "model1_align", "models", "retrieval")
 DEFAULT_OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "bench" / "kernels.jsonl"
 # bench.py's headline corpus, and the dense-caption S=128 row of the
 # reference's estep benchmark (scripts/bench_kernels.py:261-263)
@@ -69,6 +80,25 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 LOG_MATMUL_SIZES = (512, 1024, 2048)
+# scripts/bench_kernels.py:392-401 (bench_model1_align's two target densities)
+MODEL1_SHAPES = {
+    "Tt6": dict(n_utterances=8000, n_concepts=60, n_phones=48, min_concepts=3,
+                max_concepts=6, seed=0),
+    "Tt32": dict(n_utterances=2048, n_concepts=200, n_phones=48, min_concepts=24,
+                 max_concepts=32, min_word_len=3, max_word_len=5, seed=1),
+}
+# the corpus of bench_models and bench_retrieval (scripts/bench_kernels.py:489,
+# 619) at dim 128, the attention aligner's minibatch of 512 and grounding's
+# of 256, and bench_models' segmental k-means corpus and frames (:548-556);
+# chip_smoke.py's paths 10-13 run on these too
+MODELS_CORPUS = dict(n_utterances=8192, n_concepts=60, n_phones=48, min_concepts=3,
+                     max_concepts=6, seed=0)
+MODEL_DIM = 128
+ATT_BATCH, GROUND_BATCH = 512, 256
+SEGKMEANS_CORPUS = dict(n_utterances=2000, n_concepts=60, n_phones=48, min_concepts=3,
+                        max_concepts=6, seed=3)
+SEGKMEANS_FRAMES = dict(feat_dim=13, noise=0.1, seed=3)
+RETRIEVAL_POOL = 32
 LIBRARY_MAX_SIZE = 1024  # the broadcast [I, K, J] form: 4.3 GB at 1024
 
 
@@ -346,6 +376,123 @@ def bench_log_matmul(record: Recorder, reps: int, dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+def bench_model1_align(record: Recorder, reps: int, dev: torch.device) -> None:
+    """Model-1 at the reference's two target densities, parameters after 10
+    EM iterations: one EM iteration, the dense decode through K1 and
+    through the plain gather, and the concept-space decode (with its
+    agreement with the dense one); K1's bound at the decode's launch."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import model1
+
+    for label, gen in MODEL1_SHAPES.items():
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        params, _ = model1.train(model1.init(corpus), corpus, 10)
+        stats = model1._count_stats(corpus)
+        trg_ext, _ = model1._extended_targets(corpus)
+        dense = model1._align_dense(params, corpus)
+        shape = dict(shape=label, N=corpus.n, T=corpus.max_src_len, Tt=corpus.max_trg_len)
+        record(kernel="model1_em_iteration", **shape,
+               ms=gpu_ms(lambda: model1.em_step(params, corpus, stats=stats), reps))
+        for name, fn in (
+            ("model1_align_dense", lambda: model1._align_dense(params, corpus, True)),
+            ("model1_align_dense_plain", lambda: model1._align_dense(params, corpus, False)),
+            ("model1_align_concept_space", lambda: model1._align_concept_space(params, corpus)),
+        ):
+            ms = gpu_ms(fn, reps)
+            rec = dict(kernel=name, **shape, ms=ms, utt_per_sec=corpus.n * 1e3 / ms)
+            if name == "model1_align_dense":
+                rec |= {f"k1_{k}": v for k, v in bound(
+                    4 * (params.log_t.numel() + corpus.src.numel() + trg_ext.numel()
+                         + corpus.src.numel() * trg_ext.shape[1]), 0.0).items()}
+            else:
+                rec["agree_vs_dense"] = float((fn() == dense).float().mean())
+            record(**rec)
+        del corpus, params, stats, dense
+        torch.cuda.empty_cache()
+
+
+def _flops(fn) -> float:
+    """Floating-point operations of one call of ``fn`` as
+    ``torch.utils.flop_counter`` counts them (matmuls and convolutions)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def bench_models(record: Recorder, reps: int, dev: torch.device) -> None:
+    """Minibatch steps of the gradient models on the N=8192 corpus at dim
+    128 (attention AdamW at B=512, grounding Adam at B=256; ms a step over
+    ``reps`` steps, each drawing its batch), and segmental k-means (EM
+    iterations and discover) on N=2000 utterances of 13-dim frames."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.models import (
+        attention, grounding, minibatch, segmental_kmeans,
+    )
+
+    corpus, _, _ = make_flickr8k_mini(**MODELS_CORPUS, device=dev)
+    for name, mod, batch in (("attention_minibatch_step", attention, ATT_BATCH),
+                             ("grounding_minibatch_step", grounding, GROUND_BATCH)):
+        state = [mod.init(corpus, dim=MODEL_DIM, generator=torch.Generator().manual_seed(0))]
+        gen = torch.Generator().manual_seed(1)
+        step = minibatch.make_minibatch_step(mod.em_step, corpus, batch)
+
+        def run(step=step, state=state, gen=gen):  # each call steps from the last state
+            state[0] = step(state[0], gen)[0]
+
+        ms = gpu_ms(run, reps)
+        flops = _flops(lambda: mod.em_step(state[0], minibatch.gather_batch(
+            corpus, torch.arange(batch, device=dev))))
+        record(kernel=name, batch=batch, N=corpus.n, dim=MODEL_DIM, ms_per_step=ms,
+               steps_per_sec=1e3 / ms, utt_per_sec=batch * 1e3 / ms, flops_per_step=flops,
+               flops_per_sec=flops * 1e3 / ms)
+    del corpus
+    tok, tok_gold, _ = make_flickr8k_mini(**SEGKMEANS_CORPUS)
+    fc, _, _ = phones_to_frames(tok, tok_gold, **SEGKMEANS_FRAMES, device=dev)
+    params = segmental_kmeans.init(fc, n_clusters=64, generator=torch.Generator().manual_seed(2))
+    ms = gpu_ms(lambda: segmental_kmeans.em_step(params, fc), max(reps // 2, 1))
+    record(kernel="segkmeans_em", N=fc.n, T=fc.max_src_len, ms_per_iter=ms,
+           utt_iter_per_sec=fc.n * 1e3 / ms)
+    segs, mask = segmental_kmeans.discover(params, fc)
+    ms = gpu_ms(lambda: segmental_kmeans.discover(params, fc), max(reps // 2, 1))
+    record(kernel="segkmeans_discover", N=fc.n, n_segments=int(mask.sum()), ms=ms,
+           utt_per_sec=fc.n * 1e3 / ms, segments_per_sec=int(mask.sum()) * 1e3 / ms)
+    del fc, params, segs, mask
+    torch.cuda.empty_cache()
+
+
+def bench_retrieval(record: Recorder, reps: int, dev: torch.device) -> None:
+    """Pooled retrieval (pool 32) on the N=8192 corpus, both directions:
+    Model-1 through K1 and through the plain gather, the discrete HMM's
+    forward, and grounding's matchmap, in scored pairs a second."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.eval import retrieval
+    from multimodalworddiscovery_tpu_torch.models import grounding, hmm, model1
+
+    corpus, _, _ = make_flickr8k_mini(**MODELS_CORPUS, device=dev)
+    cand = retrieval.sample_candidate_pools(corpus.n, RETRIEVAL_POOL,
+                                            torch.Generator().manual_seed(0), device=dev)
+    m1, hp = model1.init(corpus), hmm.init(corpus)
+    gr = grounding.init(corpus, dim=MODEL_DIM, generator=torch.Generator().manual_seed(1))
+    for d in ("c2i", "i2c"):
+        for name, fn in (
+            (f"retrieval_model1_pooled_{d}",
+             lambda: retrieval.retrieval_scores_model1_pooled(m1, corpus, cand, d, True)),
+            (f"retrieval_model1_pooled_plain_{d}",
+             lambda: retrieval.retrieval_scores_model1_pooled(m1, corpus, cand, d, False)),
+            (f"retrieval_hmm_pooled_{d}",
+             lambda: retrieval.retrieval_scores_hmm_family_pooled(hmm, hp, corpus, cand, d)),
+            (f"retrieval_grounding_pooled_{d}",
+             lambda: grounding.retrieval_scores_pooled(gr, corpus, cand, d)),
+        ):
+            ms = gpu_ms(fn, max(reps // 5, 1))
+            record(kernel=name, N=corpus.n, pool=RETRIEVAL_POOL, ms=ms,
+                   pairs_per_sec=corpus.n * RETRIEVAL_POOL * 1e3 / ms)
+    del corpus, cand
+    torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=pathlib.Path, default=DEFAULT_OUT)
@@ -356,7 +503,9 @@ def main(argv: list[str] | None = None) -> None:
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     record = Recorder(args.out)
-    fns = dict(mfcc=bench_mfcc, counts=bench_counts, log_matmul=bench_log_matmul)
+    fns = dict(mfcc=bench_mfcc, counts=bench_counts, log_matmul=bench_log_matmul,
+               model1_align=bench_model1_align, models=bench_models,
+               retrieval=bench_retrieval)
     for name in args.only or BENCHES:
         fns[name](record, args.reps, dev)
 

@@ -983,3 +983,81 @@ def test_general_route_launches_k1_k4_k7(dev):
     (ec, _), _ = hmm.expected_counts(params, corpus, use_kernels=True)
     (ec_p, _), _ = hmm.expected_counts(params, corpus, use_kernels=False)
     torch.testing.assert_close(ec, ec_p, rtol=0, atol=1e-4 * float(ec_p.max()))
+
+
+@pytest.mark.parametrize("gen", [
+    dict(n_utterances=300, n_concepts=60, min_concepts=3, max_concepts=6, seed=0),
+    dict(n_utterances=64, n_concepts=200, min_concepts=24, max_concepts=32, min_word_len=3,
+         max_word_len=5, seed=1),
+])
+def test_k1_at_model1_shapes_exact(dev, gen):
+    """K1 on Model-1's pair log-probs (concepts [N, 1+Tt] with the NULL
+    column 0) equals the plain gather bit for bit, and so do Model-1's
+    posteriors and align through it; ``_align_concept_space`` equals the
+    dense decode on the card."""
+    from multimodalworddiscovery_tpu_torch.models import model1
+
+    corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+    corpus = corpus.pad_to(corpus.n + 3)
+    params, _ = model1.train(model1.init(corpus), corpus, 3)
+    trg_ext, _ = model1._extended_targets(corpus)
+    before = k1.table_lookup.launches
+    got = k1.table_lookup(params.log_t, corpus.src, trg_ext)
+    assert k1.table_lookup.launches == before + 1
+    assert torch.equal(got, k1.table_lookup_plain(params.log_t, corpus.src, trg_ext))
+    assert torch.equal(model1.posteriors(params, corpus),
+                       model1.posteriors(params, corpus, use_kernels=False))
+    dense = model1.align(params, corpus)
+    assert torch.equal(dense, model1.align(params, corpus, use_kernels=False))
+    assert torch.equal(dense, model1._align_concept_space(params, corpus))
+
+
+@pytest.mark.parametrize("direction", ["c2i", "i2c"])
+def test_k1_at_pooled_retrieval_rows_exact(dev, direction):
+    """Pooled retrieval's K1 launch (rows x C paired rows) equals the plain
+    gather bit for bit, one launch a chunk, and the scores equal the plain
+    route's."""
+    from multimodalworddiscovery_tpu_torch.eval import retrieval
+    from multimodalworddiscovery_tpu_torch.models import model1
+
+    corpus, _, _ = make_flickr8k_mini(n_utterances=200, n_concepts=60, min_concepts=3,
+                                      max_concepts=6, seed=2, device=dev)
+    params, _ = model1.train(model1.init(corpus), corpus, 3)
+    cand = retrieval.sample_candidate_pools(corpus.n, 16, torch.Generator().manual_seed(0),
+                                            device=dev)
+    paired = retrieval._paired(corpus, torch.arange(corpus.n, device=dev), cand, direction)
+    trg_ext, _ = model1._extended_targets(paired)
+    got = k1.table_lookup(params.log_t, paired.src, trg_ext)
+    assert torch.equal(got, k1.table_lookup_plain(params.log_t, paired.src, trg_ext))
+    before = k1.table_lookup.launches
+    scores = retrieval.retrieval_scores_model1_pooled(params, corpus, cand, direction)
+    assert k1.table_lookup.launches == before + 1  # one chunk at this size
+    plain = retrieval.retrieval_scores_model1_pooled(params, corpus, cand, direction,
+                                                     use_kernels=False)
+    assert torch.equal(scores, plain)
+
+
+def test_guide_k4_gamma_matches_plain_posteriors(dev):
+    """The guide's posteriors through K4 (discrete teacher on K1's
+    emissions; Gaussian teacher) against the plain forward-backward: K4's
+    bounds (gamma rtol 1e-3 atol 1e-4), and the guides built from them."""
+    from multimodalworddiscovery_tpu_torch.models import attention
+
+    corpus, gold, _ = make_flickr8k_mini(**CASES["S12"], device=dev)
+    corpus = corpus.pad_to(corpus.n + 3)
+    hp, _ = hmm.train(hmm.init(corpus), corpus, 3)
+    before = k2.hmm_estep.launches
+    gamma = hmm.posteriors(hp, corpus)
+    assert k2.hmm_estep.launches == before + 1
+    torch.testing.assert_close(gamma, hmm.posteriors(hp, corpus, use_kernels=False),
+                               rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(attention.hmm_guide_matrix(hp, corpus),
+                               attention.hmm_guide_matrix(hp, corpus, use_kernels=False),
+                               rtol=1e-3, atol=1e-4)
+    c, g, _ = make_flickr8k_mini(n_utterances=40, seed=3)
+    fc, _, _ = phones_to_frames(c, g, feat_dim=13, seed=3, device=dev)
+    gp = hmm_gaussian.init(fc, n_components=2, generator=torch.Generator().manual_seed(0))
+    gp, _ = hmm_gaussian.train(gp, fc, 3)
+    torch.testing.assert_close(hmm_gaussian.posteriors(gp, fc),
+                               hmm_gaussian.posteriors(gp, fc, use_kernels=False),
+                               rtol=1e-3, atol=1e-4)

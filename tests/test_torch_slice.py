@@ -36,24 +36,39 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.data.corpus",
     "multimodalworddiscovery_tpu_torch.data.synthetic",
     "multimodalworddiscovery_tpu_torch.eval",
+    "multimodalworddiscovery_tpu_torch.eval.dtw",
     "multimodalworddiscovery_tpu_torch.eval.metrics",
+    "multimodalworddiscovery_tpu_torch.eval.retrieval",
     "multimodalworddiscovery_tpu_torch.frontend",
     "multimodalworddiscovery_tpu_torch.frontend.speech",
     "multimodalworddiscovery_tpu_torch.frontend.vq",
     "multimodalworddiscovery_tpu_torch.models",
+    "multimodalworddiscovery_tpu_torch.models.attention",
+    "multimodalworddiscovery_tpu_torch.models.flax_params",
+    "multimodalworddiscovery_tpu_torch.models.grounding",
     "multimodalworddiscovery_tpu_torch.models.hmm",
     "multimodalworddiscovery_tpu_torch.models.hmm_core",
     "multimodalworddiscovery_tpu_torch.models.hmm_crf",
     "multimodalworddiscovery_tpu_torch.models.hmm_dnn",
     "multimodalworddiscovery_tpu_torch.models.hmm_gaussian",
+    "multimodalworddiscovery_tpu_torch.models.minibatch",
+    "multimodalworddiscovery_tpu_torch.models.model1",
+    "multimodalworddiscovery_tpu_torch.models.registry",
+    "multimodalworddiscovery_tpu_torch.models.segmental_kmeans",
     "multimodalworddiscovery_tpu_torch.ops",
     "multimodalworddiscovery_tpu_torch.ops._build",
     "multimodalworddiscovery_tpu_torch.ops.counts",
     "multimodalworddiscovery_tpu_torch.ops.hmm_fwdbwd",
+    "multimodalworddiscovery_tpu_torch.ops.log_semiring",
     "multimodalworddiscovery_tpu_torch.ops.mfcc",
     "multimodalworddiscovery_tpu_torch.ops.viterbi",
     "multimodalworddiscovery_tpu_torch.scripts",
+    "multimodalworddiscovery_tpu_torch.scripts.ab_tree",
+    "multimodalworddiscovery_tpu_torch.scripts.bench_assoc",
+    "multimodalworddiscovery_tpu_torch.scripts.bench_estep",
+    "multimodalworddiscovery_tpu_torch.scripts.bench_kernels",
     "multimodalworddiscovery_tpu_torch.scripts.extract_features",
+    "multimodalworddiscovery_tpu_torch.scripts.k8_phases",
     "multimodalworddiscovery_tpu_torch.scripts.run_pipeline",
     "multimodalworddiscovery_tpu_torch.segment",
     "multimodalworddiscovery_tpu_torch.utils",
