@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives thirteen paths through the kernels
+shapes the main paths give it, then drives fifteen paths through the kernels
 (paths 1-4, 6, 8, 10 and 12 also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
@@ -69,7 +69,31 @@ shapes the main paths give it, then drives thirteen paths through the kernels
 13. segmental k-means and its GMM variant on 13-dim frames at the
     pipeline's scale (N=2000, 10 iterations each), boundary recall against
     a uniform segmentation, and the DTW coherence of the gold segments of
-    ``test_golden_dtw_coherence``'s corpus against tests/golden_metrics.json.
+    ``test_golden_dtw_coherence``'s corpus against tests/golden_metrics.json;
+14. the image branch, whose convolutions and products are cuDNN's and
+    cuBLAS's (no Pallas kernel in the reference; none of K1-K8 runs):
+    VGG16 at full width (1000 classes, fc 4096, 224 x 224 crops; random
+    weights from a CPU generator) on 16 rendered images of 128 x 128, region
+    embeddings of 8 boxes each and the images' concepts after the resize to
+    224, held on 2 images to the same weights on the CPU (rtol 1e-3, atol
+    1e-4 x the largest |ref|), ms per image and crops/s;
+    ``scripts/train_detector`` at its defaults (256 images, 400 steps; loss
+    falling, train and held-out recall@0.5 >= 0.7); and
+    ``scripts/image_pipeline.run_image_pipeline`` at its defaults (N=400:
+    render, detector, proposals, crops, grounding): detector recall and
+    alignment accuracy within 0.05 of the JAX reference from the same
+    initial weights (tests/image_reference.py), recall@1/5/10 printed
+    beside it; and its grounding stage run from the reference's own
+    proposals: the loss over steps 0-5 within rtol 1e-4 of the JAX
+    stage's, alignment accuracy within 0.05;
+15. the end-to-end CRF on minibatches through K4 (the port's
+    bench_kernels hmm_crf_minibatch_step row: N=2048, B=256, learned
+    transitions, 40 steps; and tests/test_hmm_crf.py:172's size, N=80,
+    B=40, accuracy > 0.9), K4 checked at each run's batch shape and K3 at
+    its decode; then the dense ``hmm_core.viterbi`` at the reference's
+    viterbi_dense rows (S12 N=8000, S128 N=512) after one EM step, its
+    emissions from K1, against ``viterbi_factored`` through K3 (paths
+    equal except at counted ties, scores within rtol 1e-5), ms per decode.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
 gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
@@ -284,6 +308,58 @@ DTW_CORPUS = dict(n_utterances=60, seed=42)
 DTW_FRAMES = dict(feat_dim=8, noise=0.05, seed=42)
 DTW_MAX_SEG_LEN = 16
 GOLDEN_DTW = {"within": 0.0787, "across": 6.9912, "ratio": 0.0113}
+# path 14, the image branch.  (a) VGG16 at full width (1000 classes, fc
+# 4096, 224 x 224 crops), random-init from a CPU generator seeded 0, on 16
+# rendered images of 128 x 128 with 8 boxes each (images_for_corpus on a
+# corpus of 8 concepts an image); the card held to the same weights on the
+# CPU on 2 of them, rtol 1e-3 and atol 1e-4 x the largest |ref|
+VGG_IMAGES = dict(n_utterances=16, n_concepts=12, min_concepts=8, max_concepts=8, seed=0)
+VGG_IMAGE_SIZE = 128
+VGG_CPU_IMAGES = 2
+# (b) scripts/train_detector at its defaults: train and held-out recall@0.5
+# at least tests/test_detector.py:116's bound; the JAX package documents
+# 0.96 / 0.86 for its CPU run of 64 images and 300 steps
+# (scripts/train_detector.py:10, docs/ARCHITECTURE.md:10)
+DETECTOR_MIN_RECALL = 0.7
+DOCUMENTED_DETECTOR_RECALL = (0.96, 0.86)
+# (c) run_image_pipeline at its defaults (N=400, 12 concepts, 64 x 64, 300
+# detector steps, 300 grounding steps, 8 proposals, crop 16) against the
+# JAX package's steps of scripts/image_pipeline.py on the CPU from the
+# port's initial detector and grounding weights (tests/image_reference.py,
+# 423 s on the CPU).  End to end, the detector recall and the alignment
+# accuracy are held within IMAGE_TOL.  Recall@k is printed, not held: 300
+# full-batch Adam steps amplify float32 rounding (Adam's step on a gradient
+# that is zero up to rounding is noise of the learning rate's size), and
+# from the same proposals the JAX package and the port on the same CPU end
+# 0.09 apart in recall@10 i2c (PERF.md §6).  Then the port's grounding
+# stage (score_proposals) runs from the reference's own proposals
+# (IMAGE_PROPOSALS, written by tests/image_reference.py --proposals-out):
+# its loss over steps 0-5, before the rounding has grown, within
+# GROUNDING_LOSS_RTOL of the JAX stage's, and its alignment accuracy within
+# IMAGE_TOL.  The README documents detector recall 0.895 and alignment
+# accuracy 0.59 (README.md:68).
+REFERENCE_IMAGE = {"detector_recall@0.5": 0.895, "alignment_acc": 0.555,
+                   "recall@1_c2i": 0.117, "recall@1_i2c": 0.047, "recall@5_c2i": 0.367,
+                   "recall@5_i2c": 0.153, "recall@10_c2i": 0.55, "recall@10_i2c": 0.332}
+IMAGE_TOL = 0.05
+# the JAX stage's grounding loss at steps 0-5 from IMAGE_PROPOSALS
+# (tests/image_reference.py, the first of "grounding_loss_steps_0_10"; by
+# step 10 the rounding has grown to 4.2e-5 on the card)
+REFERENCE_GROUNDING_LOSS = [1.0009301900863647, 0.9910921454429626, 0.9735208749771118,
+                            0.9496217966079712, 0.9271820187568665, 0.9009367227554321]
+GROUNDING_LOSS_RTOL = 1e-4
+IMAGE_END_TO_END = ("detector_recall@0.5", "alignment_acc")
+IMAGE_PROPOSALS = os.path.join("tests", "image_reference_proposals.npz")
+README_IMAGE = {"detector_recall@0.5": 0.895, "alignment_acc": 0.59}
+# path 15: the CRF on minibatches (bench_kernels' hmm_crf_minibatch_step
+# row, and tests/test_hmm_crf.py:172's size: N=80, seed 41, B=40, the
+# port's weights and draws seeded 0, as tests/test_torch_core_helpers.py),
+# then the dense Viterbi at the reference's viterbi_dense rows
+# (scripts/bench_kernels.py:320-327: HEADLINE, and DENSE's S=128)
+CRF_MB_STEPS = 40
+CRF_MB_REF = dict(corpus=dict(n_utterances=80, seed=41),
+                  frames=dict(feat_dim=12, noise=0.1, seed=41), batch=40, min_acc=0.9)
+VITERBI_DENSE_ROWS = {"S12": HEADLINE, "S128": DENSE}
 
 
 def _run(cmd: list[str]) -> str:
@@ -1568,54 +1644,62 @@ def assoc_phase(card: str, counters, dev) -> dict:
     return {"launches": launches, "shapes": out}
 
 
-def k4_s8_phase(card: str, dev) -> dict:
-    """K4, K4-bf16, K6 and K3 at the two S=8 shapes the pipeline (N=2000,
-    Ts=174) and the CRF and DNN-HMM paths (N=400, Ts=64) launch them at,
-    their inputs built as ``scripts/bench_estep.py`` builds them: each
-    against its plain version (K4's bounds; K6 also against K4; K3 as
-    k3_parity), and timed with its bound."""
+def _k4_at(label: str, inputs, card: str) -> dict:
+    """K4, K4-bf16, K6 and K3 at one launch shape: each against its plain
+    version (K4's bounds; K6 also against K4; K3 as k3_parity), and timed
+    with its bound.  ``inputs`` = (log_init, base, rowz, colmask, log_emit,
+    src_len)."""
     import torch
 
     from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k4
+
+    n, ts, s = inputs[4].shape
+    print(f"K4 at {label}: N={n}, Ts={ts}, S={s}, {int(inputs[5].sum())} valid steps")
+    want = k4.hmm_estep_plain(*inputs)
+    got = k4.hmm_estep(*inputs)
+    errs = _k4_checks(f"K4 at {label}", got, want, 0)
+    bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16")
+    bf_p = k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16")
+    errs_bf = _k4_checks(f"K4-bf16 at {label}", bf, bf_p, 0)
+    g6 = k4.hmm_estep(*inputs, remat=True)
+    _check(torch.allclose(g6[2], got[2], rtol=1e-5, atol=0)
+           and torch.allclose(g6[0], got[0], rtol=1e-4, atol=1e-5)
+           and torch.allclose(g6[1], got[1], rtol=1e-4, atol=1e-4),
+           f"K6 at {label} against K4: logZ rtol 1e-5, gamma rtol 1e-4 atol 1e-5, xi rtol "
+           f"1e-4 atol 1e-4")
+    nbytes = _nbytes(*inputs, *got)
+    r = {"err": max(errs.values()), "bf16_err": max(errs_bf.values()),
+         "ms": _gpu_ms(lambda: k4.hmm_estep(*inputs), 20),
+         "plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), 2),
+         "bf16_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, dot_dtype="bfloat16"), 20),
+         "bf16_plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16"),
+                                  2),
+         "k6_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, remat=True), 20),
+         "bf16_bound": _estep_bound(nbytes, inputs[5], s, bf16=True)}
+    r |= _estep_bound(nbytes, inputs[5], s, bf16=False)
+    r["k3"] = k3_parity(label, inputs, 20)
+    print(f"  [{card}] K3 at {label}: kernel {r['k3']['ms']:.4f} ms, plain "
+          f"{r['k3']['plain_ms']:.4f} ms, bound {r['k3']['bound_ms']:.4f} ms "
+          f"({r['k3']['bound_by']})")
+    print(f"  [{card}] K4 at {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); K4-bf16 {r['bf16_ms']:.4f} ms, "
+          f"plain {r['bf16_plain_ms']:.4f} ms, bound {r['bf16_bound']['bound_ms']:.4f} ms; "
+          f"K6 {r['k6_ms']:.4f} ms")
+    return r
+
+
+def k4_s8_phase(card: str, dev) -> dict:
+    """K4, K4-bf16, K6 and K3 at the two S=8 shapes the pipeline (N=2000,
+    Ts=174) and the CRF and DNN-HMM paths (N=400, Ts=64) launch them at,
+    their inputs built as ``scripts/bench_estep.py`` builds them
+    (``_k4_at``)."""
+    import torch
+
     from multimodalworddiscovery_tpu_torch.scripts import bench_estep
 
     out = {}
     for label in ("S8_pipeline", "S8_crf"):
-        inputs = bench_estep.shape_inputs(label, dev)
-        n, ts, s = inputs[4].shape
-        print(f"K4 at {label}: N={n}, Ts={ts}, S={s}, {int(inputs[5].sum())} valid steps")
-        want = k4.hmm_estep_plain(*inputs)
-        got = k4.hmm_estep(*inputs)
-        errs = _k4_checks(f"K4 at {label}", got, want, 0)
-        bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16")
-        bf_p = k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16")
-        errs_bf = _k4_checks(f"K4-bf16 at {label}", bf, bf_p, 0)
-        g6 = k4.hmm_estep(*inputs, remat=True)
-        _check(torch.allclose(g6[2], got[2], rtol=1e-5, atol=0)
-               and torch.allclose(g6[0], got[0], rtol=1e-4, atol=1e-5)
-               and torch.allclose(g6[1], got[1], rtol=1e-4, atol=1e-4),
-               f"K6 at {label} against K4: logZ rtol 1e-5, gamma rtol 1e-4 atol 1e-5, xi rtol "
-               f"1e-4 atol 1e-4")
-        nbytes = _nbytes(*inputs, *got)
-        r = {"err": max(errs.values()), "bf16_err": max(errs_bf.values()),
-             "ms": _gpu_ms(lambda: k4.hmm_estep(*inputs), 20),
-             "plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), 2),
-             "bf16_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, dot_dtype="bfloat16"), 20),
-             "bf16_plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16"),
-                                      2),
-             "k6_ms": _gpu_ms(lambda: k4.hmm_estep(*inputs, remat=True), 20),
-             "bf16_bound": _estep_bound(nbytes, inputs[5], s, bf16=True)}
-        r |= _estep_bound(nbytes, inputs[5], s, bf16=False)
-        r["k3"] = k3_parity(label, inputs, 20)
-        print(f"  [{card}] K3 at {label}: kernel {r['k3']['ms']:.4f} ms, plain "
-              f"{r['k3']['plain_ms']:.4f} ms, bound {r['k3']['bound_ms']:.4f} ms "
-              f"({r['k3']['bound_by']})")
-        print(f"  [{card}] K4 at {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); K4-bf16 {r['bf16_ms']:.4f} ms, "
-              f"plain {r['bf16_plain_ms']:.4f} ms, bound {r['bf16_bound']['bound_ms']:.4f} ms; "
-              f"K6 {r['k6_ms']:.4f} ms")
-        out[label] = r
-        del inputs, want, got, bf, bf_p, g6
+        out[label] = _k4_at(label, bench_estep.shape_inputs(label, dev), card)
         torch.cuda.empty_cache()
     return out
 
@@ -2178,6 +2262,279 @@ def segkmeans_dtw_phase(card: str, counters, dev) -> dict:
     return {"launches": launches, "runs": out, "dtw": coh, "dtw_ms": ms}
 
 
+def vgg_phase(card: str, dev) -> dict:
+    """Path 14 (a): VGG16 at full width on the card, region embeddings of 8
+    boxes on each of 16 rendered images and the images' concepts after the
+    resize to 224; the card held to the same weights on the CPU on 2 of
+    them.  Times by CUDA events."""
+    import copy
+
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import images_for_corpus, make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.frontend import image
+
+    t0 = time.perf_counter()
+    cpu = image.init_vgg16(generator=torch.Generator().manual_seed(SEED), device="cpu")
+    model = copy.deepcopy(cpu).to(dev)
+    corpus, _, _ = make_flickr8k_mini(**VGG_IMAGES, device="cpu")
+    imgs, boxes, mask, _ = images_for_corpus(corpus, image_size=VGG_IMAGE_SIZE, seed=0)
+    _check(bool(mask.all()) and mask.shape[1] == 8, "16 rendered images with 8 boxes each")
+    print(f"VGG16 at full width: {sum(p.numel() for p in cpu.parameters())} parameters, "
+          f"{model.num_classes} classes, fc {model.fc_dim}, input {model.input_size}; "
+          f"{len(imgs)} images of {VGG_IMAGE_SIZE}^2 with {mask.shape[1]} boxes each "
+          f"(set-up {time.perf_counter() - t0:.1f} s)")
+    x = torch.as_tensor(imgs, device=dev)
+    b = torch.as_tensor(boxes, device=dev)
+    size = model.input_size
+
+    def regions():
+        return torch.stack([image.region_embeddings(model, x[i], b[i]) for i in range(len(x))])
+
+    def concepts():
+        resized = torch.stack([image.resize(x[i], size, size) for i in range(len(x))])
+        return image.image_concepts(model, resized)
+
+    emb, probs = regions(), concepts()
+    _check(tuple(emb.shape) == (len(x), 8, model.fc_dim) and bool(torch.isfinite(emb).all()),
+           f"region embeddings [16, 8, {model.fc_dim}], finite")
+    _check(tuple(probs.shape) == (len(x), model.num_classes)
+           and bool(torch.allclose(probs.sum(-1), torch.ones(len(x), device=dev), rtol=1e-4)),
+           "concept posteriors [16, 1000], each summing to 1")
+    errs = {}
+    for name, got, want in (
+            ("region embeddings", emb[:VGG_CPU_IMAGES].cpu(), torch.stack([
+                image.region_embeddings(cpu, torch.as_tensor(imgs[i]), torch.as_tensor(boxes[i]))
+                for i in range(VGG_CPU_IMAGES)])),
+            ("concept posteriors", probs[:VGG_CPU_IMAGES].cpu(), image.image_concepts(
+                cpu, torch.stack([image.resize(torch.as_tensor(imgs[i]), size, size)
+                                  for i in range(VGG_CPU_IMAGES)])))):
+        scale = float(want.abs().max())
+        errs[name] = _max_abs(got, want)
+        print(f"  {name}, card against CPU on {VGG_CPU_IMAGES} images: max abs err "
+              f"{errs[name]:.3e} (largest |ref| {scale:.3e})")
+        _check(torch.allclose(got, want, rtol=1e-3, atol=1e-4 * scale),
+               f"{name} on the card within rtol 1e-3 atol 1e-4 x the largest |ref| of the CPU's")
+    ms_regions = _gpu_ms(regions, 3)
+    ms_concepts = _gpu_ms(concepts, 3)
+    n_crops = len(x) * 8
+    print(f"  [{card}] region embeddings: {ms_regions / len(x):.3f} ms per image of 8 boxes, "
+          f"{n_crops * 1e3 / ms_regions:.1f} crops/s; concepts (resize + VGG16): "
+          f"{ms_concepts / len(x):.3f} ms per image (CUDA events, mean of 3 runs)")
+    del cpu, model
+    torch.cuda.empty_cache()
+    return {"ms_per_image_regions": ms_regions / len(x), "crops_per_s": n_crops * 1e3 / ms_regions,
+            "ms_per_image_concepts": ms_concepts / len(x), "err": errs}
+
+
+def image_phase(here: str, card: str, counters, dev) -> dict:
+    """Path 14: VGG16 (a), ``scripts/train_detector`` at its defaults (b)
+    and ``run_image_pipeline`` at its defaults, then its grounding stage
+    from the reference's proposals (c); their convolutions and products are
+    cuDNN's and cuBLAS's, and none of K1-K8 runs (counted)."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.scripts import image_pipeline, train_detector
+
+    _reset(counters)
+    vgg = vgg_phase(card, dev)
+    # the training phases: one convolution algorithm, chosen the same way
+    # in every run
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    det = train_detector.run_train_detector(device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"path 14 (b) train_detector at its defaults {train_detector.DEFAULTS}: "
+          f"{json.dumps(det)}")
+    losses = det["loss_history"]
+    _check(losses[-1] < losses[0], f"detector loss falls ({losses[0]:.5f} -> {losses[-1]:.5f})")
+    for k, doc in zip(("recall_at_0.5_train", "recall_at_0.5_heldout"),
+                      DOCUMENTED_DETECTOR_RECALL):
+        _check(det[k] >= DETECTOR_MIN_RECALL,
+               f"detector {k} >= {DETECTOR_MIN_RECALL} ({det[k]}; the JAX package documents "
+               f"{doc} for its CPU run)")
+    print(f"  [{card}] train_detector: {start.elapsed_time(end) / 1e3:.2f} s in all, "
+          f"training {det['train_seconds']} s")
+    pipe = image_pipeline.run_image_pipeline(device=dev)
+    print(f"path 14 (c) run_image_pipeline at its defaults {image_pipeline.DEFAULTS}: "
+          f"{json.dumps(pipe)}")
+    print(f"  [{card}] image pipeline stages (ms): {pipe['stage_ms']}")
+    for k, ref in REFERENCE_IMAGE.items():
+        readme = f"; the README documents {README_IMAGE[k]}" if k in README_IMAGE else ""
+        if k in IMAGE_END_TO_END:
+            _check(abs(pipe[k] - ref) <= IMAGE_TOL,
+                   f"image pipeline {k} within {IMAGE_TOL} of the JAX reference {ref} "
+                   f"({pipe[k]}{readme})")
+        else:
+            print(f"  image pipeline {k} {pipe[k]} (the JAX reference {ref}, from other "
+                  f"proposals: {pipe[k] - ref:+.3f})")
+    with np.load(os.path.join(here, IMAGE_PROPOSALS)) as z:
+        boxes, keep = z["boxes"], z["keep"]
+    data = image_pipeline.paired_corpus(image_pipeline.DEFAULTS["n_utterances"],
+                                        image_pipeline.DEFAULTS["n_concepts"],
+                                        image_pipeline.DEFAULTS["image_size"], dev)
+    stage = image_pipeline.score_proposals(data, boxes, keep, device=dev)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    print(f"path 14 (c) the grounding stage from the reference's proposals "
+          f"({IMAGE_PROPOSALS}): "
+          f"{json.dumps({k: v for k, v in stage.items() if k != 'grounding_loss'})}")
+    _check(abs(stage["proposals_per_image"] - float(keep.sum(1).mean())) < 0.01,
+           "the stage took the reference's proposals")
+    loss = np.asarray(stage["grounding_loss"][:len(REFERENCE_GROUNDING_LOSS)])
+    rel = np.abs(loss - REFERENCE_GROUNDING_LOSS) / np.abs(REFERENCE_GROUNDING_LOSS)
+    print(f"  grounding loss at steps 0-5, relative difference to the JAX stage's: "
+          f"{rel.tolist()}")
+    _check(bool(np.all(rel <= GROUNDING_LOSS_RTOL)),
+           f"grounding stage from the reference's proposals: loss at steps 0-5 within rtol "
+           f"{GROUNDING_LOSS_RTOL} of the JAX stage's")
+    for k, ref in REFERENCE_IMAGE.items():
+        if k == "alignment_acc":
+            _check(abs(stage[k] - ref) <= IMAGE_TOL,
+                   f"grounding stage from the reference's proposals: {k} within {IMAGE_TOL} "
+                   f"of the JAX reference {ref} ({stage[k]})")
+        elif k != "detector_recall@0.5":
+            print(f"  grounding stage {k} {stage[k]} (the JAX stage {ref}: {stage[k] - ref:+.3f})")
+    launches = _counts(counters)
+    _check(not any(launches.values()), "no kernel of K1-K8 launched on path 14")
+    return {"vgg": vgg, "detector": det, "pipeline": pipe, "stage": stage,
+            "launches": launches}
+
+
+def crf_minibatch_phase(card: str, counters, dev) -> dict:
+    """Path 15 (a): the end-to-end CRF on minibatches through K4, at the
+    bench row's settings (B=256, learned transitions) and at the
+    reference test's size (B=40, hmm_dnn.init, positional accuracy > 0.9).
+    K4 and K3 are checked at each run's first batch and decode."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.models import hmm_crf, hmm_dnn, minibatch
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    def inputs_of(params, c, log_emit):
+        _, fact = _estep_inputs(params, c)
+        return (*fact, log_emit, c.src_len)
+
+    runs = {}
+    rf = CRF_MB_REF
+    pc, pg, _ = make_flickr8k_mini(**rf["corpus"])
+    ref_fc, ref_fg, _ = phones_to_frames(pc, pg, **rf["frames"], device=dev)
+    ref_step = minibatch.make_minibatch_step(hmm_crf.em_step, ref_fc, rf["batch"])
+    bench_fc, bench_fg, bench_p, bench_step = bk.crf_minibatch_setup(dev)
+    for key, fc, fg, params, step, batch, seed in (
+            ("bench_B256", bench_fc, bench_fg, bench_p, bench_step, bk.CRF_MB_BATCH, 3),
+            ("reference_B40", ref_fc, ref_fg,
+             hmm_dnn.init(ref_fc, generator=torch.Generator().manual_seed(0)), ref_step,
+             rf["batch"], 0)):
+        # K4 at the run's first batch (the draw the run makes first)
+        idx = torch.randperm(fc.n, generator=torch.Generator().manual_seed(seed))[:batch]
+        b = minibatch.gather_batch(fc, idx)
+        with torch.no_grad():
+            le = hmm_crf._log_emit_from_mlp(params.mlp, b)
+        k4r = _k4_at(f"the CRF minibatch ({key})", inputs_of(params, b, le), card)
+        gen = torch.Generator().manual_seed(seed)
+        _reset(counters)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        lls = []
+        start.record()
+        for _ in range(CRF_MB_STEPS):
+            params, stats = step(params, gen)
+            lls.append(stats["loglik"])
+        end.record()
+        alignment = hmm_crf.align(params, fc)
+        launches = _counts(counters)
+        lls = torch.stack(lls).cpu().numpy()
+        gold = torch.as_tensor(fg.alignment, device=dev)
+        mask = fc.src_mask() & (gold > 0)
+        acc = float((alignment == gold)[mask].float().mean())
+        ms = start.elapsed_time(end) / CRF_MB_STEPS
+        k3r = k3_parity(f"the CRF minibatch decode ({key})",
+                        inputs_of(params, fc, hmm_dnn._log_emissions(params, fc)), 10)
+        print(f"path 15 (a) CRF minibatch {key}: N={fc.n}, Ts={fc.max_src_len}, "
+              f"S={2 * fc.max_trg_len}, B={batch}, {CRF_MB_STEPS} steps; batch logliks "
+              f"{lls.tolist()}")
+        print(f"  positional accuracy {acc:.5f}; launches {launches}; [{card}] {ms:.4f} ms "
+              f"per step (CUDA events)")
+        _check(bool(np.all(np.isfinite(lls))), f"{key}: batch logliks finite")
+        n_sgd = params.n_sgd
+        _check(launches["hmm_estep"] == (n_sgd + 1) * CRF_MB_STEPS and launches["viterbi"] == 1
+               and launches["hmm_estep_counts"] == 0 and launches["table_lookup"] == 0,
+               f"{key}: K4 launched {n_sgd + 1} times a step (every batch), K3 once")
+        runs[key] = {"k4": k4r, "k3": k3r, "launches": launches, "acc": acc, "ms": ms,
+                     "lls": lls.tolist()}
+    acc = runs["reference_B40"]["acc"]
+    _check(acc > rf["min_acc"], f"the reference test's size: positional accuracy > "
+                                f"{rf['min_acc']} ({acc:.5f})")
+    del bench_fc, ref_fc
+    torch.cuda.empty_cache()
+    return runs
+
+
+def viterbi_dense_phase(card: str, counters, dev) -> dict:
+    """Path 15 (b): the dense ``hmm_core.viterbi`` (plain torch) at the
+    reference's viterbi_dense rows after one EM step, on ``hmm._machinery``'s
+    inputs with the emissions through K1, against ``viterbi_factored``
+    through K3: equal paths except at exact ties (counted), every path's
+    score within rtol 1e-5 of K3's."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
+    from multimodalworddiscovery_tpu_torch.ops import counts as k1
+    from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
+
+    out = {}
+    for label, gen in VITERBI_DENSE_ROWS.items():
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        params, _ = hmm.em_step(hmm.init(corpus), corpus)
+        concepts, fact = _estep_inputs(params, corpus)
+        _reset(counters)
+        # hmm._machinery's dense inputs, its emissions through K1 (the
+        # lookup of the port's kernel route; bit-equal to its plain gather)
+        li, lt = fact[0], hmm_core.build_log_trans(params.log_jump, params.log_p0, corpus,
+                                                   params.max_jump)
+        le = k1.table_lookup(params.log_emit, corpus.src, concepts)
+        dense = hmm_core.viterbi(li, lt, le, corpus.src_len)
+        fast = hmm_core.viterbi_factored(*fact, le, corpus.src_len)
+        torch.cuda.synchronize()
+        launches = _counts(counters)
+        print(f"  launches: {launches}")
+        _check(launches["table_lookup"] == 1 and launches["viterbi"] == 1
+               and sum(launches.values()) == 2,
+               f"viterbi_dense {label}: K1 once (the emissions), K3 once, nothing else")
+        machinery = hmm._machinery(params, corpus)
+        _check(all(torch.equal(a, b) for a, b in zip((li, lt, le), machinery)),
+               f"viterbi_dense {label}: the inputs equal hmm._machinery's")
+        del machinery
+        inputs = (*fact, le, corpus.src_len)
+        s_dense = k3.path_score(dense, *inputs)
+        s_fast = k3.path_score(fast, *inputs)
+        valid = corpus.src_mask()
+        differ = ~(torch.where(valid, dense, 0) == torch.where(valid, fast, 0)).all(dim=1)
+        ties = int(differ.sum())
+        err = float(((s_dense - s_fast).abs() / s_fast.abs().clamp(min=1e-30)).max())
+        print(f"path 15 (b) viterbi_dense {label}: N={corpus.n}, Ts={corpus.max_src_len}, "
+              f"S={2 * corpus.max_trg_len}; paths differing from K3's: {ties} utterances "
+              f"(exact ties), largest relative path-score difference {err:.3e}")
+        _check(torch.allclose(s_dense, s_fast, rtol=1e-5, atol=0),
+               f"viterbi_dense {label}: every path's score within rtol 1e-5 of K3's (the "
+               f"{ties} differing paths are ties)")
+        ms_dense = _gpu_ms(lambda: hmm_core.viterbi(li, lt, le, corpus.src_len), 5)
+        k3r = k3_parity(f"viterbi_dense {label}", inputs, 20)
+        k1r = k1_check(f"viterbi_dense {label}", params.log_emit, corpus.src, concepts, 20)
+        print(f"  [{card}] ms per decode: dense (plain torch) {ms_dense:.4f}, factored through "
+              f"K3 {k3r['ms']:.4f}, factored plain {k3r['plain_ms']:.4f}")
+        out[label] = {"ties": ties, "err": err, "ms_dense": ms_dense, "k3": k3r, "k1": k1r,
+                      "launches": launches}
+        del corpus, params, li, lt, le, dense, fast
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2590,6 +2947,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(elapsed())
 
+    # --- path 14: the image branch (VGG16, the detector, the image pipeline) ---
+    img = image_phase(here, card, kernels_all, dev)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 15: the CRF on minibatches (K4, K3) and the dense Viterbi (K1, K3) ---
+    crf_mb = crf_minibatch_phase(card, kernels_all, dev)
+    vd = viterbi_dense_phase(card, kernels_all, dev)
+    print(elapsed())
+
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---
     launches_bench = bench_phase(here, kernels_all)
     torch.cuda.empty_cache()
@@ -2598,7 +2965,8 @@ def main() -> int:
     runs = (launches_headline, launches_gauss, teach, gauss, pipe, launches_bf16, launches_k6,
             *crf["launches"].values(), dense["launches"], assoc["launches"], many["launches"],
             m1["launches"], *m1["dense_launches"].values(), *att["launches"].values(),
-            *ground["launches"].values(), skd["launches"])
+            *ground["launches"].values(), skd["launches"], img["launches"],
+            *(r["launches"] for r in crf_mb.values()), *(r["launches"] for r in vd.values()))
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
     launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
     print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
@@ -2618,6 +2986,8 @@ def main() -> int:
                                  0) for k, r in many["shapes"].items()},
         "S12_guide": (ac["k4_guide"], al["guided"]["hmm_estep"], 0),
         "S8_guided_frames": (ac["k4_frames"], al["guided_frames"]["hmm_estep"], 0),
+        **{f"crf_minibatch_{k}": (r["k4"], r["launches"]["hmm_estep"], 0)
+           for k, r in crf_mb.items()},
     }
     k4_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
@@ -2635,6 +3005,9 @@ def main() -> int:
         **{f"{k} (S={r['S']})": (r["k3"], many["launches"]["viterbi"] if k == "S~200" else 0)
            for k, r in many["shapes"].items()},
         "S12_teacher": (ac["k3_teacher"], al["teacher"]["viterbi"]),
+        **{f"crf_minibatch_{k}_decode": (r["k3"], r["launches"]["viterbi"])
+           for k, r in crf_mb.items()},
+        **{f"viterbi_dense_{k}": (r["k3"], r["launches"]["viterbi"]) for k, r in vd.items()},
     }
     k3_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
@@ -2671,7 +3044,9 @@ def main() -> int:
                  "S12_teacher": (ac["k1_teacher"], al["teacher"]["table_lookup"]),
                  "S12_guide": (ac["k1_guide"], al["guided"]["table_lookup"]),
                  "retrieval_pooled": (ground["k1"],
-                                      ground["launches"]["retrieval"]["table_lookup"])}
+                                      ground["launches"]["retrieval"]["table_lookup"]),
+                 **{f"viterbi_dense_{k}": (r["k1"], r["launches"]["table_lookup"])
+                    for k, r in vd.items()}}
     k1_runs = [r for r, _ in k1_launch.values()]
     k1_shapes = {k: {"launches": n, **{f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")}}

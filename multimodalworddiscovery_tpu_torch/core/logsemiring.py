@@ -14,6 +14,15 @@ import torch
 NEG_INF = -1e30
 
 
+def masked_log(p: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """log(p) with zeros (and masked entries) mapped to NEG_INF, never nan."""
+    safe = torch.where(p > 0, p, 1.0)
+    out = torch.where(p > 0, torch.log(safe), NEG_INF)
+    if mask is not None:
+        out = torch.where(mask, out, NEG_INF)
+    return out
+
+
 def masked_logsumexp(
     x: torch.Tensor, dim: int = -1, keepdim: bool = False
 ) -> torch.Tensor:
@@ -66,3 +75,11 @@ def log_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             x = a3[z:z + mats, i:i + rows, :, None] + b3[z:z + mats, None, :, :]
             out[z:z + mats, i:i + rows] = masked_logsumexp(x, dim=-2)
     return out.reshape(*batch, ni, nj)
+
+
+def max_matmul(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max-plus semiring product with argmax, for Viterbi: (values, argmax_k)
+    with values[..., i, j] = max_k a[..., i, k] + b[..., k, j].  The index
+    is ``torch.argmax``'s, the first maximum, as ``jnp.argmax`` gives it."""
+    x = a[..., :, :, None] + b[..., None, :, :]
+    return torch.amax(x, dim=-2), torch.argmax(x, dim=-2)

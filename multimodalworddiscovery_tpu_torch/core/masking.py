@@ -17,6 +17,11 @@ def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return pos[None, :] < lengths[:, None]
 
 
+def pair_mask(src_mask: torch.Tensor, trg_mask: torch.Tensor) -> torch.Tensor:
+    """[N,Ts] x [N,Tt] -> [N,Ts,Tt] joint validity mask."""
+    return src_mask[:, :, None] & trg_mask[:, None, :]
+
+
 def pad_and_stack(
     seqs: Sequence[np.ndarray], max_len: int | None = None
 ) -> tuple[np.ndarray, np.ndarray]:

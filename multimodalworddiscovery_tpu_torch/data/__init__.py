@@ -2,7 +2,10 @@
 
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus, GoldAnnotations
 from multimodalworddiscovery_tpu_torch.data.synthetic import (
+    concept_palette,
     expand_gold_to_frames,
+    images_for_corpus,
+    make_boxes_mini,
     make_flickr8k_mini,
     phone_templates,
     phones_to_frames,
@@ -13,7 +16,10 @@ from multimodalworddiscovery_tpu_torch.data.synthetic import (
 __all__ = [
     "Corpus",
     "GoldAnnotations",
+    "concept_palette",
     "expand_gold_to_frames",
+    "images_for_corpus",
+    "make_boxes_mini",
     "make_flickr8k_mini",
     "phone_templates",
     "phones_to_frames",

@@ -1,12 +1,14 @@
 """Deterministic synthetic corpus with known gold alignments.
 
 Counterpart of ``multimodalworddiscovery_tpu/data/synthetic.py``
-(``make_flickr8k_mini``, ``phones_to_frames`` and the waveform renderers of
-config #4's pipeline).  The generators are numpy and consume their
-``default_rng(seed)`` in exactly the reference's order, so the same seed and
-settings give identical arrays and gold annotations: each "image" is a bag
-of concepts, its spoken caption the concatenation of the concepts' phone
-words in a shuffled order, with optional NULL-aligned filler phones.
+(``make_flickr8k_mini``, ``phones_to_frames``, the waveform renderers of
+config #4's pipeline, and the image side: ``make_boxes_mini``,
+``concept_palette`` and ``images_for_corpus``).  The generators are numpy
+and consume their ``default_rng(seed)`` in exactly the reference's order,
+so the same seed and settings give identical arrays and gold annotations:
+each "image" is a bag of concepts, its spoken caption the concatenation of
+the concepts' phone words in a shuffled order, with optional NULL-aligned
+filler phones.
 
 Entry points that build tensors put them on ``device``, "cuda" unless the
 caller names another; there is no silent CPU default.
@@ -331,3 +333,134 @@ def phones_to_frames(
         gold_align[i, : len(a)] = a
     frame_gold = GoldAnnotations(alignment=gold_align, segments=frame_segments)
     return frame_corpus, frame_gold, means
+
+
+def make_boxes_mini(
+    n_images: int = 64,
+    image_size: int = 64,
+    max_boxes: int = 3,
+    min_frac: float = 0.2,
+    max_frac: float = 0.45,
+    noise: float = 0.1,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Deterministic synthetic detection set for the learned region-proposal
+    path (frontend/detector.py; SURVEY.md §2 C3 "and/or an RCNN detector").
+
+    Each image is a noisy background with 1..max_boxes solid colored
+    rectangles ("objects"); the gold boxes are the rectangles.  Returns
+    (images [N, H, W, 3] float32 in [0, 1],
+     boxes  [N, G, 4] normalized (y1, x1, y2, x2) padded with zeros,
+     mask   [N, G] bool).
+    """
+    rng = np.random.default_rng(seed)
+    h = w = image_size
+    images = np.clip(
+        0.35 + noise * rng.normal(size=(n_images, h, w, 3)), 0.0, 1.0
+    ).astype(np.float32)
+    boxes = np.zeros((n_images, max_boxes, 4), np.float32)
+    mask = np.zeros((n_images, max_boxes), bool)
+    for i in range(n_images):
+        g = int(rng.integers(1, max_boxes + 1))
+        placed: list[tuple[float, float, float, float]] = []
+        for b in range(g):
+            for _ in range(20):  # rejection-sample low-overlap placements
+                bh = rng.uniform(min_frac, max_frac)
+                bw = rng.uniform(min_frac, max_frac)
+                y1 = rng.uniform(0.0, 1.0 - bh)
+                x1 = rng.uniform(0.0, 1.0 - bw)
+                cand = (y1, x1, y1 + bh, x1 + bw)
+                if all(
+                    min(cand[2], p[2]) - max(cand[0], p[0]) < 0.05
+                    or min(cand[3], p[3]) - max(cand[1], p[1]) < 0.05
+                    for p in placed
+                ):
+                    break
+            placed.append(cand)
+            boxes[i, b] = cand
+            mask[i, b] = True
+            color = rng.uniform(0.6, 1.0, size=3) * (
+                rng.integers(0, 2, size=3) * 2 - 1
+            ) * 0.5 + 0.5
+            ys, ye = int(cand[0] * h), max(int(cand[2] * h), int(cand[0] * h) + 2)
+            xs, xe = int(cand[1] * w), max(int(cand[3] * w), int(cand[1] * w) + 2)
+            images[i, ys:ye, xs:xe] = color.astype(np.float32)
+    return images, boxes, mask
+
+
+def concept_palette(n_concepts: int, seed: int = 0) -> np.ndarray:
+    """Deterministic distinct RGB color per concept id (1..n_concepts).
+
+    Hue wheel + two lightness rings so up to ~40 concepts stay separable;
+    index 0 (padding/NULL) is black.  Returns [n_concepts + 1, 3] float32."""
+    out = np.zeros((n_concepts + 1, 3), np.float32)
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n_concepts)
+    for i, c in enumerate(order):
+        hue = i / n_concepts
+        val = 0.95 if i % 2 == 0 else 0.6
+        h6 = hue * 6.0
+        k = np.array([(5 + h6) % 6, (3 + h6) % 6, (1 + h6) % 6])
+        out[c + 1] = val * (1 - 0.85 * np.clip(np.minimum(k, 4 - k), 0, 1))
+    return out
+
+
+def images_for_corpus(
+    corpus: Corpus,
+    image_size: int = 64,
+    min_frac: float = 0.22,
+    max_frac: float = 0.4,
+    noise: float = 0.08,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Render IMAGES for a paired phone corpus — the image-side analogue of
+    ``phones_to_waveforms``: each utterance's "image" contains one colored
+    rectangle per target concept (color = ``concept_palette`` entry), so the
+    full image pipeline (detector -> region crops -> embeddings -> aligner)
+    can run end-to-end with exact gold (SURVEY.md §3.4 image branch).
+
+    Returns (images [N, H, W, 3] float32 in [0, 1],
+             boxes  [N, Tt, 4] normalized (y1, x1, y2, x2),
+             mask   [N, Tt] bool — True for real concepts,
+             pos    [N, Tt] int32 — 1-based trg position of each box, 0 pad).
+    Box order is SHUFFLED per image (spatial order carries no alignment
+    information, as in real region annotations).
+    """
+    rng = np.random.default_rng(seed)
+    n, g = corpus.trg.shape[:2]
+    trg = corpus.trg.cpu().numpy()
+    trg_len = corpus.trg_len.cpu().numpy()
+    n_concepts = corpus.trg_vocab - 1
+    palette = concept_palette(n_concepts, seed=seed)
+    h = w = image_size
+    images = np.clip(
+        0.3 + noise * rng.normal(size=(n, h, w, 3)), 0.0, 1.0
+    ).astype(np.float32)
+    boxes = np.zeros((n, g, 4), np.float32)
+    mask = np.zeros((n, g), bool)
+    pos = np.zeros((n, g), np.int32)
+    for i in range(n):
+        k = int(trg_len[i])
+        order = rng.permutation(k)
+        placed: list[tuple[float, float, float, float]] = []
+        for slot, j in enumerate(order):
+            for _ in range(30):  # rejection-sample low-overlap placements
+                bh = rng.uniform(min_frac, max_frac)
+                bw = rng.uniform(min_frac, max_frac)
+                y1 = rng.uniform(0.0, 1.0 - bh)
+                x1 = rng.uniform(0.0, 1.0 - bw)
+                cand = (y1, x1, y1 + bh, x1 + bw)
+                if all(
+                    min(cand[2], p[2]) - max(cand[0], p[0]) < 0.03
+                    or min(cand[3], p[3]) - max(cand[1], p[1]) < 0.03
+                    for p in placed
+                ):
+                    break
+            placed.append(cand)
+            boxes[i, slot] = cand
+            mask[i, slot] = True
+            pos[i, slot] = j + 1
+            ys, ye = int(cand[0] * h), max(int(cand[2] * h), int(cand[0] * h) + 2)
+            xs, xe = int(cand[1] * w), max(int(cand[3] * w), int(cand[1] * w) + 2)
+            images[i, ys:ye, xs:xe] = palette[int(trg[i, j])]
+    return images, boxes, mask, pos

@@ -9,6 +9,7 @@ layout by the torch layer's type:
                DenseGeneral((h, d)) kernel [in, h, d] or a
                DenseGeneral(axis=(-2, -1)) kernel [h, d, out]; bias flattened
   nn.Conv1d    weight [out, in, w] from a Conv kernel [w, in, out]
+  nn.Conv2d    weight [out, in, kh, kw] from a Conv kernel [kh, kw, in, out]
   nn.Embedding weight from ``embedding``, as it is
   nn.LayerNorm weight / bias from ``scale`` / ``bias``
   a bare nn.Parameter of the module (a position table), as it is
@@ -39,7 +40,7 @@ def _flax_leaf(module: nn.Module, pname: str) -> str:
         return "scale"
     if isinstance(module, nn.Embedding):
         return "embedding"
-    return "kernel" if isinstance(module, (nn.Linear, nn.Conv1d)) else pname
+    return "kernel" if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)) else pname
 
 
 def _to_torch_layout(module: nn.Module, pname: str, a: np.ndarray, shape) -> np.ndarray:
@@ -47,6 +48,8 @@ def _to_torch_layout(module: nn.Module, pname: str, a: np.ndarray, shape) -> np.
         return a.reshape(shape[1], shape[0]).T
     if pname == "weight" and isinstance(module, nn.Conv1d):
         return a.transpose(2, 1, 0)
+    if pname == "weight" and isinstance(module, nn.Conv2d):
+        return a.transpose(3, 2, 0, 1)
     return a.reshape(shape)
 
 
@@ -98,12 +101,14 @@ def copy_into(model: nn.Module, tensors) -> None:
 def flax_init(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialisation of ``model``'s layers, drawn on the CPU
     from ``generator``: Dense and Conv kernels lecun normal (a normal
-    truncated at +-2 sigma, sigma = 1/sqrt(fan_in) / 0.8796), biases 0,
+    truncated at +-2 sigma, sigma = 1/sqrt(fan_in) / 0.8796, fan_in the
+    kernel's size over all but its output axis, in * kh * kw for a 2-D
+    convolution), biases 0,
     embeddings normal with std 1/sqrt(features), LayerNorm scales 1 and
     biases 0.  Parameters of other layers are left as they are."""
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv1d)):
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 w = module.weight
                 std = 1.0 / math.sqrt(w[0].numel()) / hmm_dnn.TRUNC_STD
                 w.copy_(hmm_dnn.truncated_normal(w.shape, generator) * std)

@@ -355,6 +355,38 @@ def posteriors_from(
     return torch.where(valid, gamma, 0.0).transpose(0, 1)
 
 
+def viterbi(
+    log_init: torch.Tensor,   # [N, S]
+    log_trans: torch.Tensor,  # [N, S, S]
+    log_emit: torch.Tensor,   # [N, Ts, S]
+    src_len: torch.Tensor,    # [N]
+) -> torch.Tensor:
+    """Batched Viterbi decode from dense transitions -> state path [N, Ts]
+    int32 (frozen-carry states past src_len).
+
+    One max-plus step with backpointers per time step, batched over N, then
+    one backtrace step per time step.  Past an utterance's length delta is
+    kept and the backpointer is the identity.  The backpointer is
+    ``torch.argmax``'s first maximum, as ``jnp.argmax`` gives it.  Plain
+    torch on every device: the oracle of ``viterbi_factored`` and K3."""
+    n, ts, s = log_emit.shape
+    ident = torch.arange(s, device=log_emit.device).expand(n, s)
+    delta = log_init + log_emit[:, 0]
+    bps = []
+    for t in range(1, ts):
+        x = delta[:, :, None] + log_trans  # [N, S_prev, S]
+        best = torch.amax(x, dim=1) + log_emit[:, t]
+        alive = (t < src_len)[:, None]
+        delta = torch.where(alive, best, delta)
+        bps.append(torch.where(alive, torch.argmax(x, dim=1), ident))
+    state = torch.argmax(delta, dim=-1)  # [N]
+    states = [state]
+    for bp in reversed(bps):
+        state = bp.gather(1, state[:, None])[:, 0]
+        states.append(state)
+    return torch.stack(states[::-1], dim=1).to(torch.int32)
+
+
 def viterbi_factored(
     log_init: torch.Tensor,  # [N, S]
     base: torch.Tensor,      # [S, S]

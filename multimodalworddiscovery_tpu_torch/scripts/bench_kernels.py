@@ -22,16 +22,22 @@ with 24-32 concepts: the EM iteration, the dense decode through K1 and
 through the plain gather, and the concept-space decode), ``models``
 (minibatch steps of the attention aligner at B=512 and of the grounding
 model at B=256 on the N=8192 corpus at dim 128, with each step's
-operations from ``torch.utils.flop_counter``; segmental k-means EM
-iterations and discover on N=2000 utterances of 13-dim frames) and
+operations from ``torch.utils.flop_counter``; the end-to-end CRF's
+minibatch steps at B=256 on N=2048 utterances of 13-dim frames, with
+learned transitions, its E-steps through K4; segmental k-means EM
+iterations and discover on N=2000 utterances of 13-dim frames),
 ``retrieval`` (pooled scores, pool 32, on the N=8192 corpus, both
-directions: Model-1 through K1 and plain, the discrete HMM, grounding).
-The reference's entries em, hmm_estep, viterbi and detector have their
-counterparts in ``bench_estep`` or wait for their modules (ROADMAP queue 1).
+directions: Model-1 through K1 and plain, the discrete HMM, grounding) and
+``detector`` (the region-proposal network's Adam steps at B=64 drawn from
+N=512 images of 64 x 64, and ``propose`` at k=8 on all 512; medians of
+five timed rounds).  The reference's entries em, hmm_estep and viterbi
+have their counterparts in ``bench_estep``; its ``viterbi_dense`` row (the
+dense ``hmm_core.viterbi``) waits for the port's benchmark (ROADMAP queue
+1 item 1), and ``chip_smoke.py`` path 15 times it meanwhile.
 
     python -m multimodalworddiscovery_tpu_torch.scripts.bench_kernels \\
-        [--only mfcc counts log_matmul model1_align models retrieval] [--reps 10] \\
-        [--out build/bench/kernels.jsonl]
+        [--only mfcc counts log_matmul model1_align models retrieval detector] \\
+        [--reps 10] [--out build/bench/kernels.jsonl]
 
 Each record is printed as one JSON line and appended to ``--out`` (default
 ``build/bench/kernels.jsonl`` in the repository), with the card's name and
@@ -55,7 +61,7 @@ import time
 import numpy as np
 import torch
 
-BENCHES = ("mfcc", "counts", "log_matmul", "model1_align", "models", "retrieval")
+BENCHES = ("mfcc", "counts", "log_matmul", "model1_align", "models", "retrieval", "detector")
 DEFAULT_OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "bench" / "kernels.jsonl"
 # bench.py's headline corpus, and the dense-caption S=128 row of the
 # reference's estep benchmark (scripts/bench_kernels.py:261-263)
@@ -99,6 +105,14 @@ SEGKMEANS_CORPUS = dict(n_utterances=2000, n_concepts=60, n_phones=48, min_conce
                         max_concepts=6, seed=3)
 SEGKMEANS_FRAMES = dict(feat_dim=13, noise=0.1, seed=3)
 RETRIEVAL_POOL = 32
+# bench_models' hmm_crf_minibatch_step row (scripts/bench_kernels.py:547-561):
+# its corpus and frames, init_e2e (generator seed 3), learned transitions
+CRF_MB_CORPUS = dict(n_utterances=2048, n_concepts=60, n_phones=48, min_concepts=3,
+                     max_concepts=6, seed=4)
+CRF_MB_FRAMES = dict(feat_dim=13, noise=0.1, seed=4)
+CRF_MB_BATCH = 256
+# bench_detector (scripts/bench_kernels.py:681-749)
+DET_N, DET_BATCH, DET_SIZE, DET_K = 512, 64, 64, 8
 LIBRARY_MAX_SIZE = 1024  # the broadcast [I, K, J] form: 4.3 GB at 1024
 
 
@@ -424,8 +438,10 @@ def _flops(fn) -> float:
 def bench_models(record: Recorder, reps: int, dev: torch.device) -> None:
     """Minibatch steps of the gradient models on the N=8192 corpus at dim
     128 (attention AdamW at B=512, grounding Adam at B=256; ms a step over
-    ``reps`` steps, each drawing its batch), and segmental k-means (EM
-    iterations and discover) on N=2000 utterances of 13-dim frames."""
+    ``reps`` steps, each drawing its batch), of the end-to-end CRF at B=256
+    on N=2048 utterances of 13-dim frames (learned transitions; each step's
+    n_sgd + 1 E-steps through K4), and segmental k-means (EM iterations and
+    discover) on N=2000 utterances of 13-dim frames."""
     from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
     from multimodalworddiscovery_tpu_torch.models import (
         attention, grounding, minibatch, segmental_kmeans,
@@ -448,6 +464,17 @@ def bench_models(record: Recorder, reps: int, dev: torch.device) -> None:
                steps_per_sec=1e3 / ms, utt_per_sec=batch * 1e3 / ms, flops_per_step=flops,
                flops_per_sec=flops * 1e3 / ms)
     del corpus
+    fc, _, crf, step = crf_minibatch_setup(dev)
+    state, gen = [crf], torch.Generator().manual_seed(3)
+
+    def run_crf():
+        state[0] = step(state[0], gen)[0]
+
+    ms = gpu_ms(run_crf, reps)
+    record(kernel="hmm_crf_minibatch_step", batch=CRF_MB_BATCH, N=fc.n, T=fc.max_src_len,
+           S=2 * fc.max_trg_len, n_sgd=crf.n_sgd, ms_per_step=ms, steps_per_sec=1e3 / ms,
+           utt_per_sec=CRF_MB_BATCH * 1e3 / ms)
+    del fc, crf, state
     tok, tok_gold, _ = make_flickr8k_mini(**SEGKMEANS_CORPUS)
     fc, _, _ = phones_to_frames(tok, tok_gold, **SEGKMEANS_FRAMES, device=dev)
     params = segmental_kmeans.init(fc, n_clusters=64, generator=torch.Generator().manual_seed(2))
@@ -460,6 +487,23 @@ def bench_models(record: Recorder, reps: int, dev: torch.device) -> None:
            utt_per_sec=fc.n * 1e3 / ms, segments_per_sec=int(mask.sum()) * 1e3 / ms)
     del fc, params, segs, mask
     torch.cuda.empty_cache()
+
+
+def crf_minibatch_setup(dev: torch.device):
+    """(corpus of 13-dim frames, init_e2e parameters, step) of the
+    hmm_crf_minibatch_step row; the step draws its batch from a CPU
+    generator passed to it."""
+    import functools
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.models import hmm_crf, minibatch
+
+    tok, tok_gold, _ = make_flickr8k_mini(**CRF_MB_CORPUS)
+    fc, fg, _ = phones_to_frames(tok, tok_gold, **CRF_MB_FRAMES, device=dev)
+    params = hmm_crf.init_e2e(fc, generator=torch.Generator().manual_seed(3))
+    step = minibatch.make_minibatch_step(
+        functools.partial(hmm_crf.em_step, learn_transitions=True), fc, CRF_MB_BATCH)
+    return fc, fg, params, step
 
 
 def bench_retrieval(record: Recorder, reps: int, dev: torch.device) -> None:
@@ -493,6 +537,41 @@ def bench_retrieval(record: Recorder, reps: int, dev: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
+def median_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Median over ``rounds`` of ``gpu_ms(fn, reps)``."""
+    return float(np.median([gpu_ms(fn, reps) for _ in range(rounds)]))
+
+
+def bench_detector(record: Recorder, reps: int, dev: torch.device) -> None:
+    """The region-proposal detector: Adam steps at B=64 drawn from N=512
+    images of 64 x 64 (a fresh permutation a step, as the reference), then
+    ``propose`` at k=8 on all 512 images."""
+    from multimodalworddiscovery_tpu_torch.data import make_boxes_mini
+    from multimodalworddiscovery_tpu_torch.frontend import detector
+    from multimodalworddiscovery_tpu_torch.models import hmm_dnn
+
+    images, boxes, mask = (torch.as_tensor(a, device=dev) for a in make_boxes_mini(
+        n_images=DET_N, image_size=DET_SIZE))
+    cfg = detector.DetectorConfig(image_size=DET_SIZE)
+    model = detector.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    anchors = torch.as_tensor(cfg.anchors(), device=dev)
+    step = detector.make_train_step(model, anchors, 1e-3)
+    opt = [hmm_dnn.adam_init(model.parameters())]
+    gen = torch.Generator().manual_seed(0)
+
+    def train_step():
+        idx = torch.randperm(DET_N, generator=gen)[:DET_BATCH].to(dev)
+        opt[0], _ = step(opt[0], images[idx], boxes[idx], mask[idx])
+
+    ms = median_ms(train_step, reps)
+    record(kernel="detector_train_step", batch=DET_BATCH, N=DET_N, image_size=DET_SIZE,
+           ms_per_step=ms, steps_per_sec=1e3 / ms, images_per_sec=DET_BATCH * 1e3 / ms)
+    ms = median_ms(lambda: detector.propose(model, anchors, images, k=DET_K), reps)
+    keep = detector.propose(model, anchors, images, k=DET_K)[2]
+    record(kernel="detector_propose", N=DET_N, k=DET_K, n_kept=int(keep.sum()), ms=ms,
+           images_per_sec=DET_N * 1e3 / ms)
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=pathlib.Path, default=DEFAULT_OUT)
@@ -502,10 +581,11 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     record = Recorder(args.out)
     fns = dict(mfcc=bench_mfcc, counts=bench_counts, log_matmul=bench_log_matmul,
                model1_align=bench_model1_align, models=bench_models,
-               retrieval=bench_retrieval)
+               retrieval=bench_retrieval, detector=bench_detector)
     for name in args.only or BENCHES:
         fns[name](record, args.reps, dev)
 

@@ -2,10 +2,16 @@
 
 speech: .npz of raw waveforms (keys arr_0..arr_N, float32 [L_i]) ->
         .npz of MFCC / fbank features (arr_i [F_i, D]) through K5.
-image:  not ported yet: it waits for ``frontend/image.py`` (slice 5).
+image:  .npz of images (arr_i [H, W, 3]) + boxes JSON ({"arr_i": [[y1, x1,
+        y2, x2], ...]}, normalized) -> .npz of VGG16 region embeddings
+        [B_i, 4096] for the images with boxes, whole-image concept
+        posteriors [1000] (after a bilinear resize to 224 x 224) for the rest.
 
     python -m multimodalworddiscovery_tpu_torch.scripts.extract_features speech \\
         --input wavs.npz --output feats.npz [--batch-size 256] [--device cuda]
+    python -m multimodalworddiscovery_tpu_torch.scripts.extract_features image \\
+        --input imgs.npz --boxes boxes.json --output regions.npz \\
+        [--weights vgg16_torch.pt] [--device cuda]
 
 The device is "cuda" unless ``--device`` names another ("cpu" runs the
 kernel's plain version).
@@ -14,11 +20,12 @@ kernel's plain version).
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
 
-from multimodalworddiscovery_tpu_torch.frontend import speech
+from multimodalworddiscovery_tpu_torch.frontend import image, speech
 from multimodalworddiscovery_tpu_torch.ops import mfcc as mfcc_ops
 
 
@@ -61,11 +68,32 @@ def cmd_speech(args) -> None:
 
 
 def cmd_image(args) -> None:
-    raise NotImplementedError(
-        "extract_features image is not ported yet: it waits for the image "
-        "frontend (frontend/image.py, slice 5 of the port); use the JAX "
-        "package's scripts/extract_features.py image meanwhile"
-    )
+    dev = torch.device(args.device)
+    if args.weights:
+        model = image.load_torch_weights(args.weights, device=dev)
+        print(f"loaded torchvision weights from {args.weights}")
+    else:
+        model = image.init_vgg16(device=dev)
+        print("WARNING: random-init VGG16 (no --weights given); embeddings are "
+              "untrained — use precomputed features for real experiments")
+    with np.load(args.input) as z:
+        imgs = {k: z[k] for k in z.files}
+    boxes = {}
+    if args.boxes:
+        with open(args.boxes) as f:
+            boxes = json.load(f)
+    size = model.input_size
+    out = {}
+    for k, img in imgs.items():
+        x = torch.as_tensor(img.astype(np.float32), device=dev)
+        if boxes.get(k):
+            b = torch.as_tensor(np.asarray(boxes[k], np.float32), device=dev)
+            out[k] = image.region_embeddings(model, x, b).cpu().numpy()
+        else:
+            probs = image.image_concepts(model, image.resize(x, size, size)[None])
+            out[k] = probs[0].cpu().numpy()
+    np.savez(args.output, **out)
+    print(f"wrote {args.output}: {len(out)} images")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -87,11 +115,13 @@ def main(argv: list[str] | None = None) -> None:
                    help="torch device (default cuda; cpu runs the plain version)")
     s.set_defaults(fn=cmd_speech)
 
-    i = sub.add_parser("image", help="not ported yet (waits for frontend/image.py)")
+    i = sub.add_parser("image")
     i.add_argument("--input", required=True)
     i.add_argument("--boxes", default=None)
     i.add_argument("--output", required=True)
-    i.add_argument("--weights", default=None)
+    i.add_argument("--weights", default=None,
+                   help="a torchvision VGG16 state dict on disk (default: random init)")
+    i.add_argument("--device", default="cuda", help="torch device (default cuda)")
     i.set_defaults(fn=cmd_image)
 
     args = ap.parse_args(argv)

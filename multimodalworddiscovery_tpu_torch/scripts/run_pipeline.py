@@ -52,7 +52,7 @@ N_COMPONENTS = 2  # words span several phones, so emissions are multimodal
 BOUNDARY_TOLERANCE = 4  # frames
 
 
-class _Clock:
+class Clock:
     """Host-clock laps in ms; each lap first waits for the device."""
 
     def __init__(self, device: torch.device):
@@ -148,12 +148,12 @@ def fit_and_score(
     iters: int,
     use_kernels: bool | None = None,
     generator: torch.Generator | None = None,
-    clock: _Clock | None = None,
+    clock: Clock | None = None,
 ) -> dict:
     """EM (no anneal) from ``init_params``, decode, segment, score.  Returns
     the metrics and the per-iteration logliks ("loglik"); ``clock`` takes
     a lap after each stage."""
-    clock = clock or _Clock(feats.device)
+    clock = clock or Clock(feats.device)
     frame_gold = expand_gold_to_frames(
         gold, phone_corpus.src_len.cpu().numpy(), frame_lens.cpu().numpy()
     )
@@ -189,7 +189,7 @@ def run_pipeline(
     when None).  Returns the metrics, "loglik" and "stage_ms" (host clock;
     each stage ends with a device synchronize)."""
     dev = torch.device(device)
-    clock = _Clock(dev)
+    clock = Clock(dev)
     if data is None:
         data = synthesize(n_utterances, dev)
     phone_corpus, gold, wavs, wav_lens = data

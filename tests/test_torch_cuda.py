@@ -1061,3 +1061,90 @@ def test_guide_k4_gamma_matches_plain_posteriors(dev):
     torch.testing.assert_close(hmm_gaussian.posteriors(gp, fc),
                                hmm_gaussian.posteriors(gp, fc, use_kernels=False),
                                rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["S12", "S128"])
+def test_dense_viterbi_agrees_with_k3(dev, name):
+    """The dense ``hmm_core.viterbi`` (plain torch on the card) against
+    ``viterbi_factored`` through K3: equal paths except at exact ties, and
+    every path's score within rtol 1e-5 of K3's."""
+    corpus, params, _, fact = _inputs(name, dev)
+    li, lt, le = hmm._machinery(params, corpus)
+    dense = hmm_core.viterbi(li, lt, le, corpus.src_len)
+    before = k3.viterbi.launches
+    fast = hmm_core.viterbi_factored(*fact, le, corpus.src_len)
+    assert k3.viterbi.launches == before + 1
+    valid = corpus.src_mask()
+    same = (torch.where(valid, dense, 0) == torch.where(valid, fast, 0)).all(dim=1)
+    s_dense = k3.path_score(dense, *fact, le, corpus.src_len)
+    s_fast = k3.path_score(fast, *fact, le, corpus.src_len)
+    torch.testing.assert_close(s_dense, s_fast, rtol=1e-5, atol=0)
+    assert float(same.float().mean()) >= 0.9
+
+
+def test_crf_minibatch_step_through_k4(dev):
+    """``make_minibatch_step(hmm_crf.em_step)`` on a CUDA corpus: n_sgd + 1
+    K4 launches a step, and the step's parameters within the CRF's bounds
+    of the plain route's from the same state and draw."""
+    from multimodalworddiscovery_tpu_torch.models import minibatch
+
+    c, g, _ = make_flickr8k_mini(n_utterances=40, seed=41)
+    fc, _, _ = phones_to_frames(c, g, feat_dim=12, noise=0.1, seed=41, device=dev)
+    p0 = hmm_dnn.init(fc, hidden=32, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for use_kernels in (True, False):
+        step = minibatch.make_minibatch_step(
+            lambda p, b, u=use_kernels: hmm_crf.em_step(p, b, use_kernels=u), fc, 16)
+        before = k2.hmm_estep.launches
+        out[use_kernels] = step(p0, torch.Generator().manual_seed(1))[0]
+        launched = k2.hmm_estep.launches - before
+        assert launched == ((p0.n_sgd + 1) if use_kernels else 0)
+    for a, b in zip(out[True].mlp.parameters(), out[False].mlp.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(out[True].log_jump, out[False].log_jump, rtol=1e-3, atol=1e-4)
+
+
+def test_vgg16_on_the_card_matches_the_cpu(dev):
+    """The narrow VGG16 (32 x 32 input) on the card against the same weights
+    on the CPU, TF32 off: rtol 1e-3, atol 1e-4 x the largest |ref|."""
+    from multimodalworddiscovery_tpu_torch.frontend import image
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = image.init_vgg16(num_classes=10, fc_dim=64, input_size=32, device="cpu")
+    gpu = image.init_vgg16(num_classes=10, fc_dim=64, input_size=32, device=dev)
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, size=(48, 40, 3)).astype(np.float32)
+    boxes = np.array([[0.1, 0.1, 0.6, 0.5], [0.3, 0.2, 0.9, 0.95]], np.float32)
+    want = image.region_embeddings(cpu, torch.as_tensor(img), torch.as_tensor(boxes))
+    got = image.region_embeddings(gpu, torch.as_tensor(img, device=dev),
+                                  torch.as_tensor(boxes, device=dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * float(want.abs().max()))
+    x = torch.as_tensor(img)
+    want = image.image_concepts(cpu, image.resize(x, 32, 32)[None])
+    got = image.image_concepts(gpu, image.resize(x.to(dev), 32, 32)[None]).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * float(want.abs().max()))
+
+
+def test_detector_steps_on_the_card_match_the_cpu(dev):
+    """Three detector Adam steps from the same weights on the card and on
+    the CPU (cuDNN deterministic, TF32 off), then equal proposals' keep."""
+    from multimodalworddiscovery_tpu_torch.data import make_boxes_mini
+    from multimodalworddiscovery_tpu_torch.frontend import detector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = detector.DetectorConfig(image_size=32, widths=(8, 16, 32), channels=16)
+    arrays = make_boxes_mini(n_images=6, image_size=32, seed=2)
+    runs = {}
+    for d in ("cpu", dev):
+        images, boxes, mask = (torch.as_tensor(a, device=d) for a in arrays)
+        model, hist = detector.train(cfg, images, boxes, mask, num_steps=3,
+                                     generator=torch.Generator().manual_seed(0))
+        anchors = torch.as_tensor(cfg.anchors(), device=d)
+        runs[str(d)] = (model, hist, detector.propose(model, anchors, images, k=8,
+                                                      score_thresh=0.3))
+    (m_c, h_c, p_c), (m_g, h_g, p_g) = runs["cpu"], runs[str(dev)]
+    assert abs(h_c[-1]["loss"] - h_g[-1]["loss"]) <= 1e-4 * abs(h_c[-1]["loss"])
+    for a, b in zip(m_g.parameters(), m_c.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-5)
+    assert torch.equal(p_g[2].cpu(), p_c[2])

@@ -152,9 +152,33 @@ def test_extract_features_speech_round_trip(tmp_path, kind, batch):
 
 
 def test_extract_features_image_waits_for_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="image"):
-        tx.main(["image", "--input", str(tmp_path / "x.npz"), "--output",
-                 str(tmp_path / "y.npz")])
+    """``extract_features image`` (ported with the image frontend):
+    region embeddings for the images with boxes, whole-image concept
+    posteriors (after the resize to the model's input size) for the rest,
+    from a torchvision-layout state dict on disk (narrow: fc 64, 10
+    classes, 32 x 32 input)."""
+    from multimodalworddiscovery_tpu_torch.frontend import image as timg
+
+    model = timg.init_vgg16(num_classes=10, fc_dim=64, input_size=32, device="cpu")
+    torch.save(model.state_dict(), tmp_path / "w.pt")
+    rng = np.random.default_rng(8)
+    imgs = {"arr_0": rng.integers(0, 256, size=(40, 50, 3)).astype(np.uint8),
+            "arr_1": rng.integers(0, 256, size=(20, 16, 3)).astype(np.uint8)}
+    np.savez(tmp_path / "imgs.npz", **imgs)
+    boxes = {"arr_0": [[0.1, 0.1, 0.6, 0.5], [0.2, 0.3, 0.9, 0.9]]}
+    (tmp_path / "boxes.json").write_text(json.dumps(boxes))
+    tx.main(["image", "--input", str(tmp_path / "imgs.npz"), "--boxes",
+             str(tmp_path / "boxes.json"), "--output", str(tmp_path / "y.npz"),
+             "--weights", str(tmp_path / "w.pt"), "--device", "cpu"])
+    with np.load(tmp_path / "y.npz") as z:
+        assert sorted(z.files) == ["arr_0", "arr_1"]
+        want = timg.region_embeddings(model, torch.as_tensor(imgs["arr_0"]).float(),
+                                      torch.as_tensor(boxes["arr_0"]))
+        np.testing.assert_array_equal(z["arr_0"], want.numpy())
+        resized = timg.resize(torch.as_tensor(imgs["arr_1"]), 32, 32)
+        want = timg.image_concepts(model, resized[None])[0]
+        np.testing.assert_array_equal(z["arr_1"], want.numpy())
+        assert z["arr_0"].shape == (2, 64) and z["arr_1"].shape == (10,)
 
 
 def test_pipeline_entry_points_default_to_cuda():

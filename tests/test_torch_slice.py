@@ -40,6 +40,9 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.eval.metrics",
     "multimodalworddiscovery_tpu_torch.eval.retrieval",
     "multimodalworddiscovery_tpu_torch.frontend",
+    "multimodalworddiscovery_tpu_torch.frontend.detector",
+    "multimodalworddiscovery_tpu_torch.frontend.image",
+    "multimodalworddiscovery_tpu_torch.frontend.pretrained",
     "multimodalworddiscovery_tpu_torch.frontend.speech",
     "multimodalworddiscovery_tpu_torch.frontend.vq",
     "multimodalworddiscovery_tpu_torch.models",
@@ -68,8 +71,10 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.scripts.bench_estep",
     "multimodalworddiscovery_tpu_torch.scripts.bench_kernels",
     "multimodalworddiscovery_tpu_torch.scripts.extract_features",
+    "multimodalworddiscovery_tpu_torch.scripts.image_pipeline",
     "multimodalworddiscovery_tpu_torch.scripts.k8_phases",
     "multimodalworddiscovery_tpu_torch.scripts.run_pipeline",
+    "multimodalworddiscovery_tpu_torch.scripts.train_detector",
     "multimodalworddiscovery_tpu_torch.segment",
     "multimodalworddiscovery_tpu_torch.utils",
     "multimodalworddiscovery_tpu_torch.utils.audio",
