@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives fifteen paths through the kernels
+shapes the main paths give it, then drives eighteen paths through the kernels
 (paths 1-4, 6, 8, 10 and 12 also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
@@ -94,6 +94,39 @@ shapes the main paths give it, then drives fifteen paths through the kernels
     viterbi_dense rows (S12 N=8000, S128 N=512) after one EM step, its
     emissions from K1, against ``viterbi_factored`` through K3 (paths
     equal except at counted ties, scores within rtol 1e-5), ms per decode.
+16. out-of-core and bucketed discrete EM: ``scripts/bench_stream.py``'s
+    corpus (the headline family at N=65536) written to disk in shards of
+    8192; ``data.stream.train_streaming(hmm, ...)`` at prefetch 1 and 2 (K1
+    + K2 once a shard an iteration) against resident ``hmm.train`` (K1 + K2
+    at N=65536), 5 iterations, logliks within rtol 1e-5 and parameters
+    within atol 1e-4 (tests/test_stream.py:68-73), Model-1 the same way
+    over the same shards; bench_stream's rows (ms per iteration, overlap
+    efficiency); then ``train_bucketed`` on the headline corpus with edges
+    [12, 20] (K1 + K2 per bucket, K3 per bucket in ``align_bucketed``)
+    against resident EM: logliks rtol 1e-4, log_emit atol 1e-3, decode
+    agreement > 0.999, padding waste and ms per iteration printed;
+17. the stretch recipe out of core: path 3's corpus in shards of 1000 with
+    gold, ``init_vq_teacher_streaming`` (64 codes from a 65,536-frame
+    reservoir, the teacher's EM over the code shards through K1 + K2, 3
+    seeding rounds through K1 + K4, K=2, max_jump 5), 10 streamed annealed
+    Gaussian EM iterations (K4 once a shard an iteration), decode shard by
+    shard (K3): F1 >= 0.30 and within 0.10 of path 3's resident recipe;
+    from path 3's initial parameters 2 streamed iterations against 2
+    resident ones (logliks rtol 1e-5; the means within the resident float32
+    run's own distance from the same EM in float64: their sums run over
+    1.6M frames, where addition order alone moves them by about 2e-4), on
+    float32 shards and on float16 shards (under 0.55x the bytes) against
+    the float16-rounded corpus;
+18. the streamed gradient trainers: ``hmm_dnn.train_streaming`` on the
+    DNN-HMM path's corpus in 4 shards (K4 once a shard an iteration), held
+    to the JAX package's streamed run from the same initial parameters
+    (``tests/stream_reference.py``; both collapse there, which is printed),
+    and at tests/test_stream.py:854-882's own configuration held to its
+    bounds (loglik rising, accuracy at least the resident trainer's minus
+    0.05); ``train_minibatch_streaming`` of the attention step on path 11's
+    corpus in 4 shards (B=512, 60 steps): the loss falls, and a run resumed
+    at step 30 gives the uninterrupted run's losses within rtol 1e-5.
+    Shards go to a temporary directory removed at the end.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
 gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
@@ -104,9 +137,11 @@ shape, K3's at each shape it decodes, and K1's at each of its launch shapes
 (bit-equal to the plain gather, CUDA-event and device time, bound, the
 library double-index gather); K1, K2, K3 and K4 are also checked at the
 shapes paths 10-12 give them (Model-1's two shapes, path 11's teacher
-corpus, guide batch and guided frames, pooled retrieval's chunk), and the
-script fails unless every launch of K1-K4 on the paths lies at a checked
-shape.  K4,
+corpus, guide batch and guided frames, pooled retrieval's chunk) and at
+those of paths 16-18 (the N=65536 corpus and its N=8192 shard, each
+bucket and its decode, the stretch recipe's code and frame shards of
+1000, the DNN-HMM's shards), and the script fails unless every launch of
+K1-K4 on the paths lies at a checked shape.  K4,
 K4-bf16 and K6 (the remat E-step, reached through its entry point
 ``hmm_estep(remat=True)``, which no model path calls) are checked at the
 stretch shape and at S=128, K6 at two chunk lengths and against K4; each
@@ -161,8 +196,10 @@ import dataclasses
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -360,6 +397,38 @@ CRF_MB_STEPS = 40
 CRF_MB_REF = dict(corpus=dict(n_utterances=80, seed=41),
                   frames=dict(feat_dim=12, noise=0.1, seed=41), batch=40, min_acc=0.9)
 VITERBI_DENSE_ROWS = {"S12": HEADLINE, "S128": DENSE}
+# path 16: scripts/bench_stream.py's corpus (the headline family at N=65536)
+# in shards of 8192, 5 EM iterations (tests/test_stream.py's bounds); the
+# headline corpus bucketed at source lengths 12 and 20
+STREAM = dict(n_utterances=65536, n_concepts=60, n_phones=48, min_concepts=3, max_concepts=6,
+              seed=0)
+STREAM_SHARD = 8192
+STREAM_ITERS = 5
+BUCKET_EDGES = [12, 20]
+# path 17: path 3's corpus in shards of 1000; path 18: the DNN-HMM path's
+# corpus in 4 shards, and path 11's in 4 shards for 60 attention steps, the
+# second half resumed from the state after 30
+STRETCH_SHARD = 1000
+DNN_SHARDS = 4
+# the JAX package's streamed DNN-HMM at path 18's configuration from the
+# port's initial parameters, and its resident trainer's accuracy:
+# tests/stream_reference.py.  The streamed trainer collapses there (loglik
+# to about 0.1, every frame decoded to NULL)
+REFERENCE_STREAM_DNN = {"loglik": [13198.3125, 1339.096435546875, 3.6383719444274902,
+                                   0.1300397515296936, 0.07324731349945068,
+                                   0.06586867570877075, 0.0770372748374939,
+                                   0.08069294691085815, 0.0727548599243164,
+                                   0.09100145101547241],
+                        "positional_accuracy": 0.0, "resident_accuracy": 0.9534108584549292}
+# tests/test_stream.py:854-882's configuration: its 30-utterance corpus and
+# frames, hidden 64, shards of 10, 5 iterations
+STREAM_TEST_CORPUS = dict(n_utterances=30, n_concepts=10, n_phones=16, seed=3)
+STREAM_TEST_FRAMES = dict(feat_dim=8, noise=0.1, seed=0)
+STREAM_TEST_MODEL = dict(hidden=64)
+STREAM_TEST_SHARD = 10
+STREAM_TEST_ITERS = 5
+ATT_STREAM_SHARDS = 4
+ATT_STREAM_STEPS, ATT_RESUME = 60, 30
 
 
 def _run(cmd: list[str]) -> str:
@@ -438,6 +507,16 @@ def _reset(counters) -> None:
 
 def _counts(counters) -> dict[str, int]:
     return {name: getattr(w, attr) for name, w, attr in counters}
+
+
+def _json_safe(x):
+    """``x`` with every non-finite float (a device time the profiler's
+    trace did not keep) as None, so the line stays strict JSON."""
+    if isinstance(x, dict):
+        return {k: _json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_safe(v) for v in x]
+    return None if isinstance(x, float) and not math.isfinite(x) else x
 
 
 def _nbytes(*tensors) -> int:
@@ -731,6 +810,30 @@ def k4_parity(name, inputs, reps: int, bf16_flips: bool = False) -> dict:
     return {"err": max(errs.values()), "bf16_err": max(errs_bf.values()),
             "k6_err": max(errs_k6.values()), "k6_bit_identical": same,
             "bf16_bound": bound_bf} | times | bound
+
+
+def k4_check(name, inputs, reps: int) -> dict:
+    """K4 alone against its plain version (``_k4_checks``) at a launch
+    shape where only the float32 kernel runs, timed with its plain version
+    and its bound; K4-bf16's errors there are printed, not held.
+    ``inputs`` as ``k4_parity``'s."""
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k4
+
+    n, ts, s = inputs[4].shape
+    print(f"K4 at {name}: N={n} (incl. {ZERO_LENGTH_PAD} empty), Ts={ts}, S={s}")
+    out = k4.hmm_estep(*inputs)
+    errs = _k4_checks("K4", out, k4.hmm_estep_plain(*inputs), ZERO_LENGTH_PAD)
+    bf = k4.hmm_estep(*inputs, dot_dtype="bfloat16")
+    want = k4.hmm_estep_plain(*inputs, dot_dtype="bfloat16")
+    print(f"  K4-bf16 there (not launched at this shape; printed): max abs err against its "
+          f"plain bf16 version logZ {_max_abs(bf[2], want[2])}, gamma "
+          f"{_max_abs(bf[0], want[0])}, xi {_max_abs(bf[1], want[1])}; against K4 logZ "
+          f"{_max_abs(bf[2], out[2])}, gamma {_max_abs(bf[0], out[0])}")
+    del bf, want
+    bound = _estep_bound(_nbytes(*inputs, *out), inputs[5], s, bf16=False)
+    return ({"err": max(errs.values()), "ms": _gpu_ms(lambda: k4.hmm_estep(*inputs), reps),
+             "plain_ms": _gpu_ms(lambda: k4.hmm_estep_plain(*inputs), max(reps // 10, 1))}
+            | bound)
 
 
 def k3_parity(name, inputs, reps: int) -> dict:
@@ -2535,6 +2638,460 @@ def viterbi_dense_phase(card: str, counters, dev) -> dict:
     return out
 
 
+
+def _stream_em_checks(what: str, lls, want_lls, params, want_params, fields) -> None:
+    """Streamed EM against resident EM (tests/test_stream.py:68-73): the
+    logliks within rtol 1e-5, each parameter in ``fields`` within atol
+    1e-4."""
+    import numpy as np
+
+    lls, want_lls = np.asarray(lls, np.float64), np.asarray(want_lls, np.float64)
+    rel = float(np.max(np.abs(lls - want_lls) / np.abs(want_lls)))
+    print(f"  {what}: loglik per iteration {lls.tolist()} (resident {want_lls.tolist()}), "
+          f"largest relative difference {rel:.3e}")
+    _check(rel <= 1e-5, f"{what}: logliks within rtol 1e-5 of resident EM")
+    errs = {f: _max_abs(getattr(params, f), getattr(want_params, f)) for f in fields}
+    _check(max(errs.values()) <= 1e-4, f"{what}: parameters within atol 1e-4 of resident EM "
+                                       f"(max abs err {errs})")
+
+
+def _stream_gauss_checks(what: str, lls, want_lls, params, want_params, means64) -> None:
+    """Streamed Gaussian EM against resident EM at the stretch shape: the
+    logliks within rtol 1e-5 (tests/test_stream.py:127-133); the means,
+    whose float32 sums run over 1.6M frames here, within the resident
+    float32 run's own distance from the same EM in float64 (``means64``):
+    streaming adds nothing beyond float32 rounding.  The reference test's
+    atol 1e-4, set on 30 utterances, is printed beside it."""
+    import numpy as np
+
+    lls, want_lls = np.asarray(lls, np.float64), np.asarray(want_lls, np.float64)
+    rel = float(np.max(np.abs(lls - want_lls) / np.abs(want_lls)))
+    print(f"  {what}: loglik per iteration {lls.tolist()} (resident {want_lls.tolist()}), "
+          f"largest relative difference {rel:.3e}")
+    _check(rel <= 1e-5, f"{what}: logliks within rtol 1e-5 of resident EM")
+    d = _max_abs(params.means, want_params.means)
+    e_res, e_str = _max_abs(want_params.means, means64), _max_abs(params.means, means64)
+    print(f"  {what}: means, max abs difference streamed - resident {d:.3e} (atol 1e-4 "
+          f"{'met' if d <= 1e-4 else 'not met'}); against float64 resident {e_res:.3e}, "
+          f"streamed {e_str:.3e}; largest |mean| {float(means64.abs().max()):.4f}")
+    _check(d <= e_res, f"{what}: means within the resident float32 run's distance from "
+                       f"float64 ({d:.3e} <= {e_res:.3e})")
+
+
+def stream_phase(here: str, card: str, counters, dev, tmp: str) -> dict:
+    """Path 16: the headline discrete EM streamed from disk (bench_stream's
+    N=65536 corpus in shards of 8192: K1 + K2 at the shard shape) against
+    resident EM (K1 + K2 at N=65536) at prefetch 1 and 2, Model-1 over the
+    same shards, bench_stream's rows, then bucketed EM and decode on the
+    headline corpus (K1 + K2 and K3 at each bucket's shape)."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.data.bucketing import bucket_corpus, padding_waste
+    from multimodalworddiscovery_tpu_torch.data.stream import (
+        ShardedCorpusReader,
+        train_streaming,
+        write_shards,
+    )
+    from multimodalworddiscovery_tpu_torch.models import bucketed, hmm, hmm_core, model1
+    from multimodalworddiscovery_tpu_torch.scripts import bench_stream
+
+    t_path = time.perf_counter()
+    corpus, _, _ = make_flickr8k_mini(**STREAM, device=dev)
+    d = os.path.join(tmp, "stream")
+    t0 = time.perf_counter()
+    n_shards = write_shards(corpus, d, STREAM_SHARD)
+    reader = ShardedCorpusReader(d, device=dev)
+    print(f"path 16 (streamed and bucketed discrete EM): N={corpus.n}, Ts={corpus.max_src_len}, "
+          f"S={2 * corpus.max_trg_len}, {n_shards} shards of {STREAM_SHARD} written in "
+          f"{time.perf_counter() - t0:.2f} s, {STREAM_ITERS} EM iterations")
+    shard0 = reader.load_shard(0)
+    checks = {"stream_resident": parity("path 16 resident (N=65536)", corpus, reps=5),
+              "stream_shard": parity("path 16 shard (N=8192)", shard0, reps=5)}
+    p0 = hmm.init(corpus)
+    k1s = {"stream_resident": k1_check("path 16 resident", p0.log_emit, corpus.src,
+                                       hmm_core.state_concepts(corpus), 50),
+           "stream_shard": k1_check("path 16 shard", p0.log_emit, shard0.src,
+                                    hmm_core.state_concepts(shard0), 50)}
+    del shard0
+
+    _reset(counters)
+    (pr, lls_r), ms_res = _timed(lambda: hmm.train(p0, corpus, STREAM_ITERS, use_kernels=True))
+    launches = {"stream_resident": _counts(counters)}
+    _reset(counters)
+    ms_str = {}
+    for prefetch in (1, 2):
+        (ps, lls), ms_str[prefetch] = _timed(lambda: train_streaming(
+            hmm, p0, reader, STREAM_ITERS, prefetch=prefetch, use_kernels=True))
+        _stream_em_checks(f"path 16 streamed hmm (prefetch {prefetch})", lls,
+                          lls_r.cpu().numpy(), ps, pr, ("log_emit", "log_jump", "log_p0"))
+    launches["stream_shard"] = _counts(counters)
+    _check(launches["stream_resident"]["hmm_estep_counts"] == STREAM_ITERS
+           and launches["stream_shard"]["hmm_estep_counts"] == 2 * STREAM_ITERS * n_shards
+           and launches["stream_shard"]["table_lookup"] == 2 * STREAM_ITERS * n_shards,
+           f"path 16: K1 and K2 once an iteration resident, once a shard an iteration streamed")
+    print(f"  [{card}] path 16 ms per EM iteration (one run, CUDA events): resident "
+          f"{ms_res / STREAM_ITERS:.3f}, streamed prefetch 1 {ms_str[1] / STREAM_ITERS:.3f}, "
+          f"prefetch 2 {ms_str[2] / STREAM_ITERS:.3f}")
+
+    _reset(counters)
+    m0 = model1.init(corpus)
+    pm_r, lm_r = model1.train(m0, corpus, STREAM_ITERS)
+    for prefetch in (1, 2):
+        pm_s, lm_s = train_streaming(model1, m0, reader, STREAM_ITERS, prefetch=prefetch,
+                                     use_kernels=True)
+        _stream_em_checks(f"path 16 streamed Model-1 (prefetch {prefetch})", lm_s,
+                          lm_r.cpu().numpy(), pm_s, pm_r, ("log_t",))
+    launches["model1"] = _counts(counters)
+    _check(sum(launches["model1"].values()) == 0,
+           "path 16: Model-1's EM launches no kernel (its counts are index_add_ statistics)")
+    del pm_r, pm_s, pr, ps
+
+    rows = bench_stream.run(STREAM["n_utterances"], STREAM_SHARD, STREAM_ITERS, 3, dev,
+                            pathlib.Path(here, "build", "chip_smoke", "bench_stream.jsonl"))
+    for r in rows:
+        if r["bench"] == "stream_breakdown":
+            print(f"  [{card}] bench_stream breakdown: {r['read_ms_per_shard']:.3f} ms to read "
+                  f"and copy a shard; an EM iteration over the shards on the device "
+                  f"{r['em_on_device_shards_ms_per_iter']:.3f} ms, loading them in the same "
+                  f"loop (no reader thread) {r['em_no_thread_ms_per_iter']:.3f} ms")
+            continue
+        print(f"  [{card}] bench_stream {r['bench']}"
+              + (f" prefetch {r['prefetch']}" if "prefetch" in r else "")
+              + f": {r['ms_per_iter']:.3f} ms per iteration, {r['utt_iter_per_s']:.0f} "
+                f"utt*iter/s" + (f", overlap efficiency {r['overlap_efficiency']:.4f}"
+                                 if "overlap_efficiency" in r else ""))
+    del corpus, reader
+    torch.cuda.empty_cache()
+
+    # bucketed EM and decode on the headline corpus
+    hc, _, _ = make_flickr8k_mini(**HEADLINE, device=dev)
+    buckets = bucket_corpus(hc, BUCKET_EDGES)
+    waste = {"resident": padding_waste(hc),
+             **{f"bucket_{i}": padding_waste(b) for i, (b, _) in enumerate(buckets)}}
+    waste["buckets_total"] = (sum(padding_waste(b) * b.n * b.max_src_len for b, _ in buckets)
+                              / sum(b.n * b.max_src_len for b, _ in buckets))
+    print(f"  bucketed (edges {BUCKET_EDGES}): buckets of "
+          f"{[(b.n, b.max_src_len) for b, _ in buckets]} (N, Ts); padding waste {waste}")
+    ph = hmm.init(hc)
+    for i, (b, _) in enumerate(buckets):
+        name = f"bucket_{i}"
+        checks[name] = parity(f"path 16 bucket {i} (N={b.n}, Ts={b.max_src_len})", b, reps=5)
+        k1s[name] = k1_check(f"path 16 bucket {i}", ph.log_emit, b.src,
+                             hmm_core.state_concepts(b), 50)
+    _reset(counters)
+    (pf, lls_f), ms_full = _timed(lambda: hmm.train(ph, hc, STREAM_ITERS, use_kernels=True))
+    a_full = hmm.align(pf, hc, use_kernels=True).cpu().numpy()
+    launches["headline"] = _counts(counters)
+    _reset(counters)
+    (pb, lls_b), ms_b = _timed(lambda: bucketed.train_bucketed(
+        hmm, ph, hc, BUCKET_EDGES, STREAM_ITERS, use_kernels=True))
+    a_b = bucketed.align_bucketed(hmm, pb, hc, BUCKET_EDGES, use_kernels=True)
+    launches["buckets"] = _counts(counters)
+    nb = len(buckets)
+    _check(launches["buckets"]["hmm_estep_counts"] == nb * STREAM_ITERS
+           and launches["buckets"]["table_lookup"] == nb * STREAM_ITERS
+           and launches["buckets"]["viterbi"] == nb,
+           f"path 16 bucketed: K1 and K2 once a bucket an iteration, K3 once a bucket")
+    lf, lb = lls_f.cpu().numpy(), np.asarray(lls_b)
+    rel = float(np.max(np.abs(lb - lf) / np.abs(lf)))
+    print(f"  bucketed loglik {lb.tolist()} (resident {lf.tolist()}), largest relative "
+          f"difference {rel:.3e}")
+    _check(rel <= 1e-4, "path 16 bucketed: logliks within rtol 1e-4 of resident EM")
+    err = _max_abs(pb.log_emit, pf.log_emit)
+    _check(err <= 1e-3, f"path 16 bucketed: log_emit within atol 1e-3 of resident ({err})")
+    agree = float((a_b == a_full).mean())
+    _check(agree > 0.999, f"path 16 bucketed decode agrees with the resident decode on "
+                          f"{agree:.6f} > 0.999 of positions")
+    k3s = {}
+    for i, (b, _) in enumerate(buckets):
+        _, fact = _estep_inputs(pb, b)
+        k3s[f"bucket_{i}"] = k3_parity(f"path 16 bucket {i} decode",
+                                       (*fact, hmm._log_emissions(pb, b), b.src_len), 10)
+    print(f"  [{card}] path 16 bucketed against resident, ms per EM iteration (one run of "
+          f"{STREAM_ITERS}, CUDA events): bucketed {ms_b / STREAM_ITERS:.3f}, resident "
+          f"{ms_full / STREAM_ITERS:.3f}")
+    print(f"path 16 wall time {time.perf_counter() - t_path:.1f} s")
+    return {"checks": checks, "k1": k1s, "k3": k3s, "launches": launches, "n_buckets": nb,
+            "rows": rows, "waste": waste,
+            "ms": {"resident": ms_res / STREAM_ITERS,
+                   **{f"streamed_prefetch{p}": m / STREAM_ITERS for p, m in ms_str.items()},
+                   "bucketed": ms_b / STREAM_ITERS, "headline_resident": ms_full / STREAM_ITERS}}
+
+
+def stream_recipe_phase(card: str, counters, dev, tmp: str, fc, fg, p_recipe,
+                        f1_recipe: float) -> dict:
+    """Path 17: the stretch recipe out of core on path 3's corpus, written
+    with gold in shards of 1000: ``init_vq_teacher_streaming`` (K1 + K2 on
+    the code shards, K1 + K4 in the seeding rounds), streamed annealed
+    Gaussian EM (K4), decode shard by shard (K3); then 2 streamed
+    iterations from path 3's initial parameters against 2 resident ones, on
+    float32 and on float16 shards."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data.stream import (
+        ShardedCorpusReader,
+        train_streaming,
+        write_shards,
+    )
+    from multimodalworddiscovery_tpu_torch.eval.metrics import alignment_prf
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_gaussian
+
+    t_path = time.perf_counter()
+    d32, d16, dcode = (os.path.join(tmp, n) for n in ("stretch32", "stretch16", "codes"))
+    t0 = time.perf_counter()
+    n_shards = write_shards(fc, d32, STRETCH_SHARD, gold=fg)
+    reader = ShardedCorpusReader(d32, device=dev)
+    print(f"path 17 (the stretch recipe out of core): N={fc.n} in {n_shards} shards of "
+          f"{STRETCH_SHARD}, written in {time.perf_counter() - t0:.2f} s")
+    # the launch shapes: the code shards (K1, K2 and K4 on the teacher's
+    # emissions) and the frame shards (K4 on Gaussian emissions, K3)
+    shard0 = reader.load_shard(0)
+    pad0 = shard0.pad_to(shard0.n + ZERO_LENGTH_PAD)
+    _, fact = _estep_inputs(p_recipe, pad0)
+    k4_shard = k4_check("path 17 frame shard (N=1000)",
+                        (*fact, hmm_gaussian._log_emissions(p_recipe, pad0), pad0.src_len), 10)
+    _, fact = _estep_inputs(p_recipe, shard0)
+    k3_shard = k3_parity("path 17 frame shard (N=1000)",
+                         (*fact, hmm_gaussian._log_emissions(p_recipe, shard0), shard0.src_len),
+                         10)
+    del pad0, fact
+
+    _reset(counters)
+    t0 = time.perf_counter()
+    pv = hmm_gaussian.init_vq_teacher_streaming(
+        reader, dcode, max_jump=MAX_JUMP, n_components=2,
+        generator=torch.Generator().manual_seed(SEED), n_codes=N_CODES,
+        teacher_iters=EM_ITERS, seed_rounds=3, use_kernels=True, prefetch=2)
+    torch.cuda.synchronize()
+    t_seed = time.perf_counter() - t0
+    teach = _counts(counters)
+    code_reader = ShardedCorpusReader(dcode, device=dev)
+    _check(teach["table_lookup"] == (EM_ITERS + 3) * n_shards
+           and teach["hmm_estep_counts"] == EM_ITERS * n_shards
+           and teach["hmm_estep"] == 3 * n_shards,
+           "path 17 teacher: K1 and K2 once a code shard an EM iteration, K1 and K4 once a "
+           "code shard a seeding round")
+    code0 = code_reader.load_shard(0)
+    tp0 = hmm.init(code0, max_jump=MAX_JUMP)
+    teacher_checks = parity("path 17 code shard (N=1000)", code0, max_jump=MAX_JUMP, reps=5,
+                            bf16_flips=True)
+    teacher_k1 = k1_check("path 17 code shard", tp0.log_emit, code0.src,
+                          hmm_core.state_concepts(code0), 50)
+    del code0
+
+    _reset(counters)
+    t0 = time.perf_counter()
+    sched = hmm_gaussian.anneal_scales(EM_ITERS, ANNEAL)
+    ps, lls = train_streaming(hmm_gaussian, pv, reader, EM_ITERS, scale_schedule=sched,
+                              prefetch=2, use_kernels=True)
+    alignment = torch.cat([hmm_gaussian.align(ps, s, use_kernels=True)
+                           for s in reader.shards(2)])[: fc.n]
+    torch.cuda.synchronize()
+    t_em = time.perf_counter() - t0
+    gauss = _counts(counters)
+    _check(gauss["hmm_estep"] == EM_ITERS * n_shards and gauss["viterbi"] == n_shards,
+           "path 17: K4 once a shard an EM iteration, K3 once a shard")
+    gold_t = torch.as_tensor(fg.alignment, device=dev)
+    prf = {k: float(v) for k, v in alignment_prf(alignment, gold_t, fc.src_mask()).items()}
+    f1 = prf["f1"]
+    print(f"  streamed recipe: seeding {t_seed:.2f} s, EM + decode {t_em:.2f} s; loglik "
+          f"{lls}; alignment {prf}; launches (teacher, Gaussian) {(teach, gauss)}")
+    _check(bool(np.all(np.isfinite(lls))), "path 17 loglik finite")
+    _check(f1 >= 0.30, f"path 17 streamed recipe F1 >= 0.30 ({f1:.4f})")
+    _check(abs(f1 - f1_recipe) <= 0.10, f"path 17 streamed recipe F1 within 0.10 of path 3's "
+                                        f"resident recipe ({f1:.4f} vs {f1_recipe:.4f})")
+
+    # (b) two streamed iterations from path 3's initial parameters
+    _reset(counters)
+    sched2 = hmm_gaussian.anneal_scales(2, ANNEAL)
+    ps2, lls2 = train_streaming(hmm_gaussian, p_recipe, reader, 2, scale_schedule=sched2,
+                                use_kernels=True)
+    exact = _counts(counters)
+    _reset(counters)
+    pr2, lls_r2 = hmm_gaussian.train(p_recipe, fc, 2, use_kernels=True, anneal=ANNEAL)
+    exact_res = _counts(counters)
+
+    def means64(corpus):
+        """The same 2 resident iterations in float64 (the plain route)."""
+        c64 = dataclasses.replace(corpus, src=corpus.src.double())
+        return hmm_gaussian.train(_as_float64(p_recipe), c64, 2, use_kernels=False,
+                                  anneal=ANNEAL)[0].means
+
+    _stream_gauss_checks("path 17 streamed Gaussian EM (float32 shards)", lls2,
+                         lls_r2.cpu().numpy(), ps2, pr2, means64(fc))
+
+    # (c) float16 storage
+    _reset(counters)
+    write_shards(fc, d16, STRETCH_SHARD, storage_dtype="float16")
+    sz32 = os.path.getsize(os.path.join(d32, "src_0.npy"))
+    sz16 = os.path.getsize(os.path.join(d16, "src_0.npy"))
+    print(f"  float16 storage: src_0.npy {sz16} bytes against {sz32} ({sz16 / sz32:.4f})")
+    _check(sz16 < 0.55 * sz32, "path 17: float16 shards under 0.55x the float32 bytes")
+    r16 = ShardedCorpusReader(d16, device=dev)
+    ps16, lls16 = train_streaming(hmm_gaussian, p_recipe, r16, 2, scale_schedule=sched2,
+                                  use_kernels=True)
+    exact16 = _counts(counters)
+    _reset(counters)
+    rounded = dataclasses.replace(fc, src=fc.src.half().float())
+    pr16, lls_r16 = hmm_gaussian.train(p_recipe, rounded, 2, use_kernels=True, anneal=ANNEAL)
+    exact16_res = _counts(counters)
+    _stream_gauss_checks("path 17 streamed Gaussian EM (float16 shards, against the rounded "
+                         "corpus)", lls16, lls_r16.cpu().numpy(), ps16, pr16, means64(rounded))
+    del rounded
+    torch.cuda.empty_cache()
+    print(f"path 17 wall time {time.perf_counter() - t_path:.1f} s")
+    shard_k4 = exact["hmm_estep"] + exact16["hmm_estep"] + gauss["hmm_estep"] + teach["hmm_estep"]
+    return {"f1": f1, "prf": prf, "k4": k4_shard, "k3": k3_shard, "k2": teacher_checks,
+            "k1": teacher_k1,
+            "launches": {"teacher": teach, "gauss": gauss, "exact": exact,
+                         "exact16": exact16, "resident": exact_res,
+                         "resident16": exact16_res},
+            "shard_k4": shard_k4, "seconds": (t_seed, t_em)}
+
+
+def _dnn_streamed_against_resident(what: str, card: str, counters, dev, tmp: str, corpus_kw,
+                                   frames_kw, model_kw, shard_size: int, iters: int) -> dict:
+    """The streamed DNN-HMM (K4 at the shard shape) and the resident one
+    (K4 at the corpus's shape) from the same initial parameters, each
+    decoded through K3 and scored by positional accuracy; K4 (and K3) held
+    to their plain versions at both shapes first."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.data.stream import ShardedCorpusReader, write_shards
+    from multimodalworddiscovery_tpu_torch.models import hmm_dnn
+
+    pc, pg, _ = make_flickr8k_mini(**corpus_kw, device=dev)
+    fc, fg, _ = phones_to_frames(pc, pg, **frames_kw, device=dev)
+    d = os.path.join(tmp, what.replace(" ", "_"))
+    n_shards = write_shards(fc, d, shard_size, gold=fg)
+    reader = ShardedCorpusReader(d, device=dev)
+    print(f"  {what}: N={fc.n}, Ts={fc.max_src_len}, S={2 * fc.max_trg_len}, D="
+          f"{fc.src.shape[-1]} in {n_shards} shards of {shard_size}; model {model_kw}, "
+          f"{iters} iterations")
+
+    def initial():
+        return hmm_dnn.init(fc, **model_kw, generator=torch.Generator().manual_seed(SEED))
+
+    p0 = initial()
+    shapes = {}
+    for key, c in (("shard", reader.load_shard(0)), ("resident", fc)):
+        _, fact = _estep_inputs(p0, c)
+        shapes[key] = _k4_at(f"{what} {key} (N={c.n})",
+                             (*fact, hmm_dnn._log_emissions(p0, c), c.src_len), card)
+    gold_t = torch.as_tensor(fg.alignment, device=dev)
+    mask = fc.src_mask() & (gold_t > 0)
+    _reset(counters)
+    ps, lls_s = hmm_dnn.train_streaming(p0, reader, iters, use_kernels=True, prefetch=2)
+    launches = {"shard": _counts(counters)}
+    _reset(counters)
+    pr, lls_r = hmm_dnn.train(initial(), fc, iters, use_kernels=True)
+    acc = {name: float((hmm_dnn.align(params, fc, use_kernels=True) == gold_t)[mask]
+                       .float().mean()) for name, params in (("streamed", ps), ("resident", pr))}
+    launches["resident"] = _counts(counters)
+    print(f"  {what} streamed: loglik {lls_s}, positional accuracy {acc['streamed']:.5f}")
+    print(f"  {what} resident: loglik {lls_r.tolist()}, positional accuracy "
+          f"{acc['resident']:.5f}; launches {launches}")
+    _check(launches["shard"]["hmm_estep"] == iters * n_shards
+           and launches["resident"]["hmm_estep"] == iters
+           and launches["resident"]["viterbi"] == 2,
+           f"{what}: K4 once a shard an iteration streamed, once an iteration resident, K3 "
+           f"once a decode")
+    return {"lls": lls_s, "acc": acc, "shapes": shapes, "launches": launches}
+
+
+def stream_gradient_phase(card: str, counters, dev, tmp: str) -> dict:
+    """Path 18: the streamed DNN-HMM (hmm_dnn.train_streaming) against the
+    resident trainer on the DNN-HMM path's corpus in 4 shards, held to the
+    JAX package's streamed run from the same initial parameters
+    (REFERENCE_STREAM_DNN), and at tests/test_stream.py:854-882's own
+    configuration, held to its bounds; then the attention step on path
+    11's corpus in 4 shards (train_minibatch_streaming, B=512), with a
+    resumed run against the uninterrupted one."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.data.stream import ShardedCorpusReader, write_shards
+    from multimodalworddiscovery_tpu_torch.models import attention, minibatch
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    t_path = time.perf_counter()
+    print(f"path 18 (streamed gradient trainers): the DNN-HMM at the DNN-HMM path's "
+          f"configuration and at the reference test's; attention on path 11's corpus in "
+          f"{ATT_STREAM_SHARDS} shards, B={bk.ATT_BATCH}, {ATT_STREAM_STEPS} steps")
+    dnn = {"crf": _dnn_streamed_against_resident(
+        "path 18 DNN-HMM (hmm_crf_frames corpus)", card, counters, dev, tmp, CRF_CORPUS,
+        CRF_FRAMES, CRF_MODEL, CRF_CORPUS["n_utterances"] // DNN_SHARDS, DNN_ITERS)}
+    r, ref = dnn["crf"], REFERENCE_STREAM_DNN
+    rel = [abs(a - b) / abs(b) for a, b in zip(r["lls"][:2], ref["loglik"][:2])]
+    print(f"  JAX reference, streamed from the same parameters: loglik {ref['loglik']}, "
+          f"accuracy {ref['positional_accuracy']}; relative loglik differences of the first "
+          f"two iterations {rel}")
+    _check(rel[0] <= 1e-4 and rel[1] <= 1e-3,
+           "path 18 streamed DNN-HMM: the first iteration's loglik within rtol 1e-4 and the "
+           "second's within rtol 1e-3 of the JAX package's streamed run")
+    _check(abs(r["acc"]["streamed"] - ref["positional_accuracy"]) <= 0.01
+           and abs(r["lls"][-1]) <= 1.0,
+           f"path 18 streamed DNN-HMM collapses as the JAX package's does at this "
+           f"configuration: accuracy within 0.01 of its {ref['positional_accuracy']} "
+           f"({r['acc']['streamed']:.5f}), final |loglik| <= 1 ({r['lls'][-1]:.5f})")
+    print(f"  at this configuration tests/test_stream.py:881-882's bounds fail in both "
+          f"packages (reference fault, ROADMAP queue 3): the loglik rises "
+          f"{r['lls'][-1] > r['lls'][0]}, accuracy at least the resident's minus 0.05 "
+          f"{r['acc']['streamed'] >= r['acc']['resident'] - 0.05}")
+    dnn["test"] = _dnn_streamed_against_resident(
+        "path 18 DNN-HMM (tests/test_stream.py's configuration)", card, counters, dev, tmp,
+        STREAM_TEST_CORPUS, STREAM_TEST_FRAMES, STREAM_TEST_MODEL, STREAM_TEST_SHARD,
+        STREAM_TEST_ITERS)
+    r = dnn["test"]
+    _check(r["lls"][-1] > r["lls"][0], "path 18 streamed DNN-HMM at the reference test's "
+                                       "configuration: the loglik rises")
+    _check(r["acc"]["streamed"] >= r["acc"]["resident"] - 0.05,
+           f"path 18 streamed DNN-HMM at the reference test's configuration: accuracy at "
+           f"least the resident's minus 0.05 ({r['acc']['streamed']:.5f} vs "
+           f"{r['acc']['resident']:.5f})")
+    launches = {f"dnn_{k}_{w}": v for k, r in dnn.items() for w, v in r["launches"].items()}
+    torch.cuda.empty_cache()
+
+    mc, _, _ = make_flickr8k_mini(**bk.MODELS_CORPUS, device=dev)
+    da = os.path.join(tmp, "attention")
+    write_shards(mc, da, mc.n // ATT_STREAM_SHARDS)
+    ra = ShardedCorpusReader(da, device=dev)
+    del mc
+
+    def fresh():
+        return attention.init(ra.load_shard(0), dim=bk.MODEL_DIM,
+                              generator=torch.Generator().manual_seed(SEED))
+
+    def run(state, steps, start=0):
+        losses = []
+        (state, _), ms = _timed(lambda: minibatch.train_minibatch_streaming(
+            _recording(attention.em_step, losses), state, ra, bk.ATT_BATCH, steps, seed=SEED,
+            start_step=start, prefetch=2))
+        return state, torch.stack(losses).cpu().numpy(), ms
+
+    _reset(counters)
+    _, full, ms = run(fresh(), ATT_STREAM_STEPS)
+    state, first, _ = run(fresh(), ATT_RESUME)
+    _, rest, _ = run(state, ATT_STREAM_STEPS - ATT_RESUME, start=ATT_RESUME)
+    launches["attention"] = _counts(counters)
+    print(f"  attention streamed: loss {full[0]:.5f} at the first step, {full[-1]:.5f} at the "
+          f"last; [{card}] {ATT_STREAM_STEPS} steps in {ms:.1f} ms (CUDA events)")
+    _check(full[-1] < full[0], "path 18 streamed attention: the loss falls")
+    _check(np.allclose(first, full[:ATT_RESUME], rtol=1e-5, atol=0)
+           and np.allclose(rest, full[ATT_RESUME:], rtol=1e-5, atol=0),
+           f"path 18: the run resumed at step {ATT_RESUME} gives the uninterrupted run's "
+           f"losses within rtol 1e-5 (max rel "
+           f"{float(np.max(np.abs(rest - full[ATT_RESUME:]) / np.abs(full[ATT_RESUME:]))):.3e})")
+    _check(sum(launches["attention"].values()) == 0, "path 18 attention: no kernel")
+    print(f"path 18 wall time {time.perf_counter() - t_path:.1f} s")
+    return {"dnn": dnn, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2856,6 +3413,7 @@ def main() -> int:
         _reset(kernels_all)
         t0 = time.perf_counter()
         run = gaussian_path(fc, fg, pv, use_kernels=use_kernels)
+        run["p0"] = pv
         run["seconds"] = (t_seed, time.perf_counter() - t0)
         run["launches"] = (teacher_launches, _counts(kernels_all))
         recipe[use_kernels] = run
@@ -2880,6 +3438,8 @@ def main() -> int:
                        f"{DOCUMENTED_RECIPE_F1} for this config at N=4000)")
     print(f"  recipe boundary F1 (tolerance 1): kernel path {r_k['boundary']['f1']:.4f}, "
           f"plain path {r_p['boundary']['f1']:.4f}")
+    # path 17 streams this corpus from path 3's initial parameters
+    stretch_resident = (fc, fg, r_k["p0"], f1)
     del fc, fg, recipe, r_k, r_p
     torch.cuda.empty_cache()
     print(elapsed())
@@ -2957,6 +3517,20 @@ def main() -> int:
     vd = viterbi_dense_phase(card, kernels_all, dev)
     print(elapsed())
 
+    # --- paths 16-18: out-of-core and bucketed EM, the streamed trainers;
+    # their shards in a temporary directory removed at the end ---
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        s16 = stream_phase(here, card, kernels_all, dev, tmp)
+        torch.cuda.empty_cache()
+        print(elapsed())
+        s17 = stream_recipe_phase(card, kernels_all, dev, tmp, *stretch_resident)
+        del stretch_resident
+        torch.cuda.empty_cache()
+        print(elapsed())
+        s18 = stream_gradient_phase(card, kernels_all, dev, tmp)
+        torch.cuda.empty_cache()
+        print(elapsed())
+
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---
     launches_bench = bench_phase(here, kernels_all)
     torch.cuda.empty_cache()
@@ -2966,7 +3540,8 @@ def main() -> int:
             *crf["launches"].values(), dense["launches"], assoc["launches"], many["launches"],
             m1["launches"], *m1["dense_launches"].values(), *att["launches"].values(),
             *ground["launches"].values(), skd["launches"], img["launches"],
-            *(r["launches"] for r in crf_mb.values()), *(r["launches"] for r in vd.values()))
+            *(r["launches"] for r in crf_mb.values()), *(r["launches"] for r in vd.values()),
+            *s16["launches"].values(), *s17["launches"].values(), *s18["launches"].values())
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
     launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
     print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
@@ -2977,10 +3552,12 @@ def main() -> int:
     al, ac = att["launches"], att["checks"]
     k4_runs = {
         "S64": (k4_stretch, launches_gauss["hmm_estep"] + gauss["hmm_estep"]
-                + teach["hmm_estep"], 0),
+                + teach["hmm_estep"] + s17["launches"]["resident"]["hmm_estep"]
+                + s17["launches"]["resident16"]["hmm_estep"], 0),
         "S128": (k4_128, dense["launches"]["hmm_estep"], 0),
         "S8_pipeline": (k4_s8["S8_pipeline"], pipe["hmm_estep"], 0),
-        "S8_crf": (k4_s8["S8_crf"], sum(r["hmm_estep"] for r in crf_l.values()),
+        "S8_crf": (k4_s8["S8_crf"], sum(r["hmm_estep"] for r in crf_l.values())
+                   + s18["launches"]["dnn_crf_resident"]["hmm_estep"],
                    sum(r["hmm_estep_bf16"] for r in crf_l.values())),
         **{f"{k} (S={r['S']})": (r["k4"], many["launches"]["hmm_estep"] if k == "S~200" else 0,
                                  0) for k, r in many["shapes"].items()},
@@ -2988,37 +3565,57 @@ def main() -> int:
         "S8_guided_frames": (ac["k4_frames"], al["guided_frames"]["hmm_estep"], 0),
         **{f"crf_minibatch_{k}": (r["k4"], r["launches"]["hmm_estep"], 0)
            for k, r in crf_mb.items()},
+        "S64_stretch_shard": (s17["k4"], s17["shard_k4"], 0),
+        "S8_dnn_shard": (s18["dnn"]["crf"]["shapes"]["shard"],
+                         s18["launches"]["dnn_crf_shard"]["hmm_estep"], 0),
+        "S8_stream_test_shard": (s18["dnn"]["test"]["shapes"]["shard"],
+                                 s18["launches"]["dnn_test_shard"]["hmm_estep"], 0),
+        "S8_stream_test": (s18["dnn"]["test"]["shapes"]["resident"],
+                           s18["launches"]["dnn_test_resident"]["hmm_estep"], 0),
     }
     k4_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
                  for k, (r, n, _) in k4_runs.items()}
     k4bf_shapes = {k: {"launches": nb, "ms": r["bf16_ms"], "plain_ms": r["bf16_plain_ms"],
-                       **r["bf16_bound"]} for k, (r, _, nb) in k4_runs.items()}
+                       **r["bf16_bound"]} for k, (r, _, nb) in k4_runs.items()
+                   if "bf16_ms" in r}
     # K3's launch shapes: launches on the paths' kernel runs (S=12: paths 1
     # and 5; S=64: paths 2 and 3), time, bound and plain time of each
     k3_runs = {
-        "S12": (k3_s12, launches_headline["viterbi"] + launches_bf16["viterbi"]),
+        "S12": (k3_s12, launches_headline["viterbi"] + launches_bf16["viterbi"]
+                + s16["launches"]["headline"]["viterbi"]),
         "S64": (k3_stretch, launches_gauss["viterbi"] + gauss["viterbi"]),
         "S128": (k3_128, dense["launches"]["viterbi"]),
         "S8_pipeline": (k4_s8["S8_pipeline"]["k3"], pipe["viterbi"]),
-        "S8_crf": (k4_s8["S8_crf"]["k3"], sum(r["viterbi"] for r in crf_l.values())),
+        "S8_crf": (k4_s8["S8_crf"]["k3"], sum(r["viterbi"] for r in crf_l.values())
+                   + s18["launches"]["dnn_crf_resident"]["viterbi"]),
+        "S8_stream_test": (s18["dnn"]["test"]["shapes"]["resident"]["k3"],
+                           s18["launches"]["dnn_test_resident"]["viterbi"]),
         **{f"{k} (S={r['S']})": (r["k3"], many["launches"]["viterbi"] if k == "S~200" else 0)
            for k, r in many["shapes"].items()},
         "S12_teacher": (ac["k3_teacher"], al["teacher"]["viterbi"]),
         **{f"crf_minibatch_{k}_decode": (r["k3"], r["launches"]["viterbi"])
            for k, r in crf_mb.items()},
         **{f"viterbi_dense_{k}": (r["k3"], r["launches"]["viterbi"]) for k, r in vd.items()},
+        **{f"path16_{k}": (r, 1) for k, r in s16["k3"].items()},
+        "S64_stretch_shard": (s17["k3"], s17["launches"]["gauss"]["viterbi"]),
     }
     k3_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
                  for k, (r, n) in k3_runs.items()}
     # K2's and K2-bf16's: the headline (paths 1 and 5), the gate edge (no
     # path), the VQ teacher (path 3's seeding) and path 11's discrete teacher
-    k2_runs = {"S12_headline": (errs, launches_headline["hmm_estep_counts"],
+    s16l = s16["launches"]
+    k2_runs = {"S12_headline": (errs, launches_headline["hmm_estep_counts"]
+                                + s16l["headline"]["hmm_estep_counts"],
                                 launches_bf16["hmm_estep_counts_bf16"]),
                "S64_gate": (errs_edge, 0, 0),
                "S64_teacher": (teacher, teach["hmm_estep_counts"], 0),
-               "S12_teacher": (ac["k2_teacher"], al["teacher"]["hmm_estep_counts"], 0)}
+               "S12_teacher": (ac["k2_teacher"], al["teacher"]["hmm_estep_counts"], 0),
+               **{f"path16_{k}": (r, s16l[k]["hmm_estep_counts"] if k in s16l
+                                  else STREAM_ITERS, 0) for k, r in s16["checks"].items()},
+               "S64_teacher_shard": (s17["k2"], s17["launches"]["teacher"]["hmm_estep_counts"],
+                                     0)}
     k2_shapes = {k: {"launches": n, **r["k2"]} for k, (r, n, _) in k2_runs.items()}
     k2bf_shapes = {k: {"launches": nb, **r["k2bf"]} for k, (r, _, nb) in k2_runs.items()}
     print(f"[{card}] K2 per launch shape: {json.dumps(k2_shapes)}")
@@ -3026,7 +3623,8 @@ def main() -> int:
     print(f"[{card}] K4 per launch shape: {json.dumps(k4_shapes)}")
     print(f"[{card}] K4-bf16 per launch shape: {json.dumps(k4bf_shapes)}")
     print(f"[{card}] K6 per shape (ms): "
-          f"{json.dumps({k: r['k6_ms'] for k, (r, _, _) in k4_runs.items()})}")
+          f"{json.dumps({k: r['k6_ms'] for k, (r, _, _) in k4_runs.items()
+                         if 'k6_ms' in r})}")
     print(f"[{card}] K3 per shape: {json.dumps(k3_shapes)}")
     # K1's launch shapes: the headline (paths 1 and 5), path 8, the VQ
     # teacher (path 3's seeding), the S~200 EM, Model-1 (path 10's decode
@@ -3035,7 +3633,8 @@ def main() -> int:
     m1l = {k: m1["dense_launches"][k]["table_lookup"] for k in ("Tt6", "Tt32")}
     m1l["Tt6"] += m1["launches"]["table_lookup"]
     k1_launch = {"S12_headline": (k1_head, launches_headline["table_lookup"]
-                                  + launches_bf16["table_lookup"]),
+                                  + launches_bf16["table_lookup"]
+                                  + s16l["headline"]["table_lookup"]),
                  "S128_dense": (dense["k1"], dense["launches"]["table_lookup"]),
                  "S64_teacher": (teacher["k1"], teach["table_lookup"]),
                  "S~200": (many["k1"], many["launches"]["table_lookup"]),
@@ -3046,7 +3645,10 @@ def main() -> int:
                  "retrieval_pooled": (ground["k1"],
                                       ground["launches"]["retrieval"]["table_lookup"]),
                  **{f"viterbi_dense_{k}": (r["k1"], r["launches"]["table_lookup"])
-                    for k, r in vd.items()}}
+                    for k, r in vd.items()},
+                 **{f"path16_{k}": (r, s16l[k]["table_lookup"] if k in s16l else STREAM_ITERS)
+                    for k, r in s16["k1"].items()},
+                 "S64_teacher_shard": (s17["k1"], s17["launches"]["teacher"]["table_lookup"])}
     k1_runs = [r for r, _ in k1_launch.values()]
     k1_shapes = {k: {"launches": n, **{f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")}}
@@ -3149,7 +3751,7 @@ def main() -> int:
          "bound_by": k8_big["bf16_bound"]["bound_by"], "library_ms": k8_big["library_ms"]},
     ]
     print(f"total {elapsed()}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _json_safe(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

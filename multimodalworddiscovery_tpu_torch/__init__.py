@@ -20,12 +20,17 @@ Gaussian-HMM aligner of the stretch config; slice 3, the speech frontend
 and config #4's waveform pipeline; slice 4, the DNN-HMM and end-to-end CRF
 aligners and the bf16 and remat E-step variants; slice 10, Model-1, the
 attention and grounding aligners, segmental k-means, minibatch training,
-the registry, retrieval and DTW):
+the registry, retrieval and DTW; slice 11, the image branch; slice 12,
+out-of-core and bucketed EM, corpus I/O and the dataset builders):
 
 core      NEG_INF log-semiring helpers, masking, gather/scatter counts
 data      torch ``Corpus`` (ids or frames), ``GoldAnnotations``,
-          ``make_flickr8k_mini``, ``phones_to_frames``, the waveform
-          synthesizers and ``expand_gold_to_frames``
+          ``make_flickr8k_mini`` (and its batched form),
+          ``phones_to_frames``, the waveform synthesizers and
+          ``expand_gold_to_frames``; ``stream`` (on-disk shards, prefetched
+          copies, exact streamed EM), ``bucketing``, ``io`` (the on-disk
+          corpus format) and the Flickr8k, MSCOCO / SpeechCOCO and
+          Flickr30k Entities builders
 ops       K1 emission lookup, K2 fused E-step, K4 general E-step (both
           also in bf16), K6 remat E-step, K3 Viterbi decode and K5 fused
           MFCC (CUDA) + plain versions
@@ -37,7 +42,8 @@ models    hmm_core (state space, fwd/bwd, Viterbi), hmm (discrete EM,
           (transformer aligner, AdamW, the HMM guide through K4), grounding
           (matchmap contrastive baseline), segmental_kmeans (ES-KMeans and
           its GMM variant), minibatch (on-device minibatch steps), registry
-          (name -> aligner) and flax_params (flax trees onto the modules)
+          (name -> aligner), flax_params (flax trees onto the modules) and
+          bucketed (EM and decode over length buckets)
 frontend  speech (MFCC / log-mel, deltas, CMVN), vq (k-means quantizer)
 segment   alignment -> word units, boundaries
 eval      alignment, word IoU, boundary, purity and NMI metrics; retrieval
@@ -46,6 +52,7 @@ eval      alignment, word IoU, boundary, purity and NMI metrics; retrieval
 scripts   run_pipeline (config #4), extract_features (speech), the
           kernel and model benchmarks
 utils     audio (WAV read and write)
+native    the token-file packer (C extension, pure-Python fallback)
 """
 
 __version__ = "0.1.0"

@@ -40,3 +40,9 @@ def pad_and_stack(
         t = min(s.shape[0], T)
         out[i, :t] = s[:t]
     return out, np.minimum(lengths, T)
+
+
+def bucket_by_length(lengths: np.ndarray, bucket_edges: Sequence[int]) -> np.ndarray:
+    """Length bucket of each utterance (edges are inclusive upper bounds;
+    past the last edge, ``len(bucket_edges)``).  Host-side (NumPy)."""
+    return np.searchsorted(np.asarray(bucket_edges), np.asarray(lengths), side="left")

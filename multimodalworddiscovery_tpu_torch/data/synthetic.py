@@ -1,11 +1,12 @@
 """Deterministic synthetic corpus with known gold alignments.
 
 Counterpart of ``multimodalworddiscovery_tpu/data/synthetic.py``
-(``make_flickr8k_mini``, ``phones_to_frames``, the waveform renderers of
-config #4's pipeline, and the image side: ``make_boxes_mini``,
-``concept_palette`` and ``images_for_corpus``).  The generators are numpy
-and consume their ``default_rng(seed)`` in exactly the reference's order,
-so the same seed and settings give identical arrays and gold annotations:
+(``make_flickr8k_mini`` and its batched form, ``phones_to_frames``, the
+waveform renderers of config #4's pipeline, and the image side:
+``make_boxes_mini``, ``concept_palette`` and ``images_for_corpus``).  The
+generators are numpy and consume their ``default_rng(seed)`` in exactly
+the reference's order, so the same seed and settings give identical arrays
+and gold annotations:
 each "image" is a bag of concepts, its spoken caption the concatenation of
 the concepts' phone words in a shuffled order, with optional NULL-aligned
 filler phones.
@@ -127,6 +128,55 @@ def make_flickr8k_mini(
         gold_align[i, : len(a)] = a
     gold = GoldAnnotations(alignment=gold_align, segments=segments)
     return corpus, gold, _meta(lexicon, n_concepts, n_phones)
+
+
+def make_flickr8k_mini_batches(
+    n_utterances: int,
+    batch_size: int,
+    n_concepts: int = 40,
+    n_phones: int = 48,
+    min_word_len: int = 2,
+    max_word_len: int = 5,
+    min_concepts: int = 2,
+    max_concepts: int = 4,
+    p_filler: float = 0.15,
+    seed: int = 0,
+    device="cuda",
+):
+    """Batched ``make_flickr8k_mini`` for corpora too large to materialize
+    -> ``(meta, max_src_len, batches)``: ``batches`` yields ``(Corpus,
+    GoldAnnotations)`` of ``batch_size`` rows (the last shorter) on
+    ``device``, each padded to the global maxima (``max_concepts *
+    (max_word_len + 1)`` phones, ``max_concepts`` concepts), as
+    ``data.stream.ShardWriter`` needs.  One lexicon and one rng stream are
+    shared across the batches, so the batches concatenated equal
+    ``make_flickr8k_mini(n_utterances, ...)`` row for row (up to the
+    padding width)."""
+    rng = np.random.default_rng(seed)
+    lexicon = _sample_lexicon(rng, n_concepts, n_phones, min_word_len, max_word_len)
+    # each of <= max_concepts words is <= max_word_len phones plus one filler
+    s_max = max_concepts * (max_word_len + 1)
+    t_max = max_concepts
+
+    def batches():
+        done = 0
+        while done < n_utterances:
+            b = min(batch_size, n_utterances - done)
+            draws = [_sample_utterance(rng, lexicon, n_concepts, n_phones, min_concepts,
+                                       max_concepts, p_filler) for _ in range(b)]
+            corpus = Corpus.from_ragged(
+                [d[0] for d in draws], [d[1] for d in draws], src_vocab=n_phones + 1,
+                trg_vocab=n_concepts + 1, max_src_len=s_max, max_trg_len=t_max,
+                device=device,
+            )
+            gold_align = np.zeros((b, s_max), dtype=np.int32)
+            for i, d in enumerate(draws):
+                gold_align[i, : len(d[2])] = d[2]
+            yield corpus, GoldAnnotations(alignment=gold_align,
+                                          segments=[d[3] for d in draws])
+            done += b
+
+    return _meta(lexicon, n_concepts, n_phones), s_max, batches()
 
 
 def phones_to_waveforms(

@@ -1,7 +1,6 @@
 """k-means VQ frontend: continuous frames -> discrete code corpora.
 
-Counterpart of ``multimodalworddiscovery_tpu/frontend/vq.py`` (the resident
-half; ``fit_codebook_streaming`` waits for ``data/stream``).  Fit a codebook
+Counterpart of ``multimodalworddiscovery_tpu/frontend/vq.py``.  Fit a codebook
 over the masked frames, replace each frame with its code id, and the
 discrete aligners run unchanged on the result: the time axis is kept, so
 gold frame alignments and segment boundaries stay valid.  The codebook is
@@ -21,6 +20,7 @@ import torch
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models.hmm_gaussian import (
     _kmeans_assign,
+    fit_codebook_reservoir,
     fit_frame_codebook,
 )
 
@@ -35,6 +35,22 @@ def fit_codebook(
     (``hmm_gaussian.fit_frame_codebook``), shared with ``quantize_frames``
     so the frontend's and the VQ teacher's code spaces cannot drift."""
     return fit_frame_codebook(corpus, n_codes, num_iterations, generator)
+
+
+def fit_codebook_streaming(
+    reader,
+    n_codes: int = 64,
+    num_iterations: int = 10,
+    generator: torch.Generator | None = None,
+    n_sample: int = 65536,
+    frames=None,
+) -> torch.Tensor:
+    """Out-of-core codebook over a ``data.stream.ShardedCorpusReader``
+    corpus, by the one streaming fit protocol
+    (``hmm_gaussian.fit_codebook_reservoir``), shared with the VQ teacher's
+    seeding so the two recipes' code spaces cannot drift.  ``frames``: a
+    reservoir drawn already (``hmm_gaussian._reservoir_frames``' order)."""
+    return fit_codebook_reservoir(reader, n_codes, num_iterations, generator, n_sample, frames)
 
 
 def quantize(corpus: Corpus, codebook: torch.Tensor) -> Corpus:

@@ -1,9 +1,10 @@
 """DNN-HMM hybrid aligner: emissions from a frame-level MLP.
 
-Counterpart of ``multimodalworddiscovery_tpu/models/hmm_dnn.py`` (the
-resident half; the streamed trainer waits for ``data/stream``).  The Vogel
-HMM skeleton of the other aligners, with emissions from an MLP that
-predicts concept posteriors, turned into scaled likelihoods
+Counterpart of ``multimodalworddiscovery_tpu/models/hmm_dnn.py``, its
+resident trainer and its streamed one (``train_streaming`` over
+``data/stream`` shards).  The Vogel HMM skeleton of the other aligners,
+with emissions from an MLP that predicts concept posteriors, turned into
+scaled likelihoods
 log p(x|c) ~ log p(c|x) - log p(c).
 
 Training is generalized EM:
@@ -414,3 +415,67 @@ def train(
     if not lls:
         return params, torch.empty(0, device=corpus.device)
     return params, torch.stack(lls)
+
+
+def streamed_shard_step(
+    params: DnnHMMParams,
+    corpus: Corpus,
+    use_kernels: bool | None = None,
+    dot_dtype: str = "float32",
+) -> tuple[DnnHMMParams, dict[str, torch.Tensor], torch.Tensor]:
+    """One shard's part of an out-of-core generalized-EM iteration ->
+    (params with the MLP stepped and the new Adam state, additive counts,
+    loglik on the device).
+
+    The closed-form statistics (concept-prior and jump-width counts, the
+    loglik) pool exactly across shards; the neural M-step does not (its CE
+    targets are the whole corpus's posteriors), so each shard takes
+    ``n_sgd`` Adam steps on its own CE(r, MLP(x)): incremental generalized
+    EM at shard granularity, whose convergence, not its numbers, matches
+    the resident trainer.  The steps update ``params.mlp`` IN PLACE (no
+    copy a shard: ``train_streaming`` copies the module once a call), so
+    the weights and the Adam state chain from shard to shard.
+    """
+    r, width_counts, logz = frame_posteriors(params, corpus, use_kernels, dot_dtype)
+    w = _frame_weights(corpus)
+    counts = {"prior": (r * w).sum(dim=(0, 1)), "width": width_counts}
+    total_w = torch.clamp(w.sum(), min=1.0)
+    mlp, state = params.mlp, params.opt_state["mlp"]
+    for _ in range(params.n_sgd):
+        grads = torch.autograd.grad(_ce_num(mlp, corpus.src, r, w), list(mlp.parameters()))
+        updates, state = adam_update([g / total_w for g in grads], state, params.learning_rate)
+        apply_updates(mlp, updates)
+    opt = dict(params.opt_state, mlp=state)
+    return dataclasses.replace(params, opt_state=opt), counts, logz.sum()
+
+
+def train_streaming(
+    params: DnnHMMParams,
+    reader,
+    num_iterations: int,
+    smoothing: float = 1e-6,
+    use_kernels: bool | None = None,
+    dot_dtype: str = "float32",
+    prefetch: int = 1,
+    on_iteration=None,
+) -> tuple[DnnHMMParams, list[float]]:
+    """Out-of-core generalized EM for the DNN-HMM over a
+    ``data.stream.ShardedCorpusReader`` corpus: per-shard incremental
+    neural updates (``streamed_shard_step``, chained through the MLP and
+    Adam state), exact pooled counts, one prior and transition M-step an
+    iteration.  The MLP is copied once, so the caller's parameters stay as
+    they were; the loglik is read once an iteration.  Returns (params,
+    [loglik per iteration])."""
+    params = dataclasses.replace(params, mlp=copy.deepcopy(params.mlp))
+    lls: list[float] = []
+    for it in range(num_iterations):
+        total, ll = None, None
+        for shard in reader.shards(prefetch):
+            params, counts, ll_k = streamed_shard_step(params, shard, use_kernels, dot_dtype)
+            total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+            ll = ll_k if ll is None else ll + ll_k
+        params = m_step(params, total, smoothing)
+        lls.append(float(ll))
+        if on_iteration is not None:
+            on_iteration(it, params, lls[-1])
+    return params, lls

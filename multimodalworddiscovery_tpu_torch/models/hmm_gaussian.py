@@ -1,8 +1,9 @@
 """Gaussian / GMM-emission HMM aligner: continuous acoustic frames.
 
-Counterpart of ``multimodalworddiscovery_tpu/models/hmm_gaussian.py`` (the
-resident half; the streaming codebook and teacher wait for ``data/stream``).
-Same Vogel alignment skeleton as the discrete HMM, with emissions that are
+Counterpart of ``multimodalworddiscovery_tpu/models/hmm_gaussian.py``: the
+resident aligner and, at the end, its streaming half (the reservoir
+codebook, the quantized code shards and the out-of-core VQ teacher over
+``data/stream`` shards).  Same Vogel alignment skeleton as the discrete HMM, with emissions that are
 per-concept diagonal Gaussian mixtures over frames (``n_components=1`` is
 the single-Gaussian model).
 
@@ -28,7 +29,10 @@ so one seed gives the same draws on every machine.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import shutil
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -646,3 +650,183 @@ def seed_from_teacher(
             total = cts if total is None else {k: total[k] + v for k, v in cts.items()}
         gp = m_step(gp, total)
     return dataclasses.replace(gp, log_jump=teacher.log_jump, log_p0=teacher.log_p0)
+
+
+# ---------------------------------------------------------------------------
+# The streaming half: the codebook, the quantized code shards and the VQ
+# teacher over a ``data.stream.ShardedCorpusReader`` corpus, no resident
+# corpus anywhere.
+# ---------------------------------------------------------------------------
+
+
+def _reservoir_frames(
+    reader, n_sample: int, seed: int = 0, shards=None, return_keys: bool = False
+):
+    """Uniform sample of up to ``n_sample`` masked frames across the shards
+    of a ``ShardedCorpusReader`` corpus, without the frame matrix: every
+    frame gets an iid uniform sort key and the ``n_sample`` smallest keys
+    win (exactly uniform, one pass, O(n_sample + shard) host memory).
+
+    The keys of shard k come from ``np.random.default_rng([seed, k])`` and
+    the result is in ascending-key order, so the sample is a function of
+    (shards, seed) alone, the JAX package's numbers bit for bit, and
+    partial reservoirs over shard subsets merge by key.  ``shards``: the
+    shard indices to scan (default: all).  Returns a [M, D] float32 numpy
+    array, M <= n_sample (and the [M] keys with ``return_keys``)."""
+    keys = buf = None
+    for k in range(reader.num_shards) if shards is None else shards:
+        rng = np.random.default_rng([seed, int(k)])
+        src = np.load(reader.directory / f"src_{k}.npy", mmap_mode="r")
+        slen = np.load(reader.directory / f"src_len_{k}.npy", mmap_mode="r")
+        t = src.shape[1]
+        mask = np.arange(t)[None, :] < np.asarray(slen)[:, None]
+        # float32 whatever the storage dtype, so float16 shards give the
+        # reservoir (and merge layout) of float32 ones
+        flat = np.asarray(src)[mask].astype(np.float32, copy=False)
+        u = rng.random(flat.shape[0])
+        ck = u if keys is None else np.concatenate([keys, u])
+        cb = flat if buf is None else np.concatenate([buf, flat])
+        if ck.shape[0] > n_sample:
+            top = np.argpartition(ck, n_sample - 1)[:n_sample]
+            keys, buf = ck[top], cb[top]
+        else:
+            keys, buf = ck, cb
+    if buf is None:  # no shard scanned
+        d = int(np.load(reader.directory / "src_0.npy", mmap_mode="r").shape[-1])
+        keys, buf = np.zeros((0,)), np.zeros((0, d), np.float32)
+    order = np.argsort(keys, kind="stable")
+    keys, buf = keys[order], buf[order]
+    return (buf, keys) if return_keys else buf
+
+
+def fit_codebook_reservoir(
+    reader,
+    n_codes: int = 64,
+    num_iterations: int = 10,
+    generator: torch.Generator | None = None,
+    n_sample: int = 65536,
+    frames=None,
+) -> torch.Tensor:
+    """The streaming codebook fit (shared by the VQ teacher's seeding and
+    ``frontend.vq.fit_codebook_streaming``, so their code spaces cannot
+    drift): Lloyd's sweeps on a cross-shard uniform frame reservoir
+    (``_reservoir_frames``), started from n_codes distinct reservoir frames
+    drawn on the CPU generator.  ``frames``: a reservoir drawn already, in
+    ``_reservoir_frames``' ascending-key order.  [n_codes, D] on the
+    reader's device."""
+    if frames is None:
+        frames = _reservoir_frames(reader, n_sample)
+    if frames.shape[0] < n_codes:
+        raise ValueError(f"corpus has only {frames.shape[0]} real frames < {n_codes} codes")
+    flat = torch.as_tensor(np.ascontiguousarray(frames, np.float32), device=reader.device)
+    uniform = torch.ones(flat.shape[0], dtype=torch.float64)
+    idx0 = torch.multinomial(uniform, n_codes, replacement=False,
+                             generator=_generator(generator))
+    ones = torch.ones(flat.shape[0], device=flat.device)
+    return _kmeans_fit(flat[idx0.to(flat.device)], flat, ones, num_iterations)
+
+
+def quantize_shards_streaming(
+    reader,
+    out_dir,
+    n_codes: int = 64,
+    num_iterations: int = 10,
+    generator: torch.Generator | None = None,
+    n_sample: int = 65536,
+    codebook: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Out-of-core ``quantize_frames``: fit the codebook on a cross-shard
+    frame reservoir (``fit_codebook_reservoir``; or take ``codebook`` as
+    fitted), assign every shard's frames on the reader's device and write a
+    parallel DISCRETE shard directory (``src`` = int32 code ids,
+    ``src_vocab`` = n_codes; lengths, targets and gold copied).  Returns the
+    [n_codes, D] codebook."""
+    if codebook is None:
+        codebook = fit_codebook_reservoir(reader, n_codes, num_iterations, generator, n_sample)
+    cb = codebook.to(reader.device)
+    n_codes = int(cb.shape[0])
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for k in range(reader.num_shards):
+        src = reader.read_host(k, "src")
+        # float16 storage crosses compact and is upcast on the device
+        x = torch.from_numpy(src).to(reader.device).float()
+        codes = _kmeans_assign(cb, x.reshape(-1, x.shape[-1])).reshape(x.shape[:2])
+        np.save(out / f"src_{k}.npy", codes.to(torch.int32).cpu().numpy())
+        for field in ("src_len", "trg", "trg_len"):
+            shutil.copyfile(reader.directory / f"{field}_{k}.npy", out / f"{field}_{k}.npy")
+    manifest = json.loads((reader.directory / "manifest.json").read_text())
+    manifest["src_vocab"] = n_codes
+    manifest["name"] = manifest.get("name", "corpus") + "-vqcodes"
+    (out / "manifest.json").write_text(json.dumps(manifest))
+    if (reader.directory / "gold.json").exists():
+        shutil.copyfile(reader.directory / "gold.json", out / "gold.json")
+    return codebook
+
+
+def init_vq_teacher_streaming(
+    reader,
+    code_dir,
+    max_jump: int = 3,
+    n_components: int = 1,
+    generator: torch.Generator | None = None,
+    *,
+    n_codes: int = 64,
+    teacher_iters: int = 10,
+    seed_rounds: int = 3,
+    use_kernels: bool | None = None,
+    prefetch: int = 1,
+    n_sample: int = 65536,
+) -> GaussianHMMParams:
+    """Out-of-core ``init_vq_teacher``, no resident corpus anywhere:
+
+      1. base parameters from whole-corpus moments summed over the shards
+         (``init``'s protocol: shard 0's feature mean as the shift);
+      2. a codebook from a cross-shard frame reservoir, and every shard
+         quantized into a parallel discrete shard directory ``code_dir``
+         (``quantize_shards_streaming``);
+      3. the discrete-HMM teacher trained by exact streamed EM over the
+         code shards (``data.stream.train_streaming``; K1 + K2 on the card);
+      4. ``seed_rounds`` rounds of streamed pinned-assignment GMM EM: the
+         teacher's posteriors over each code shard (K1 + K4) paired with the
+         same rows' frame shard, counts summed across shards, one m_step a
+         round;
+      5. the teacher's transitions copied over.
+
+    Every stage is additive across shards, so this is the resident recipe
+    up to float addition order and a codebook fitted on a ``n_sample``
+    frame sample instead of all frames.  The generator draws the initial
+    jitter first, then the codebook's seed frames.
+    """
+    from multimodalworddiscovery_tpu_torch.data.stream import (
+        ShardedCorpusReader,
+        train_streaming,
+        tree_sum_bounded,
+    )
+
+    gen = _generator(generator)
+    shift = feature_shift(reader.load_shard(0))
+    moments = tree_sum_bounded(init_moments(s, shift, with_diagonal=False)
+                               for s in reader.shards(prefetch))
+    base = init_from_moments(moments, max_jump=max_jump, n_components=n_components,
+                             generator=gen, mode="global", shift=shift)
+    quantize_shards_streaming(reader, code_dir, n_codes=n_codes, generator=gen,
+                              n_sample=n_sample)
+    code_reader = ShardedCorpusReader(code_dir, device=reader.device)
+    tp = dhmm.init(code_reader.load_shard(0), max_jump=max_jump)  # vocabularies only
+    tp, _ = train_streaming(dhmm, tp, code_reader, teacher_iters, prefetch=prefetch,
+                            use_kernels=use_kernels)
+    zero_w = torch.zeros(2 * max_jump + 3, device=base.means.device)
+
+    def seed_counts(gp, fshard, cshard):
+        gamma = dhmm.posteriors(tp, cshard, use_kernels=use_kernels)
+        r = teacher_responsibilities(gamma, fshard)
+        return counts_from_responsibilities(gp, fshard, r, zero_w)
+
+    gp = base
+    for _ in range(max(int(seed_rounds), 1)):
+        total = tree_sum_bounded(
+            seed_counts(gp, f, c)
+            for f, c in zip(reader.shards(prefetch), code_reader.shards(prefetch)))
+        gp = m_step(gp, total)
+    return dataclasses.replace(gp, log_jump=tp.log_jump, log_p0=tp.log_p0)

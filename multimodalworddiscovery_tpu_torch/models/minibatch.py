@@ -8,10 +8,10 @@ computed per batch inside the step function.  The draws come from a
 ``torch.Generator``: a CPU generator draws on the CPU (one seed, one
 sequence on every machine) and the indices go to the corpus's device.
 
-The data-parallel forms (a mesh, ``sample="local"``,
-``sample_local_batch``) and the streamed trainer
-(``train_minibatch_streaming``) wait for the port's mesh and streaming
-(ROADMAP queue 1, items 6 and 7); until then they raise
+``train_minibatch_streaming`` trains on ``data/stream`` shards, one
+resident at a time.  The data-parallel forms (a mesh, ``sample="local"``,
+``sample_local_batch``) wait for the port's mesh (ROADMAP queue 1, item 5:
+``parallel/`` on torch.distributed); until then they raise
 NotImplementedError.
 """
 
@@ -19,14 +19,15 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 
 StepFn = Callable[[Any, Corpus], tuple[Any, dict]]
 DATA_AXIS = "data"
-_WAITS = ("waits for the port's {} (ROADMAP queue 1, items 6-7: the mesh and "
-          "data-parallel EM, and data/stream)")
+_WAITS = ("waits for the port's {} (ROADMAP queue 1, item 5: parallel/ on "
+          "torch.distributed)")
 
 
 def gather_batch(corpus: Corpus, idx: torch.Tensor) -> Corpus:
@@ -85,10 +86,69 @@ def make_minibatch_step(
     return lambda state, generator: step(state, generator, corpus)
 
 
-def train_minibatch_streaming(step_fn: StepFn, state, reader, batch_size: int,
-                              num_steps: int, **kwargs):
-    """Out-of-core minibatch SGD over streamed corpus shards."""
-    raise NotImplementedError("train_minibatch_streaming " + _WAITS.format("data/stream"))
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of global step ``step``, derived from (seed, step)
+    alone (the JAX package's ``fold_in(key, step)``), so a run resumed at
+    a step draws what the uninterrupted run drew there."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def train_minibatch_streaming(
+    step_fn: StepFn,
+    state,
+    reader,
+    batch_size: int,
+    num_steps: int,
+    seed: int = 0,
+    steps_per_shard: int | None = None,
+    prefetch: int = 1,
+    mesh=None,
+    start_step: int = 0,
+    on_step=None,
+):
+    """Out-of-core minibatch SGD over a ``data.stream.ShardedCorpusReader``
+    corpus: shards stream to the device (``prefetch`` of them read ahead),
+    and ``steps_per_shard`` steps (default shard_size // batch_size) sample
+    within the resident shard before the next one loads; shards are
+    visited cyclically until ``num_steps`` steps have run.
+
+    Sampling is ``sample="valid"``: uniform with replacement over the
+    shard's real rows, never the last shard's padding.  It is unbiased only
+    when shards are uniform random subsets (write ordered corpora with
+    ``write_shards(..., shuffle=seed)``).  Step ``it``'s draws come from
+    ``step_generator(seed, it)`` and the shard cycle position from ``it``,
+    so a run resumed with ``start_step`` continues the exact schedule.
+
+    Returns (state, per-step losses as floats, the step stats' "loglik",
+    read once at the end); ``on_step(global_step, state, loss)`` runs after
+    every step (and reads its loss then).
+    """
+    if mesh is not None:
+        raise NotImplementedError("train_minibatch_streaming with a mesh "
+                                  + _WAITS.format("mesh"))
+    if steps_per_shard is None:
+        steps_per_shard = max(1, reader.shard_size // batch_size)
+    stop = start_step + num_steps
+    first_block = start_step // steps_per_shard
+    last_block = max((stop - 1) // steps_per_shard, first_block)
+    blocks = list(range(first_block, last_block + 1))
+    step = None
+    losses = []
+    it = start_step
+    for b, shard in zip(blocks, reader.shards(prefetch, [b % reader.num_shards
+                                                         for b in blocks])):
+        if step is None:  # one step for every shard: they share one shape
+            step = make_minibatch_step(step_fn, shard, batch_size, sample="valid",
+                                       bind_corpus=False)
+        block_stop = min((b + 1) * steps_per_shard, stop)
+        while it < block_stop:
+            state, stats = step(state, step_generator(seed, it), shard)
+            losses.append(stats["loglik"])
+            if on_step is not None:
+                on_step(it, state, float(stats["loglik"]))
+            it += 1
+    return state, (torch.stack(losses).tolist() if losses else [])
 
 
 def train_minibatch(

@@ -31,7 +31,12 @@ setup(
             "multimodalworddiscovery_tpu.native._packer",
             sources=["multimodalworddiscovery_tpu/native/packer.c"],
             extra_compile_args=["-O3"],
-        )
+        ),
+        Extension(
+            "multimodalworddiscovery_tpu_torch.native._packer",
+            sources=["multimodalworddiscovery_tpu_torch/native/packer.c"],
+            extra_compile_args=["-O3"],
+        ),
     ],
     cmdclass={"build_ext": OptionalBuildExt},
 )

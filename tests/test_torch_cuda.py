@@ -1148,3 +1148,33 @@ def test_detector_steps_on_the_card_match_the_cpu(dev):
     for a, b in zip(m_g.parameters(), m_c.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-5)
     assert torch.equal(p_g[2].cpu(), p_c[2])
+
+
+@pytest.mark.parametrize("prefetch", [1, 2])
+def test_streamed_shards_on_the_card(dev, tmp_path, prefetch):
+    """Shards copied from pinned memory on the reader's stream (float16
+    frames upcast on the card) equal the files, and streamed EM through K1
+    + K2 over the padded shards equals resident EM on the card."""
+    from multimodalworddiscovery_tpu_torch.data.stream import (
+        FIELDS, ShardedCorpusReader, train_streaming, write_shards)
+
+    corpus, gold, _ = make_flickr8k_mini(**CASES["S12"], device=dev)
+    write_shards(corpus, tmp_path / "ids", 16, gold=gold)  # 40 -> 3 shards, the last padded
+    reader = ShardedCorpusReader(tmp_path / "ids", device=dev)
+    for k, shard in enumerate(reader.shards(prefetch)):
+        for f in FIELDS:
+            want = np.load(tmp_path / "ids" / f"{f}_{k}.npy")
+            np.testing.assert_array_equal(getattr(shard, f).cpu().numpy(), want, err_msg=f)
+    k1.table_lookup.launches = k2.hmm_estep_counts.launches = 0
+    ps, lls = train_streaming(hmm, hmm.init(corpus), reader, 3, prefetch=prefetch,
+                              use_kernels=True)
+    assert k2.hmm_estep_counts.launches == 3 * reader.num_shards
+    pr, lls_ref = hmm.train(hmm.init(corpus), corpus, 3, use_kernels=True)
+    np.testing.assert_allclose(lls, lls_ref.cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(ps.log_emit.cpu().numpy(), pr.log_emit.cpu().numpy(), atol=1e-4)
+    frames, _, _ = phones_to_frames(corpus, gold, feat_dim=8, seed=0, device=dev)
+    write_shards(frames, tmp_path / "f16", 16, storage_dtype="float16")
+    r16 = ShardedCorpusReader(tmp_path / "f16", device=dev)
+    got = torch.cat([s.src for s in r16.shards(prefetch)])[: frames.n]
+    assert got.dtype == torch.float32
+    assert torch.equal(got, frames.src.half().float())

@@ -2,9 +2,9 @@
 
 ``gather_batch`` selects the same rows as the reference's; a minibatch step
 equals ``em_step`` on the batch its generator draws; the samplers keep
-their protocols; the mesh and streaming forms raise until their queue
-items land; the registry returns the eight aligners under the reference's
-names.
+their protocols; the mesh forms raise until their queue item lands (the
+streamed trainer is tested in tests/test_torch_stream.py); the registry
+returns the eight aligners under the reference's names.
 """
 
 import jax.numpy as jnp
@@ -91,8 +91,6 @@ def test_mesh_and_streaming_forms_raise(corpora):
         tmb.make_minibatch_step(attention.em_step, tc, 4, sample="local")
     with pytest.raises(NotImplementedError, match="queue 1"):
         tmb.sample_local_batch(tc, torch.Generator(), 4, object())
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tmb.train_minibatch_streaming(attention.em_step, None, None, 4, 1)
     with pytest.raises(NotImplementedError, match="queue 1"):
         tmb.train_minibatch(attention.em_step, None, tc, 4, 1, mesh=object())
 

@@ -33,7 +33,13 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.core.logsemiring",
     "multimodalworddiscovery_tpu_torch.core.masking",
     "multimodalworddiscovery_tpu_torch.data",
+    "multimodalworddiscovery_tpu_torch.data.bucketing",
     "multimodalworddiscovery_tpu_torch.data.corpus",
+    "multimodalworddiscovery_tpu_torch.data.flickr30k_entities",
+    "multimodalworddiscovery_tpu_torch.data.flickr8k",
+    "multimodalworddiscovery_tpu_torch.data.io",
+    "multimodalworddiscovery_tpu_torch.data.mscoco",
+    "multimodalworddiscovery_tpu_torch.data.stream",
     "multimodalworddiscovery_tpu_torch.data.synthetic",
     "multimodalworddiscovery_tpu_torch.eval",
     "multimodalworddiscovery_tpu_torch.eval.dtw",
@@ -47,6 +53,7 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.frontend.vq",
     "multimodalworddiscovery_tpu_torch.models",
     "multimodalworddiscovery_tpu_torch.models.attention",
+    "multimodalworddiscovery_tpu_torch.models.bucketed",
     "multimodalworddiscovery_tpu_torch.models.flax_params",
     "multimodalworddiscovery_tpu_torch.models.grounding",
     "multimodalworddiscovery_tpu_torch.models.hmm",
@@ -58,6 +65,7 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.models.model1",
     "multimodalworddiscovery_tpu_torch.models.registry",
     "multimodalworddiscovery_tpu_torch.models.segmental_kmeans",
+    "multimodalworddiscovery_tpu_torch.native",
     "multimodalworddiscovery_tpu_torch.ops",
     "multimodalworddiscovery_tpu_torch.ops._build",
     "multimodalworddiscovery_tpu_torch.ops.counts",
@@ -70,6 +78,7 @@ PORT_MODULES = [
     "multimodalworddiscovery_tpu_torch.scripts.bench_assoc",
     "multimodalworddiscovery_tpu_torch.scripts.bench_estep",
     "multimodalworddiscovery_tpu_torch.scripts.bench_kernels",
+    "multimodalworddiscovery_tpu_torch.scripts.bench_stream",
     "multimodalworddiscovery_tpu_torch.scripts.extract_features",
     "multimodalworddiscovery_tpu_torch.scripts.image_pipeline",
     "multimodalworddiscovery_tpu_torch.scripts.k8_phases",
