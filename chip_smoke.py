@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives eighteen paths through the kernels
+shapes the main paths give it, then drives nineteen paths through the kernels
 (paths 1-4, 6, 8, 10 and 12 also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
@@ -127,6 +127,32 @@ shapes the main paths give it, then drives eighteen paths through the kernels
     corpus in 4 shards (B=512, 60 steps): the loss falls, and a run resumed
     at step 30 gives the uninterrupted run's losses within rtol 1e-5.
     Shards go to a temporary directory removed at the end.
+19. the parallel layer (``parallel/``, ``core/mesh``, ``core/collectives``).
+    19a at world size 1 over NCCL (a one-rank group in this process, its
+    ``file://`` store under ``build/chip_smoke/``, destroyed afterwards):
+    ``make_shard_map_em_step(hmm)`` for 10 iterations on path 1's corpus (K1
+    + K2) and the decode (K3) against path 1 (logliks rtol 1e-5, log_emit
+    and log_jump atol 1e-4, decode agreement > 0.999), 2 annealed
+    iterations of ``make_shard_map_em_step(hmm_gaussian)`` on path 2's
+    corpus (K4) against path 2's (rtol 1e-5), ``train_streaming_multihost``
+    over path 16's 8 shards (one rank, 8 rounds) against path 16's resident
+    EM (rtol 1e-5, atol 1e-4), and ``estep_time_sharded`` on one rank (K8).
+    19b on 2 spawned ranks over gloo with CUDA tensors on the one card
+    (NCCL refuses two ranks on one device): the headline EM at N=4000 a
+    rank against path 1 with 19a's bounds; ``estep_time_sharded`` at path
+    9's S64 shape (N=256, Ts=147 padded to 148; K8 for the composes)
+    against K4 (logZ rtol 1e-4, gamma at valid positions and xi rtol / atol
+    1e-3); one data-parallel attention step at path 11's configuration
+    (B=512, 256 rows a rank) and one grounding step (B=256) against one
+    process on the same rows (parameters rtol 1e-5, atol 1e-6; weights
+    whose gradient is rounding noise within a learning rate), then 20
+    attention steps with a falling loss; ``reservoir_frames_multihost`` on
+    path 17's shards equal to ``_reservoir_frames``; and
+    ``train_streaming_multihost`` over path 16's shards (4 rounds of 2)
+    against path 16 with 19a's bounds.  The ranks report their launch
+    counts; ms per data-parallel EM iteration at world size 1 and 2 and the
+    all-reduce's share of it, and the time-sharded E-step against K4, are
+    printed.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
 gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
@@ -140,7 +166,8 @@ shapes paths 10-12 give them (Model-1's two shapes, path 11's teacher
 corpus, guide batch and guided frames, pooled retrieval's chunk) and at
 those of paths 16-18 (the N=65536 corpus and its N=8192 shard, each
 bucket and its decode, the stretch recipe's code and frame shards of
-1000, the DNN-HMM's shards), and the script fails unless every launch of
+1000, the DNN-HMM's shards) and of path 19 (a rank's half of the headline
+corpus), and the script fails unless every launch of
 K1-K4 on the paths lies at a checked shape.  K4,
 K4-bf16 and K6 (the remat E-step, reached through its entry point
 ``hmm_estep(remat=True)``, which no model path calls) are checked at the
@@ -429,6 +456,22 @@ STREAM_TEST_SHARD = 10
 STREAM_TEST_ITERS = 5
 ATT_STREAM_SHARDS = 4
 ATT_STREAM_STEPS, ATT_RESUME = 60, 30
+# path 19: the parallel layer.  19a at world size 1 over NCCL: path 1's EM
+# (make_shard_map_em_step), 2 of path 2's annealed Gaussian iterations and
+# path 16's streamed EM (train_streaming_multihost).  19b on 2 ranks over
+# gloo with CUDA tensors on the one card (NCCL refuses two ranks on one
+# device): path 1's EM at N=4000 a rank, the time-sharded E-step at path
+# 9's S64 shape (Ts=147 padded to 148) against K4, one data-parallel
+# attention step at path 11's configuration (B=512, 256 rows a rank) and
+# one grounding step (B=256) against one process on the same rows, then
+# PAR_ATT_STEPS attention steps, the merged frame reservoir of path 17's
+# shards and path 16's streamed EM in 4 rounds of 2 shards
+PAR_RANKS = 2
+PAR_GAUSS_ITERS = 2
+PAR_ATT_STEPS = 20
+PAR_SEQ_PAD = 148
+PAR_RESERVOIR = 65536
+PAR_SEQ_TOL = dict(rtol=1e-3, atol=1e-3)  # tests/test_parallel.py:177's bounds, tightened
 
 
 def _run(cmd: list[str]) -> str:
@@ -2746,7 +2789,7 @@ def stream_phase(here: str, card: str, counters, dev, tmp: str) -> dict:
     launches["model1"] = _counts(counters)
     _check(sum(launches["model1"].values()) == 0,
            "path 16: Model-1's EM launches no kernel (its counts are index_add_ statistics)")
-    del pm_r, pm_s, pr, ps
+    del pm_r, pm_s, ps
 
     rows = bench_stream.run(STREAM["n_utterances"], STREAM_SHARD, STREAM_ITERS, 3, dev,
                             pathlib.Path(here, "build", "chip_smoke", "bench_stream.jsonl"))
@@ -2814,7 +2857,8 @@ def stream_phase(here: str, card: str, counters, dev, tmp: str) -> dict:
           f"{ms_full / STREAM_ITERS:.3f}")
     print(f"path 16 wall time {time.perf_counter() - t_path:.1f} s")
     return {"checks": checks, "k1": k1s, "k3": k3s, "launches": launches, "n_buckets": nb,
-            "rows": rows, "waste": waste,
+            "rows": rows, "waste": waste, "dir": d,
+            "resident": {"p0": p0, "params": pr, "lls": lls_r.cpu().numpy()},
             "ms": {"resident": ms_res / STREAM_ITERS,
                    **{f"streamed_prefetch{p}": m / STREAM_ITERS for p, m in ms_str.items()},
                    "bucketed": ms_b / STREAM_ITERS, "headline_resident": ms_full / STREAM_ITERS}}
@@ -3092,6 +3136,534 @@ def stream_gradient_phase(card: str, counters, dev, tmp: str) -> dict:
     return {"dnn": dnn, "launches": launches}
 
 
+def _adam_resolved_close(what: str, got: list, new, adam, steps: int) -> float:
+    """A data-parallel state (``got``: its tensors in
+    ``core.collectives.tensors_of`` order, the model's weights first)
+    against the one-process state ``new``: within rtol 1e-5, atol 1e-6,
+    except the model weights whose RMS gradient over ``steps`` Adam steps
+    lies below 1e-6 (a hundred times Adam's eps: the attention key biases,
+    to which the softmax is invariant, and embedding rows outside the
+    batch), where Adam's normalised step turns rounding noise into up to a
+    learning rate of movement either way; those are held to their steps of
+    the learning rate.  Returns the largest difference at the others."""
+    import numpy as np
+
+    from multimodalworddiscovery_tpu_torch.core.collectives import tensors_of
+    from multimodalworddiscovery_tpu_torch.models.hmm_dnn import ADAM_B2
+
+    worst, noise, ok_all = 0.0, 0, True
+    for i, (a, b) in enumerate(zip(got, tensors_of(new))):
+        b = b.detach().cpu().numpy()
+        ok = np.ones(b.shape, bool)
+        if i < len(adam.nu):
+            ok = np.sqrt(adam.nu[i].cpu().numpy() / (1 - ADAM_B2 ** steps)) >= 1e-6
+            noise += int((~ok).sum())
+            ok_all &= bool(np.all(np.abs(a - b)[~ok] <= 2 * steps * new.learning_rate))
+        d = np.abs(a[ok].astype(np.float64) - b[ok])
+        if d.size:
+            worst = max(worst, float(d.max()))
+            ok_all &= bool(np.all(d <= 1e-6 + 1e-5 * np.abs(b[ok])))
+    print(f"  {what}: largest parameter difference {worst:.3e} ({noise} weights with a "
+          f"rounding-noise gradient, held to {steps} learning rates)")
+    _check(ok_all, f"{what}: parameters within rtol 1e-5, atol 1e-6 of one process on the "
+                   f"same rows")
+    return worst
+
+
+def _path19b_rank(cfg: dict) -> dict:
+    """One rank of path 19b (spawned by ``parallel.multihost.spawn`` on the
+    one card, gloo with CUDA tensors): every leg on this rank's rows, its
+    kernel launch counts per leg, its results on the host."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.core.collectives import group_of, tensors_of
+    from multimodalworddiscovery_tpu_torch.core.mesh import make_mesh
+    from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
+    from multimodalworddiscovery_tpu_torch.data.stream import ShardedCorpusReader
+    from multimodalworddiscovery_tpu_torch.models import attention, grounding, hmm, minibatch
+    from multimodalworddiscovery_tpu_torch.ops import _build
+    from multimodalworddiscovery_tpu_torch.parallel import make_shard_map_em_step, multihost
+    from multimodalworddiscovery_tpu_torch.parallel import shard_corpus
+    from multimodalworddiscovery_tpu_torch.parallel.sequence import estep_time_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    counters = _counters()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh()
+    rank = mesh.get_local_rank()
+    out = {"launches": {}}
+
+    def host(t):
+        return [x.detach().cpu().numpy() for x in t]
+
+    def load(path):
+        return {k: v.to(dev) for k, v in torch.load(path).items()}
+
+    # the headline EM, N/2 a rank (K1 + K2 at the rank's shard)
+    f = load(cfg["headline"])
+    corpus = Corpus(f["src"], f["src_len"], f["trg"], f["trg_len"], cfg["vocab"][0],
+                    cfg["vocab"][1])
+    shard = shard_corpus(corpus, mesh)
+    p0 = hmm.init(corpus)
+    step = make_shard_map_em_step(hmm, mesh)
+    _reset(counters)
+    p, lls = p0, []
+    for _ in range(EM_ITERS):
+        p, st = step(p, shard)
+        lls.append(st["loglik"])
+    torch.cuda.synchronize()
+    out["launches"]["headline"] = _counts(counters)
+    out["headline"] = {"lls": torch.stack(lls).cpu().numpy(), "n_local": shard.n,
+                       "params": {k: getattr(p, k).cpu().numpy()
+                                  for k in ("log_emit", "log_jump", "log_p0")}}
+    out["headline"]["timing"] = _dp_iteration_ms(hmm, p0, shard, group_of(mesh))
+
+    # the time-sharded E-step (K8 for the composes)
+    f = load(cfg["seq"])
+    seq_mesh = make_mesh(axis_name="seq")
+    args = (f["log_init"], f["log_trans"], f["log_emit"], f["src_len"], f["smask"], seq_mesh)
+    _reset(counters)
+    gamma, xi, logz = estep_time_sharded(*args)
+    torch.cuda.synchronize()
+    out["launches"]["seq"] = _counts(counters)
+    out["seq"] = {"gamma": gamma.cpu().numpy(), "xi": xi.cpu().numpy(),
+                  "logz": logz.cpu().numpy(), "timing": _wall_ms(lambda: estep_time_sharded(*args),
+                                                    group_of(seq_mesh))}
+
+    # one data-parallel attention step and one grounding step against the
+    # parent's one-process steps on the same rows, then PAR_ATT_STEPS steps
+    f = load(cfg["models"])
+    mc = Corpus(f["src"], f["src_len"], f["trg"], f["trg_len"], cfg["models_vocab"][0],
+                cfg["models_vocab"][1])
+    mshard = shard_corpus(mc, mesh)
+    for name, mod, batch in (("attention", attention, cfg["att_batch"]),
+                             ("grounding", grounding, cfg["ground_batch"])):
+        state = mod.init(mc, dim=cfg["dim"], generator=torch.Generator().manual_seed(SEED))
+        mstep = minibatch.make_minibatch_step(mod.em_step, mshard, batch, mesh=mesh)
+        _reset(counters)
+        new, st = mstep(state, torch.Generator().manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        out["launches"][name] = _counts(counters)
+        out[name] = {"params": host(tensors_of(new)), "loss": float(st["loss"])}
+        if name == "attention":
+            losses = []
+            gen = torch.Generator().manual_seed(SEED + 2)
+            t0 = time.perf_counter()
+            for _ in range(PAR_ATT_STEPS):
+                new, st = mstep(new, gen)
+                losses.append(st["loss"])
+            out[name]["losses"] = torch.stack(losses).cpu().numpy()
+            out[name]["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / PAR_ATT_STEPS
+    del mc, mshard
+
+    # the merged reservoir, and streamed EM in rounds of PAR_RANKS shards
+    frames = ShardedCorpusReader(cfg["frames_dir"], device=dev)
+    res = multihost.reservoir_frames_multihost(frames, PAR_RESERVOIR, mesh=mesh)
+    out["reservoir"] = res if rank == 0 else None
+    out["reservoir_digest"] = float(np.asarray(res, np.float64).sum())
+    reader = ShardedCorpusReader(cfg["stream_dir"], device=dev)
+    f = load(cfg["stream_p0"])
+    sp0 = hmm.HMMParams(f["log_emit"], f["log_jump"], f["log_p0"], max_jump=cfg["max_jump"])
+    _reset(counters)
+    ps, slls = multihost.train_streaming_multihost(hmm, sp0, reader, STREAM_ITERS, mesh=mesh)
+    torch.cuda.synchronize()
+    out["launches"]["stream"] = _counts(counters)
+    out["stream"] = {"lls": np.asarray(slls), "params": {
+        k: getattr(ps, k).cpu().numpy() for k in ("log_emit", "log_jump", "log_p0")}}
+    return out
+
+
+TIMING_WINDOWS = 5  # path 19's timings: the median and range over this many windows
+WINDOW_ITERS, WINDOW_S = 50, 1.0  # a window: 50 iterations, or fewer once it passes 1 s
+
+
+def _spread(xs) -> dict:
+    """Median and range of the windows' values."""
+    import numpy as np
+
+    return {"median": float(np.median(xs)), "min": float(min(xs)), "max": float(max(xs)),
+            "windows": len(xs)}
+
+
+def _fmt(d: dict, scale: float = 1.0, digits: int = 4) -> str:
+    return (f"{d['median'] * scale:.{digits}f} (range {d['min'] * scale:.{digits}f}-"
+            f"{d['max'] * scale:.{digits}f} over {d['windows']} windows)")
+
+
+def _wall_ms(fn, group=None) -> dict:
+    """Wall time of ``fn()`` in ms, the device synchronized around each
+    window (a collective's host side included): after two warm-up calls,
+    ``TIMING_WINDOWS`` windows of ``WINDOW_ITERS`` calls, or of as many as
+    the second warm-up says fill ``WINDOW_S`` where that is fewer (the
+    largest count over ``group``'s ranks, whose calls must pair up); the
+    median and range of the windows' means, and the calls a window ran."""
+    import math
+
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.core.collectives import all_max
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = min(WINDOW_ITERS, math.ceil(WINDOW_S / max(time.perf_counter() - t0, 1e-6)))
+    n = int(all_max(torch.tensor(n, device="cuda"), group))
+    means = []
+    for _ in range(TIMING_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        means.append((time.perf_counter() - t0) * 1e3 / n)
+    return _spread(means) | {"iters": n}
+
+
+def _dp_iteration_ms(mod, params, shard, group) -> dict:
+    """ms per data-parallel EM iteration (the E-step, the one all_reduce of
+    counts and loglik, the M-step) and the all-reduce's share of it, after
+    one warm-up iteration, over ``TIMING_WINDOWS`` windows of
+    ``WINDOW_ITERS`` iterations: a window's time runs from a CUDA event
+    before its first iteration to one after its last, the all_reduce is
+    bracketed by events in every iteration (the device waits for gloo's
+    copies through the host inside it).  The median and range of the
+    windows' values."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.core.collectives import all_sum
+
+    def iteration(ev=None):
+        counts = mod.expected_counts(params, shard)
+        if ev:
+            ev[0].record()
+        counts, ll = all_sum(counts, group)
+        if ev:
+            ev[1].record()
+        mod.m_step(params, counts)
+
+    iteration()
+    windows = []
+    for _ in range(TIMING_WINDOWS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ars = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(WINDOW_ITERS)]
+        start.record()
+        for ev in ars:
+            iteration(ev)
+        end.record()
+        torch.cuda.synchronize()
+        total = start.elapsed_time(end)
+        windows.append((total / WINDOW_ITERS, sum(a.elapsed_time(b) for a, b in ars) / total))
+    return {"ms": _spread([w[0] for w in windows]), "share": _spread([w[1] for w in windows]),
+            "iters": WINDOW_ITERS}
+
+
+def parallel_phase(here: str, card: str, counters, dev, head: dict, gauss: dict,
+                   s16: dict, frames_dir: str) -> dict:
+    """Path 19: the parallel layer.  19a at world size 1 over NCCL in this
+    process: path 1's EM through ``make_shard_map_em_step`` (K1 + K2) and
+    its decode (K3) against path 1, path 2's first annealed iterations
+    (K4) against path 2, path 16's streamed EM through
+    ``train_streaming_multihost`` (K1 + K2 at the shard) against path 16's
+    resident run, and the time-sharded E-step (K8) at one rank.  19b on
+    PAR_RANKS spawned ranks over gloo with CUDA tensors (``_path19b_rank``),
+    each held here: the EM against path 1, the time-sharded E-step against
+    K4, the attention and grounding steps against one process on the same
+    rows, the reservoir against ``_reservoir_frames``, the streamed EM
+    against path 16.  Every new launch shape of K1 and K2 (the rank's
+    headline shard) and K8 at the sequence composes is held against its
+    plain version here."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multimodalworddiscovery_tpu_torch.core.collectives import group_of
+    from multimodalworddiscovery_tpu_torch.core.mesh import make_mesh
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.data.stream import ShardedCorpusReader
+    from multimodalworddiscovery_tpu_torch.models import (
+        attention,
+        grounding,
+        hmm,
+        hmm_core,
+        hmm_gaussian,
+        minibatch,
+    )
+    from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd as k24
+    from multimodalworddiscovery_tpu_torch.parallel import (
+        make_shard_map_em_step,
+        multihost,
+        sequence,
+    )
+    from multimodalworddiscovery_tpu_torch.parallel.data_parallel import take_rows
+    from multimodalworddiscovery_tpu_torch.scripts import bench_assoc
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    t_path = time.perf_counter()
+    work = pathlib.Path(here, "build", "chip_smoke", "path19")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches, shape_launches = {}, {}
+
+    def add(kernel: str, shape: str, n: int) -> None:
+        d = shape_launches.setdefault(kernel, {})
+        d[shape] = d.get(shape, 0) + n
+
+    def held_em(what, lls, want_lls, params, want, rtol=1e-5, atol=1e-4):
+        lls, want_lls = np.asarray(lls, np.float64), np.asarray(want_lls, np.float64)
+        rel = float(np.max(np.abs(lls - want_lls) / np.abs(want_lls)))
+        errs = {k: _max_abs(torch.as_tensor(v).cpu(), getattr(want, k).cpu())
+                for k, v in params.items()}
+        print(f"  {what}: loglik {lls.tolist()}, largest relative difference {rel:.3e}; "
+              f"parameters max abs err {errs}")
+        _check(rel <= rtol, f"{what}: logliks within rtol {rtol}")
+        _check(max(errs.values()) <= atol, f"{what}: parameters within atol {atol}")
+
+    # ---- 19a: world size 1 over NCCL ----
+    multihost.initialize("file://" + str(work / "nccl_store"), 1, 0, device="cuda")
+    try:
+        mesh = make_mesh()
+        print(f"path 19a (world size 1 over {dist.get_backend()}): mesh {mesh}")
+        corpus = head["corpus"]
+        _reset(counters)
+        step = make_shard_map_em_step(hmm, mesh)
+        p, lls = hmm.init(corpus), []
+        for _ in range(EM_ITERS):
+            p, st = step(p, corpus)
+            lls.append(st["loglik"])
+        align = hmm.align(p, corpus)
+        torch.cuda.synchronize()
+        launches["19a_headline"] = got = _counts(counters)
+        _check(got["hmm_estep_counts"] == EM_ITERS and got["viterbi"] == 1
+               and got["hmm_estep"] == 0, "path 19a headline: K2 once an iteration, K3 once")
+        add("table_lookup", "S12_headline", got["table_lookup"])
+        add("hmm_estep_counts", "S12_headline", got["hmm_estep_counts"])
+        add("viterbi", "S12", got["viterbi"])
+        held_em("path 19a data-parallel headline EM against path 1", torch.stack(lls).cpu(),
+                head["lls"], {k: getattr(p, k) for k in ("log_emit", "log_jump")},
+                head["params"])
+        agree = float((align == hmm.align(head["params"], corpus)).float().mean())
+        print(f"  path 19a decode agrees with path 1's on {agree:.6f} of positions")
+        _check(agree > 0.999, "path 19a decode (K3) agrees with path 1's on > 0.999")
+        dp1 = _dp_iteration_ms(hmm, hmm.init(corpus), corpus, group_of(mesh))
+        print(f"  [{card}] path 19a data-parallel EM at world size 1 (N={corpus.n}): "
+              f"{_fmt(dp1['ms'])} ms per iteration, the all_reduce {_fmt(dp1['share'], 100, 2)}"
+              f" % of it (CUDA events, windows of {dp1['iters']} iterations)")
+
+        fc, p_diag = gauss["corpus"], gauss["p0"]
+        scales = hmm_gaussian.anneal_scales(EM_ITERS, ANNEAL)[:PAR_GAUSS_ITERS]
+        _reset(counters)
+        p, glls = p_diag, []
+        for scale in scales:
+            p, st = make_shard_map_em_step(hmm_gaussian, mesh,
+                                           count_kwargs={"emit_scale": scale})(p, fc)
+            glls.append(float(st["loglik"]))
+        torch.cuda.synchronize()
+        launches["19a_gaussian"] = got = _counts(counters)
+        _check(got["hmm_estep"] == PAR_GAUSS_ITERS, "path 19a Gaussian: K4 once an iteration")
+        add("hmm_estep", "S64", got["hmm_estep"])
+        rel = float(np.max(np.abs(np.asarray(glls) - gauss["lls"]) / np.abs(gauss["lls"])))
+        print(f"  path 19a data-parallel Gaussian EM: loglik {glls} (path 2 "
+              f"{gauss['lls'].tolist()}), largest relative difference {rel:.3e}")
+        _check(rel <= 1e-5, "path 19a Gaussian EM: logliks within rtol 1e-5 of path 2's")
+
+        reader = ShardedCorpusReader(s16["dir"], device=dev)
+        res = s16["resident"]
+        _reset(counters)
+        ps, slls = multihost.train_streaming_multihost(hmm, res["p0"], reader, STREAM_ITERS,
+                                                       mesh=mesh)
+        torch.cuda.synchronize()
+        launches["19a_stream"] = got = _counts(counters)
+        _check(got["hmm_estep_counts"] == STREAM_ITERS * reader.num_shards,
+               f"path 19a streamed: K2 once a shard an iteration ({reader.num_shards} rounds "
+               f"on one rank)")
+        add("table_lookup", "path16_stream_shard", got["table_lookup"])
+        add("hmm_estep_counts", "path16_stream_shard", got["hmm_estep_counts"])
+        held_em("path 19a train_streaming_multihost against path 16's resident EM", slls,
+                res["lls"], {k: getattr(ps, k) for k in ("log_emit", "log_jump", "log_p0")},
+                res["params"])
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the inputs of 19b: path 9's S64 shape, path 11's corpus ----
+    label, gen = bench_assoc.SHAPES[0]
+    sc, _, _ = make_flickr8k_mini(**gen, device=dev)
+    sparams = hmm.train(hmm.init(sc), sc, EM_ITERS)[0]
+    sc = dataclasses.replace(sc, src=torch.nn.functional.pad(
+        sc.src, (0, PAR_SEQ_PAD - sc.max_src_len)))
+    log_init, log_trans, log_emit = hmm._machinery(sparams, sc)
+    smask = hmm_core.state_mask(sc)
+    torch.save({"log_init": log_init.cpu(), "log_trans": log_trans.cpu(),
+                "log_emit": log_emit.cpu(), "src_len": sc.src_len.cpu(), "smask": smask.cpu()},
+               work / "seq.pt")
+    _, fact = _estep_inputs(sparams, sc)
+    k4_ms = _gpu_ms(lambda: k24.hmm_estep(*fact, log_emit, sc.src_len), 10)
+    gamma4, xi4, logz4 = k24.hmm_estep(*fact, log_emit, sc.src_len)
+    # K8 at the composes of rank 0's chunk: the tree's first level and the
+    # chunk products' combine
+    chunk = PAR_SEQ_PAD // PAR_RANKS
+    m0 = sequence._chunk_matrices(log_trans, log_emit, sc.src_len, 0, chunk)
+    m1 = sequence._chunk_matrices(log_trans, log_emit, sc.src_len, chunk, 2 * chunk)
+    a, b = m0[0:-1:2], m0[1::2]
+    k8_seq = {"tree": k8_check(f"path 19 sequence compose (rank 0's chunk, {label})", a, b,
+                               reps=10)}
+    k8_seq["tree"]["library_ms"] = _gpu_ms(lambda: _logsumexp_chunked(a, b), 2)
+    r = k8_seq["tree"]
+    print(f"  [{card}] K8 at the sequence compose {tuple(a.shape)}: kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library (broadcast "
+          f"logsumexp in batch chunks) {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})")
+    del a, b
+    from multimodalworddiscovery_tpu_torch.core.logsemiring import log_matmul as plain_mm
+    k8_seq["chunks"] = k8_check("path 19 sequence chunk products' combine",
+                                sequence._product(plain_mm, m0), sequence._product(plain_mm, m1))
+    del m0, m1
+
+    # 19a's time-sharded E-step at one rank (the whole chain on one card)
+    multihost.initialize("file://" + str(work / "nccl_store_seq"), 1, 0, device="cuda")
+    try:
+        seq1 = make_mesh(axis_name="seq")
+        _reset(counters)
+        g1, x1, z1 = sequence.estep_time_sharded(log_init, log_trans, log_emit, sc.src_len,
+                                                 smask, seq1)
+        torch.cuda.synchronize()
+        launches["19a_seq"] = got = _counts(counters)
+        _check(got["log_matmul"] > 0 and sum(got.values()) == got["log_matmul"],
+               "path 19a time-sharded E-step: the composes launched K8 and nothing else")
+        seq1_t = _wall_ms(lambda: sequence.estep_time_sharded(
+            log_init, log_trans, log_emit, sc.src_len, smask, seq1))
+    finally:
+        dist.destroy_process_group()
+
+    valid = (torch.arange(PAR_SEQ_PAD, device=dev)[None, :, None] < sc.src_len[:, None, None]) \
+        & smask[:, None, :]
+
+    def held_seq(what, gamma, xi, logz):
+        gamma, xi, logz = (torch.as_tensor(x, device=dev) for x in (gamma, xi, logz))
+        errs = {"logz_rel": float(((logz - logz4).abs() / logz4.abs().clamp(min=1e-30)).max()),
+                "gamma": _max_abs(gamma[valid], gamma4[valid]), "xi": _max_abs(xi, xi4)}
+        print(f"  {what} against K4: {errs}")
+        _check(torch.allclose(logz, logz4, rtol=1e-4, atol=0), f"{what}: logZ within rtol 1e-4")
+        _check(torch.allclose(gamma[valid], gamma4[valid], **PAR_SEQ_TOL)
+               and torch.allclose(xi, xi4, **PAR_SEQ_TOL),
+               f"{what}: gamma (valid positions) and xi within rtol 1e-3, atol 1e-3")
+        return errs
+
+    seq_errs = {"w1": held_seq("path 19a time-sharded E-step (one rank)", g1, x1, z1)}
+    del g1, x1, z1
+
+    hc = head["corpus"]
+    torch.save({f: getattr(hc, f).cpu() for f in ("src", "src_len", "trg", "trg_len")},
+               work / "headline.pt")
+    mc, _, _ = make_flickr8k_mini(**bk.MODELS_CORPUS, device=dev)
+    torch.save({f: getattr(mc, f).cpu() for f in ("src", "src_len", "trg", "trg_len")},
+               work / "models.pt")
+    rp0 = s16["resident"]["p0"]
+    torch.save({k: getattr(rp0, k).cpu() for k in ("log_emit", "log_jump", "log_p0")},
+               work / "stream_p0.pt")
+    # the rank shard's launch shape (rank 0's rows; rank 1's has its shape)
+    hshard = hc.pad_to(-(-hc.n // PAR_RANKS) * PAR_RANKS)
+    hshard = take_rows(hshard, 0, hshard.n // PAR_RANKS)
+    checks = {"parity": parity(f"path 19b rank shard (N={hshard.n})", hshard, reps=5)}
+    hp = hmm.init(hc)
+    checks["k1"] = k1_check("path 19b rank shard", hp.log_emit, hshard.src,
+                            hmm_core.state_concepts(hshard), 50)
+    cfg = {"headline": str(work / "headline.pt"), "vocab": (hc.src_vocab, hc.trg_vocab),
+           "seq": str(work / "seq.pt"), "models": str(work / "models.pt"),
+           "models_vocab": (mc.src_vocab, mc.trg_vocab), "dim": bk.MODEL_DIM,
+           "att_batch": bk.ATT_BATCH, "ground_batch": bk.GROUND_BATCH,
+           "frames_dir": frames_dir, "stream_dir": s16["dir"],
+           "stream_p0": str(work / "stream_p0.pt"), "max_jump": rp0.max_jump}
+
+    # ---- 19b: PAR_RANKS ranks over gloo with CUDA tensors on this card ----
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(_path19b_rank, PAR_RANKS, (cfg,), device="cuda", backend="gloo",
+                            timeout=600, store_dir=str(work))
+    print(f"path 19b ({PAR_RANKS} ranks over gloo with CUDA tensors on one card): "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    for name in ranks[0]["launches"]:
+        launches[f"19b_{name}"] = {k: sum(r["launches"][name][k] for r in ranks)
+                                   for k in ranks[0]["launches"][name]}
+    got = launches["19b_headline"]
+    _check(got["hmm_estep_counts"] == PAR_RANKS * EM_ITERS,
+           "path 19b headline: K2 once an iteration on every rank")
+    add("table_lookup", "path19_rank_shard", got["table_lookup"])
+    add("hmm_estep_counts", "path19_rank_shard", got["hmm_estep_counts"])
+    for i, r in enumerate(ranks):
+        _check(r["headline"]["n_local"] == hshard.n, f"path 19b rank {i} holds {hshard.n} rows")
+        held_em(f"path 19b data-parallel headline EM (rank {i}) against path 1",
+                r["headline"]["lls"], head["lls"], r["headline"]["params"], head["params"])
+    dp2 = max((r["headline"]["timing"] for r in ranks), key=lambda t: t["ms"]["median"])
+    print(f"  [{card}] path 19b data-parallel EM at world size {PAR_RANKS} (N={hshard.n} a rank, "
+          f"the ranks sharing the card; the slower rank): {_fmt(dp2['ms'])} ms per iteration, "
+          f"the all_reduce {_fmt(dp2['share'], 100, 2)} % of it (CUDA events, windows of "
+          f"{dp2['iters']} iterations)")
+
+    got = launches["19b_seq"]
+    _check(got["log_matmul"] > 0 and sum(got.values()) == got["log_matmul"],
+           "path 19b time-sharded E-step: the composes launched K8 and nothing else")
+    seq_errs["w2"] = held_seq(f"path 19b time-sharded E-step ({PAR_RANKS} ranks)",
+                              np.concatenate([r["seq"]["gamma"] for r in ranks], axis=1),
+                              ranks[0]["seq"]["xi"], ranks[0]["seq"]["logz"])
+    seq2 = max((r["seq"]["timing"] for r in ranks), key=lambda t: t["median"])
+    print(f"  [{card}] time-sharded E-step at {label} (N={sc.n}, Ts={PAR_SEQ_PAD}, S="
+          f"{log_emit.shape[-1]}): world size 1 {_fmt(seq1_t, digits=3)} ms (windows of "
+          f"{seq1_t['iters']} calls), {PAR_RANKS} ranks {_fmt(seq2, digits=3)} ms (windows of "
+          f"{seq2['iters']} calls; wall, synchronized); K4 on the whole E-step {k4_ms:.4f} ms "
+          f"(CUDA events)")
+
+    for name, mod, batch in (("attention", attention, bk.ATT_BATCH),
+                             ("grounding", grounding, bk.GROUND_BATCH)):
+        state = mod.init(mc, dim=bk.MODEL_DIM, generator=torch.Generator().manual_seed(SEED))
+        new, st = minibatch.make_minibatch_step(mod.em_step, mc, batch)(
+            state, torch.Generator().manual_seed(SEED + 1))
+        got = ranks[0][name]
+        print(f"  path 19b {name} step (B={batch}, {batch // PAR_RANKS} rows a rank): loss "
+              f"{got['loss']:.6f} (one process {float(st['loss']):.6f})")
+        _check(abs(got["loss"] - float(st["loss"])) <= 1e-5 * abs(float(st["loss"])) + 1e-6,
+               f"path 19b {name}: the loss is the global batch's (rtol 1e-5)")
+        _adam_resolved_close(f"path 19b {name} step", got["params"], new, new.opt_state, 1)
+        for r in ranks[1:]:
+            _check(all(np.array_equal(a, b) for a, b in zip(r[name]["params"], got["params"])),
+                   f"path 19b {name}: parameters equal on every rank")
+        _check(sum(launches[f"19b_{name}"].values()) == 0,
+               f"path 19b {name}: the step launches no kernel")
+    att = ranks[0]["attention"]["losses"]
+    print(f"  path 19b attention: {PAR_ATT_STEPS} more steps, loss {att[0]:.4f} -> {att[-1]:.4f}; "
+          f"[{card}] {max(r['attention']['ms_per_step'] for r in ranks):.2f} ms per step (wall)")
+    _check(bool(np.all(np.isfinite(att))) and att[-5:].mean() < att[:5].mean(),
+           "path 19b attention: the loss falls over the steps")
+    del mc
+
+    want = hmm_gaussian._reservoir_frames(ShardedCorpusReader(frames_dir, device=dev),
+                                          PAR_RESERVOIR)
+    _check(np.array_equal(ranks[0]["reservoir"], want)
+           and all(r["reservoir_digest"] == ranks[0]["reservoir_digest"] for r in ranks),
+           f"path 19b reservoir_frames_multihost equals _reservoir_frames exactly "
+           f"({want.shape[0]} frames of path 17's shards)")
+    got = launches["19b_stream"]
+    _check(got["hmm_estep_counts"] == STREAM_ITERS * ShardedCorpusReader(s16["dir"]).num_shards,
+           "path 19b streamed: K2 once a shard an iteration over the ranks")
+    add("table_lookup", "path16_stream_shard", got["table_lookup"])
+    add("hmm_estep_counts", "path16_stream_shard", got["hmm_estep_counts"])
+    for i, r in enumerate(ranks):
+        held_em(f"path 19b train_streaming_multihost (rank {i}) against path 16's resident EM",
+                r["stream"]["lls"], s16["resident"]["lls"], r["stream"]["params"],
+                s16["resident"]["params"])
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"path 19 wall time {time.perf_counter() - t_path:.1f} s")
+    return {"launches": launches, "shape_launches": shape_launches, "checks": checks,
+            "k8": k8_seq, "seq_errs": seq_errs,
+            "ms": {"dp_em_w1": dp1, "dp_em_w2": dp2, "seq_w1": seq1_t, "seq_w2": seq2,
+                   "k4_seq_shape": k4_ms}}
+
+
 def main() -> int:
     import torch
 
@@ -3219,6 +3791,7 @@ def main() -> int:
           f"plain {k7_head['plain_ms']:.4f} ms, library bincount {k7_head['library_ms']:.4f} ms, "
           f"bound {k7_head['bound_ms']:.4f} ms ({k7_head['bound_by']})")
     del emit, gamma
+    head19 = {"corpus": corpus, "params": kern["params"], "lls": kern["lls"]}  # path 19a's
     print(elapsed())
 
     # --- path 5: the headline EM at dot_dtype="bfloat16" (K1, K2-bf16, K3) ---
@@ -3391,6 +3964,7 @@ def main() -> int:
           f"through K3 {dec['kernels']:.4f}, plain decoder {dec['plain']:.4f}")
     _profile(lambda: hmm_gaussian.em_step(p_fit, fc, use_kernels=True),
              "one Gaussian EM iteration", card)
+    gauss19 = {"corpus": fc, "p0": p_diag, "lls": g_kern["lls"][:PAR_GAUSS_ITERS]}  # path 19a's
     del g_kern, g_plain, p_fit
     print(elapsed())
 
@@ -3530,6 +4104,13 @@ def main() -> int:
         s18 = stream_gradient_phase(card, kernels_all, dev, tmp)
         torch.cuda.empty_cache()
         print(elapsed())
+        # --- path 19: the parallel layer (world size 1 over NCCL; 2 ranks over
+        # gloo on this card), on path 16's and path 17's shards ---
+        s19 = parallel_phase(here, card, kernels_all, dev, head19, gauss19, s16,
+                             os.path.join(tmp, "stretch32"))
+        del head19, gauss19
+        torch.cuda.empty_cache()
+        print(elapsed())
 
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---
     launches_bench = bench_phase(here, kernels_all)
@@ -3541,7 +4122,8 @@ def main() -> int:
             m1["launches"], *m1["dense_launches"].values(), *att["launches"].values(),
             *ground["launches"].values(), skd["launches"], img["launches"],
             *(r["launches"] for r in crf_mb.values()), *(r["launches"] for r in vd.values()),
-            *s16["launches"].values(), *s17["launches"].values(), *s18["launches"].values())
+            *s16["launches"].values(), *s17["launches"].values(), *s18["launches"].values(),
+            *s19["launches"].values())
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
     launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
     print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
@@ -3573,6 +4155,10 @@ def main() -> int:
         "S8_stream_test": (s18["dnn"]["test"]["shapes"]["resident"],
                            s18["launches"]["dnn_test_resident"]["hmm_estep"], 0),
     }
+    s19l = s19["shape_launches"]
+    for k, n in s19l.get("hmm_estep", {}).items():  # path 19's launches at these shapes
+        r, n0, nb = k4_runs[k]
+        k4_runs[k] = (r, n0 + n, nb)
     k4_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
                  for k, (r, n, _) in k4_runs.items()}
@@ -3600,6 +4186,9 @@ def main() -> int:
         **{f"path16_{k}": (r, 1) for k, r in s16["k3"].items()},
         "S64_stretch_shard": (s17["k3"], s17["launches"]["gauss"]["viterbi"]),
     }
+    for k, n in s19l.get("viterbi", {}).items():
+        r, n0 = k3_runs[k]
+        k3_runs[k] = (r, n0 + n)
     k3_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
                  for k, (r, n) in k3_runs.items()}
@@ -3616,6 +4205,10 @@ def main() -> int:
                                   else STREAM_ITERS, 0) for k, r in s16["checks"].items()},
                "S64_teacher_shard": (s17["k2"], s17["launches"]["teacher"]["hmm_estep_counts"],
                                      0)}
+    k2_runs["path19_rank_shard"] = (s19["checks"]["parity"], 0, 0)
+    for k, n in s19l.get("hmm_estep_counts", {}).items():
+        r, n0, nb = k2_runs[k]
+        k2_runs[k] = (r, n0 + n, nb)
     k2_shapes = {k: {"launches": n, **r["k2"]} for k, (r, n, _) in k2_runs.items()}
     k2bf_shapes = {k: {"launches": nb, **r["k2bf"]} for k, (r, _, nb) in k2_runs.items()}
     print(f"[{card}] K2 per launch shape: {json.dumps(k2_shapes)}")
@@ -3649,6 +4242,10 @@ def main() -> int:
                  **{f"path16_{k}": (r, s16l[k]["table_lookup"] if k in s16l else STREAM_ITERS)
                     for k, r in s16["k1"].items()},
                  "S64_teacher_shard": (s17["k1"], s17["launches"]["teacher"]["table_lookup"])}
+    k1_launch["path19_rank_shard"] = (s19["checks"]["k1"], 0)
+    for k, n in s19l.get("table_lookup", {}).items():
+        r, n0 = k1_launch[k]
+        k1_launch[k] = (r, n0 + n)
     k1_runs = [r for r, _ in k1_launch.values()]
     k1_shapes = {k: {"launches": n, **{f: r[f] for f in ("ms", "device_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")}}
@@ -3664,7 +4261,8 @@ def main() -> int:
                                      f"lie at checked shapes ({at})")
     k8_big = k8_r[K8_SIZES[-1]]
     k8_errs = [r["err"] for r in k8_r.values()] + [
-        e for r in assoc["shapes"].values() for e in (r["err"], r["prefix_err"])]
+        e for r in assoc["shapes"].values() for e in (r["err"], r["prefix_err"])] + [
+        r["err"] for r in s19["k8"].values()]
     kernels = [
         {"name": "table_lookup", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/counts.cu",
@@ -3740,7 +4338,10 @@ def main() -> int:
          "guard_share": k8_big["guard_share"], "shapes": {
              f"path9_first_combine_{k}": {f: r[f] for f in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "guard_share",
-                 "guard_summed_share", "combines")} for k, r in assoc["shapes"].items()}},
+                 "guard_summed_share", "combines")} for k, r in assoc["shapes"].items()},
+             "path19_sequence_compose": {f: s19["k8"]["tree"][f] for f in (
+                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "guard_share", "guard_summed_share")}},
         {"name": "log_matmul_bf16", "route": "cuda",
          "source": "multimodalworddiscovery_tpu_torch/csrc/log_semiring.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/log_semiring.py:90",

@@ -21,9 +21,11 @@ and config #4's waveform pipeline; slice 4, the DNN-HMM and end-to-end CRF
 aligners and the bf16 and remat E-step variants; slice 10, Model-1, the
 attention and grounding aligners, segmental k-means, minibatch training,
 the registry, retrieval and DTW; slice 11, the image branch; slice 12,
-out-of-core and bucketed EM, corpus I/O and the dataset builders):
+out-of-core and bucketed EM, corpus I/O and the dataset builders; slice
+13, parallelism on torch.distributed and the mesh forms of the trainers):
 
-core      NEG_INF log-semiring helpers, masking, gather/scatter counts
+core      NEG_INF log-semiring helpers, masking, gather/scatter counts; the
+          mesh (a 1-D DeviceMesh over the ranks) and the collectives
 data      torch ``Corpus`` (ids or frames), ``GoldAnnotations``,
           ``make_flickr8k_mini`` (and its batched form),
           ``phones_to_frames``, the waveform synthesizers and
@@ -41,9 +43,13 @@ models    hmm_core (state space, fwd/bwd, Viterbi), hmm (discrete EM,
           (IBM Model-1 EM; its pair log-probs through K1), attention
           (transformer aligner, AdamW, the HMM guide through K4), grounding
           (matchmap contrastive baseline), segmental_kmeans (ES-KMeans and
-          its GMM variant), minibatch (on-device minibatch steps), registry
-          (name -> aligner), flax_params (flax trees onto the modules) and
-          bucketed (EM and decode over length buckets)
+          its GMM variant), minibatch (on-device minibatch steps, one rank
+          or many), registry (name -> aligner), flax_params (flax trees
+          onto the modules) and bucketed (EM and decode over length
+          buckets)
+parallel  data-parallel EM and gradient steps over a mesh of ranks, the
+          multi-process trainers and launcher, the time-sharded E-step
+          (K8 for its composes) and the multi-rank dry run
 frontend  speech (MFCC / log-mel, deltas, CMVN), vq (k-means quantizer)
 segment   alignment -> word units, boundaries
 eval      alignment, word IoU, boundary, purity and NMI metrics; retrieval

@@ -23,6 +23,9 @@ equals the full-batch E-step up to float addition order.
   the caching allocator does not hand its block out early.
 - The per-iteration counts are added into one running total on the device;
   the loglik is read once an iteration, never per shard.
+- Over a mesh of ranks (``train_streaming(mesh=)``) every rank reads only
+  its rows of each shard and one all_reduce an iteration pools the counts;
+  ``parallel/multihost.py`` streams whole shards per rank instead.
 
 The on-disk layout is shared with the JAX package (each reads the other's
 directories):
@@ -48,6 +51,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of
+from multimodalworddiscovery_tpu_torch.core.mesh import check_mesh, shard_rows
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 
 # the per-shard array files: <field>_<k>.npy
@@ -58,10 +63,6 @@ FIELDS = ("src", "src_len", "trg", "trg_len")
 # only mantissa bits per byte matter (10 for float16, 7 for bfloat16), and
 # float16 round-trips through np.save / np.load.
 STORAGE_DTYPES = ("float32", "float16")
-
-MESH_WAITS = ("{} with a mesh waits for the port's parallel/ on torch.distributed "
-              "(ROADMAP queue 1, item 5)")
-
 
 def _check_storage_dtype(storage_dtype: str | None) -> None:
     if storage_dtype is not None and storage_dtype not in STORAGE_DTYPES:
@@ -82,14 +83,15 @@ def _host_fields(corpus: Corpus) -> dict[str, np.ndarray]:
 
 
 def read_npy_into(path: Path, alloc: Callable[[tuple, np.dtype], np.ndarray],
-                  headers: dict | None = None) -> np.ndarray:
+                  headers: dict | None = None, rows: tuple[int, int] | None = None) -> np.ndarray:
     """Read a ``.npy`` file straight into ``alloc(shape, dtype)`` (a host
     buffer, pinned for the card) with ``readinto``: no mmap page faults, no
     intermediate copy, the interpreter lock released while it reads.
     ``headers`` caches parsed headers by their bytes: the shards of one
     directory share their shapes, so a reader thread parses each field's
     header once and holds the lock (which the consuming thread needs for
-    every launch) as little as it can."""
+    every launch) as little as it can.  ``rows=(lo, hi)`` reads only those
+    rows of the leading axis."""
     with open(path, "rb", buffering=0) as f:
         head = f.read(10)
         if head[:6] != b"\x93NUMPY":
@@ -111,7 +113,14 @@ def read_npy_into(path: Path, alloc: Callable[[tuple, np.dtype], np.ndarray],
             meta = (shape, dtype)
             if headers is not None:
                 headers[header] = meta
-        out = alloc(*meta)
+        shape, dtype = meta
+        if rows is not None:
+            lo, hi = rows
+            if not 0 <= lo <= hi <= shape[0]:
+                raise ValueError(f"{path}: rows {rows} of {shape[0]}")
+            f.seek(lo * int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize, io.SEEK_CUR)
+            shape = (hi - lo, *shape[1:])
+        out = alloc(shape, dtype)
         view, done = memoryview(out.reshape(-1).view(np.uint8)), 0
         while done < out.nbytes:
             got = f.readinto(view[done:])
@@ -319,14 +328,16 @@ class ShardedCorpusReader:
         """Shard ``k``'s ``field`` as stored, in host memory."""
         return read_npy_into(self._path(field, k), np.empty, self._headers)
 
-    def _stage(self, k: int) -> _Staged:
-        """Read shard ``k`` and enqueue its copy to the device.  Safe on the
-        reader thread: on CUDA the files are read into pinned buffers and
-        copied on the reader's own stream."""
+    def _stage(self, k: int, rows: tuple[int, int] | None = None) -> _Staged:
+        """Read shard ``k`` (its ``rows`` only, if given) and enqueue its
+        copy to the device.  Safe on the reader thread: on CUDA the files
+        are read into pinned buffers and copied on the reader's own
+        stream."""
         if not 0 <= k < self.num_shards:
             raise IndexError(f"shard {k} of {self.num_shards}")
         if self._stream is None:
-            fields = [torch.from_numpy(read_npy_into(self._path(f, k), np.empty, self._headers))
+            fields = [torch.from_numpy(read_npy_into(self._path(f, k), np.empty, self._headers,
+                                                     rows))
                       for f in FIELDS]
             fields = [t.float() if t.dtype == torch.float16 else t for t in fields]
             return _Staged(Corpus(*fields, src_vocab=self.src_vocab,
@@ -343,7 +354,7 @@ class ShardedCorpusReader:
                 return host.numpy()
 
             for f in FIELDS:
-                read_npy_into(self._path(f, k), alloc, self._headers)
+                read_npy_into(self._path(f, k), alloc, self._headers, rows)
             event = torch.cuda.Event()
             with torch.cuda.stream(self._stream):
                 fields = [h.to(self.device, non_blocking=True) for h in pinned]
@@ -367,15 +378,17 @@ class ShardedCorpusReader:
             getattr(staged.corpus, f).record_stream(consumer)
         return staged.corpus
 
-    def load_shard(self, k: int) -> Corpus:
-        """Shard ``k`` on the device, ready on the caller's current stream."""
-        return self._ready(self._stage(k))
+    def load_shard(self, k: int, rows: tuple[int, int] | None = None) -> Corpus:
+        """Shard ``k`` (its ``rows`` [lo, hi) only, if given) on the device,
+        ready on the caller's current stream."""
+        return self._ready(self._stage(k, rows))
 
-    def shards(self, prefetch: int = 1, ids=None):
+    def shards(self, prefetch: int = 1, ids=None, rows: tuple[int, int] | None = None):
         """Yield the shards ``ids`` (default: all, in order), ``prefetch``
-        of them read and copied ahead on a reader thread."""
+        of them read and copied ahead on a reader thread; with ``rows``
+        only those rows of each (a rank's share of every shard)."""
         ids = list(range(self.num_shards)) if ids is None else list(ids)
-        for staged in prefetched(lambda j: self._stage(ids[j]), len(ids), prefetch):
+        for staged in prefetched(lambda j: self._stage(ids[j], rows), len(ids), prefetch):
             yield self._ready(staged)
 
     def materialize(self) -> tuple[Corpus, Any]:
@@ -448,6 +461,40 @@ def takes(fn: Callable, name: str) -> bool:
     return name in inspect.signature(fn).parameters
 
 
+def stream_em(
+    mod: Any,
+    params: Any,
+    corpora: Callable[[], Any],
+    num_iterations: int,
+    count_kwargs: dict | None = None,
+    m_step_kwargs: dict | None = None,
+    group=None,
+    on_iteration: Callable[[int, Any, float], None] | None = None,
+    scale_schedule=None,
+    use_kernels: bool | None = None,
+):
+    """EM whose E-step sums ``mod.expected_counts`` over the corpora that
+    ``corpora()`` yields afresh each iteration, on the device, then over the
+    ranks of ``group`` (one all_reduce of the counts and the loglik; none
+    without a group), and whose M-step runs once: the loop of every
+    streaming trainer.  Returns (params, [loglik per iteration])."""
+    ckw = dict(count_kwargs or {})
+    mkw = dict(m_step_kwargs or {})
+    if use_kernels is not None and takes(mod.expected_counts, "use_kernels"):
+        ckw.setdefault("use_kernels", use_kernels)
+    lls = []
+    for it in range(num_iterations):
+        kw = ckw if scale_schedule is None else {**ckw,
+                                                 "emit_scale": float(scale_schedule[it])}
+        counts, ll = all_sum(tree_sum_bounded(mod.expected_counts(params, c, **kw)
+                                              for c in corpora()), group)
+        params = mod.m_step(params, counts, **mkw)
+        lls.append(float(ll))
+        if on_iteration is not None:
+            on_iteration(it, params, lls[-1])
+    return params, lls
+
+
 def train_streaming(
     mod: Any,
     params: Any,
@@ -466,6 +513,10 @@ def train_streaming(
     through ``mod.expected_counts(params, shard, **count_kwargs)``, sums
     the counts on the device and runs one ``mod.m_step``.
 
+    With ``mesh`` each shard splits over the ranks (shard_size a multiple
+    of the mesh size): every rank reads only its rows of each shard, and
+    one all_reduce an iteration pools the ranks' counts; the parameters
+    must be identical on every rank.
     ``use_kernels`` goes to modules whose ``expected_counts`` takes it (not
     Model-1's); None leaves their default (the kernels on a CUDA shard).
     ``scale_schedule`` (one float per iteration) runs deterministic
@@ -473,20 +524,13 @@ def train_streaming(
     (hmm_gaussian).  ``on_iteration(it, params, loglik)`` runs after each
     M-step.  Returns (params, [loglik per iteration]).
     """
+    rows = None
     if mesh is not None:
-        raise NotImplementedError(MESH_WAITS.format("train_streaming"))
-    ckw = dict(count_kwargs or {})
-    mkw = dict(m_step_kwargs or {})
-    if use_kernels is not None and takes(mod.expected_counts, "use_kernels"):
-        ckw.setdefault("use_kernels", use_kernels)
-    lls = []
-    for it in range(num_iterations):
-        kw = ckw if scale_schedule is None else {**ckw,
-                                                 "emit_scale": float(scale_schedule[it])}
-        counts, ll = stream_expected_counts(
-            lambda p, c: mod.expected_counts(p, c, **kw), params, reader, prefetch)
-        params = mod.m_step(params, counts, **mkw)
-        lls.append(float(ll))
-        if on_iteration is not None:
-            on_iteration(it, params, lls[-1])
-    return params, lls
+        w = check_mesh(mesh).size()
+        if reader.shard_size % w:
+            raise ValueError(f"shard_size {reader.shard_size} must divide by the mesh's "
+                             f"{w} ranks")
+        rows = shard_rows(reader.shard_size, mesh)
+    return stream_em(mod, params, lambda: reader.shards(prefetch, rows=rows), num_iterations,
+                     count_kwargs, m_step_kwargs, group_of(mesh), on_iteration, scale_schedule,
+                     use_kernels)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of
 from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import flax_params, hmm_dnn
@@ -271,12 +272,15 @@ def _subsampled_mask(src_mask: torch.Tensor, ts_sub: int) -> torch.Tensor:
 
 
 def _loss_fn(model, src, src_mask, trg_in, trg_mask, trg, entropy_weight=0.0,
-             guide=None, guide_weight: float = 1.0):
+             guide=None, guide_weight: float = 1.0, norms=None):
+    """The batch's mean loss; with ``norms`` = (target tokens, source
+    positions) of a larger batch, this batch's share of that batch's loss
+    (a data-parallel rank's part of the global batch)."""
     logits, attn = model(src, src_mask, trg_in, trg_mask)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 2, trg.long()[..., None])[..., 0]
     nll = torch.where(trg_mask, nll, 0.0)
-    ntok = torch.clamp(trg_mask.sum(), min=1)
+    ntok = torch.clamp(trg_mask.sum() if norms is None else norms[0], min=1)
     loss = nll.sum() / ntok
     if guide is not None:
         # guided attention: cross-entropy between the decoder's attention
@@ -294,7 +298,8 @@ def _loss_fn(model, src, src_mask, trg_in, trg_mask, trg, entropy_weight=0.0,
         col = attn / torch.clamp(attn.sum(dim=1, keepdim=True), min=1e-9)
         ent = -torch.sum(col * torch.log(col + 1e-9), dim=1)
         ent = torch.where(src_mask, ent, 0.0)
-        loss = loss + entropy_weight * ent.sum() / torch.clamp(src_mask.sum(), min=1)
+        nsrc = src_mask.sum() if norms is None else norms[1]
+        loss = loss + entropy_weight * ent.sum() / torch.clamp(nsrc, min=1)
     return loss
 
 
@@ -313,6 +318,7 @@ def em_step(
     corpus: Corpus,
     guide: torch.Tensor | None = None,
     guide_weight: float = 1.0,
+    mesh=None,
 ) -> tuple[AttentionParams, dict]:
     """One AdamW step on the corpus or a gathered minibatch
     (models/minibatch.py) -> (new state, {"loglik", "loss"} on the device).
@@ -321,21 +327,34 @@ def em_step(
     guide: optional [N, Tt, Ts] frame-resolution teacher attention (see
     ``hmm_guide_matrix``), pooled onto the subsampled positions when the
     encoder subsamples.
+
+    With ``mesh`` the corpus is this rank's part of a global batch and the
+    state is identical on every rank: the loss's normalisers are the global
+    batch's token and position counts (one all_reduce), the gradients
+    (in ``hmm_dnn.adam_update``) and the loss are summed over the ranks,
+    so every rank takes the step the global batch gives and reports its
+    statistics.
     """
     if guide is not None and state.subsample != 1:
         guide = pool_guide(guide, state.subsample)
+    group = group_of(mesh)
     model = copy.deepcopy(state.model)
     src, src_mask, trg_in, trg_mask = _inputs(corpus)
+    ntok = trg_mask.sum()
+    norms = None
+    if group is not None:
+        norms = all_sum(torch.stack([ntok, src_mask.sum()]), group)
+        ntok = norms[0]
     loss = _loss_fn(model, src, src_mask, trg_in, trg_mask, corpus.trg,
-                    state.entropy_weight, guide, guide_weight)
+                    state.entropy_weight, guide, guide_weight, norms)
     weights = list(model.parameters())
     grads = torch.autograd.grad(loss, weights)
     updates, opt = hmm_dnn.adam_update(grads, state.opt_state, state.learning_rate,
-                                       WEIGHT_DECAY, weights)
+                                       WEIGHT_DECAY, weights, group)
     hmm_dnn.apply_updates(model, updates)
-    loss = loss.detach()
+    loss = all_sum(loss.detach(), group)
     new = dataclasses.replace(state, model=model, opt_state=opt, step=state.step + 1)
-    return new, {"loglik": -loss * trg_mask.sum(), "loss": loss}
+    return new, {"loglik": -loss * ntok, "loss": loss}
 
 
 def loglik(state: AttentionParams, corpus: Corpus) -> torch.Tensor:

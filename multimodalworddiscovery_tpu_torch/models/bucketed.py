@@ -24,9 +24,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of
 from multimodalworddiscovery_tpu_torch.data.bucketing import bucket_corpus
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
-from multimodalworddiscovery_tpu_torch.data.stream import MESH_WAITS, takes, tree_map
+from multimodalworddiscovery_tpu_torch.data.stream import takes, tree_map
 
 
 def _kernel_kwargs(fn: Callable, use_kernels: bool | None) -> dict:
@@ -52,11 +53,17 @@ def train_bucketed(
     module takes it; None: the kernels on a CUDA corpus), adds the counts
     into one total on the device and runs one M-step; the loglik is read
     once an iteration.  ``on_iteration(it, params, loglik)`` runs after
-    every M-step.
+    every M-step.  With ``mesh`` every rank holds the whole corpus and the
+    same parameters, each bucket is padded and split over the ranks
+    (``parallel.shard_corpus``), and one all_reduce an iteration pools the
+    ranks' counts (the neural M-step all-reduces its gradients).
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_WAITS.format("train_bucketed"))
     buckets = bucket_corpus(corpus, bucket_edges)
+    if mesh is not None:
+        from multimodalworddiscovery_tpu_torch.parallel.data_parallel import shard_corpus
+
+        buckets = [(shard_corpus(b, mesh), idx) for b, idx in buckets]
+    group = group_of(mesh)
     neural = getattr(mod, "neural_m_step", None)
     if neural is None:
         ekw = _kernel_kwargs(mod.expected_counts, use_kernels)
@@ -77,9 +84,10 @@ def train_bucketed(
                 counts, ll = mod.expected_counts(params, bucket, **ekw)
             total = counts if total is None else tree_map(torch.add, total, counts)
             total_ll = ll if total_ll is None else total_ll + ll
+        total, total_ll = all_sum((total, total_ll), group)
         params = mod.m_step(params, total, smoothing)
         if neural is not None:
-            params, _ = neural(params, batches)
+            params, _ = neural(params, batches, mesh=mesh)
         logliks.append(float(total_ll))
         if on_iteration is not None:
             on_iteration(it, params, logliks[-1])

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalworddiscovery_tpu_torch.core.collectives import gather_rows, group_of
+from multimodalworddiscovery_tpu_torch.core.masking import lengths_to_mask
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import flax_params, hmm_dnn
 
@@ -188,9 +190,15 @@ def _pair_score(s, r, src_mask, trg_mask):
     return best.sum(dim=-1) / denom
 
 
-def _loss_fn(model, corpus: Corpus, margin: float):
+def _loss_fn(model, corpus: Corpus, margin: float, group=None):
+    """The batch's max-margin loss.  With ``group`` the batch is the ranks'
+    rows together: every rank's embeddings and lengths are gathered
+    (differentiably), so the impostors are the whole global batch and every
+    rank computes that batch's loss, its gradient flowing to its own rows."""
     s, r = model(corpus.src, corpus.trg)
-    scores = _pair_score(s, r, corpus.src_mask(), corpus.trg_mask())
+    s, r, src_len, trg_len = gather_rows((s, r, corpus.src_len, corpus.trg_len), group)
+    scores = _pair_score(s, r, lengths_to_mask(src_len, s.shape[1]),
+                         lengths_to_mask(trg_len, r.shape[1]))
     pos = torch.diagonal(scores)
     n = scores.shape[0]
     off = ~torch.eye(n, dtype=torch.bool, device=scores.device)
@@ -201,13 +209,20 @@ def _loss_fn(model, corpus: Corpus, margin: float):
     return total / (2 * n * max(n - 1, 1))
 
 
-def em_step(state: GroundingParams, corpus: Corpus) -> tuple[GroundingParams, dict]:
+def em_step(state: GroundingParams, corpus: Corpus,
+            mesh=None) -> tuple[GroundingParams, dict]:
     """One Adam step on the corpus or a gathered minibatch -> (new state,
-    {"loglik", "loss"} on the device); the input state is left untouched."""
+    {"loglik", "loss"} on the device); the input state is left untouched.
+    With ``mesh`` the corpus is this rank's part of a global batch: the
+    loss is the global batch's (``_loss_fn``) and the gradients are summed
+    over the ranks (in ``hmm_dnn.adam_update``), so every rank takes the
+    same step."""
+    group = group_of(mesh)
     model = copy.deepcopy(state.model)
-    loss = _loss_fn(model, corpus, state.margin)
+    loss = _loss_fn(model, corpus, state.margin, group)
     grads = torch.autograd.grad(loss, list(model.parameters()))
-    updates, opt = hmm_dnn.adam_update(grads, state.opt_state, state.learning_rate)
+    updates, opt = hmm_dnn.adam_update(grads, state.opt_state, state.learning_rate,
+                                       group=group)
     hmm_dnn.apply_updates(model, updates)
     loss = loss.detach()
     new = dataclasses.replace(state, model=model, opt_state=opt, step=state.step + 1)

@@ -31,6 +31,7 @@ import dataclasses
 
 import torch
 
+from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of, sum_ranks
 from multimodalworddiscovery_tpu_torch.core.counts import select_columns
 from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
@@ -156,13 +157,16 @@ def logmarginal_e2e(
                                  use_kernels, dot_dtype)
 
 
-def _log_emit_from_mlp(mlp: hmm_dnn.EmissionMLP, corpus: Corpus) -> torch.Tensor:
+def _log_emit_from_mlp(mlp: hmm_dnn.EmissionMLP, corpus: Corpus, group=None) -> torch.Tensor:
     """Emission potentials with the self-consistent prior: the log-prior is
     the MLP's own masked mean posterior over the batch, differentiated
-    through (no stop-gradient)."""
+    through (no stop-gradient).  With ``group`` the batch is the ranks'
+    rows together: the mean's sums run over every rank (``sum_ranks``)."""
     logpost = torch.log_softmax(mlp(corpus.src), dim=-1)
     w = corpus.src_mask().to(logpost.dtype)[..., None]
-    prior = (torch.exp(logpost) * w).sum(dim=(0, 1)) / torch.clamp(w.sum(), min=1.0)
+    sums = sum_ranks(torch.cat([(torch.exp(logpost) * w).sum(dim=(0, 1)), w.sum()[None]]),
+                     group)
+    prior = sums[:-1] / torch.clamp(sums[-1], min=1.0)
     logb = logpost - torch.log(prior + 1e-8)[None, None, :]
     return select_columns(logb, hmm_core.state_concepts(corpus))
 
@@ -182,6 +186,7 @@ def em_step(
     use_kernels: bool | None = None,
     dot_dtype: str = "float32",
     learn_transitions: bool = False,
+    mesh=None,
 ) -> tuple[DnnHMMParams, dict[str, torch.Tensor]]:
     """One hybrid iteration: ``n_sgd`` Adam steps on -logZ / frames through
     the aligner (``logmarginal``), then the closed-form prior and
@@ -190,8 +195,15 @@ def em_step(
     ``learn_transitions=True`` trains ``log_jump`` / ``log_p0`` by Adam
     through ``logmarginal_e2e`` instead of the closed-form transition
     update; the parameters must come from ``init_e2e``.  The E-steps run
-    through K4 with ``use_kernels=True`` (None: on a CUDA corpus)."""
-    n_frames = torch.clamp(corpus.src_mask().sum(), min=1).to(torch.float32)
+    through K4 with ``use_kernels=True`` (None: on a CUDA corpus).
+
+    With ``mesh`` the corpus is this rank's part of a global batch: the
+    frame count is the global one (one all_reduce), each Adam step's
+    gradients are summed over the ranks (in ``hmm_dnn.adam_update``), and
+    so are the counts, the loglik and the last step's loss (one
+    all_reduce)."""
+    group = group_of(mesh)
+    n_frames = torch.clamp(all_sum(corpus.src_mask().sum(), group), min=1).to(torch.float32)
     mlp = copy.deepcopy(params.mlp)
     weights = list(mlp.parameters())
     if learn_transitions:
@@ -205,29 +217,30 @@ def em_step(
         lj, lp0 = params.log_jump, params.log_p0
     opt = dict(params.opt_state)
     for _ in range(params.n_sgd):
-        log_emit = _log_emit_from_mlp(mlp, corpus)
+        log_emit = _log_emit_from_mlp(mlp, corpus, group)
         loss = -marginal(params.max_jump, use_kernels, dot_dtype, lj, lp0, log_emit,
                          corpus) / n_frames
         grads = torch.autograd.grad(loss, weights + trans)
         updates, opt["mlp"] = hmm_dnn.adam_update(grads[:len(weights)], opt["mlp"],
-                                                  params.learning_rate)
+                                                  params.learning_rate, group=group)
         hmm_dnn.apply_updates(mlp, updates)
         if learn_transitions:
             updates, opt["trans"] = hmm_dnn.adam_update(grads[len(weights):], opt["trans"],
-                                                        TRANSITION_LR)
+                                                        TRANSITION_LR, group=group)
             with torch.no_grad():
                 lj.add_(updates[0])
                 lp0.add_(updates[1])
     params = dataclasses.replace(params, mlp=mlp, opt_state=opt, log_jump=lj.detach(),
                                  log_p0=lp0.detach())
-    counts, ll = hmm_dnn.expected_counts(params, corpus, use_kernels, dot_dtype)
+    (counts, ll), loss = all_sum((hmm_dnn.expected_counts(params, corpus, use_kernels,
+                                                           dot_dtype), loss.detach()), group)
     if learn_transitions:
         # closed-form update of the decode-time prior only
         prior = counts["prior"] + smoothing
         params = dataclasses.replace(params, log_prior=torch.log(prior) - torch.log(prior.sum()))
     else:
         params = hmm_dnn.m_step(params, counts, smoothing)
-    return params, {"loglik": ll, "nll_per_frame": loss.detach()}
+    return params, {"loglik": ll, "nll_per_frame": loss}
 
 
 def train(

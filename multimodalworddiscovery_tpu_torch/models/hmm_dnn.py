@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of
 from multimodalworddiscovery_tpu_torch.core.counts import select_columns
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm_core
@@ -98,12 +99,19 @@ def adam_init(tensors) -> AdamState:
 
 
 def adam_update(
-    grads, state: AdamState, lr: float, weight_decay: float = 0.0, params=None,
+    grads, state: AdamState, lr: float, weight_decay: float = 0.0, params=None, group=None,
 ) -> tuple[list[torch.Tensor], AdamState]:
     """optax.adam(lr)'s update: (updates to add to the parameters, state).
     With ``weight_decay`` it is optax.adamw(lr, weight_decay=...)'s: the
     decay times ``params`` (every parameter, biases and norm scales too)
-    is added to the Adam direction before the learning rate scales it."""
+    is added to the Adam direction before the learning rate scales it.
+
+    ``group`` (a data-parallel step's process group) sums ``grads`` over
+    its ranks first (one all_reduce), so every rank takes the step of the
+    global batch; the caller scales each rank's gradient by the global
+    normaliser.  This is the one place a gradient step all-reduces its
+    gradients."""
+    grads = all_sum(list(grads), group)
     count = state.count + 1
     mu = tuple((1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, state.mu))
     nu = tuple((1 - ADAM_B2) * g * g + ADAM_B2 * v for g, v in zip(grads, state.nu))
@@ -333,16 +341,19 @@ def apply_updates(mlp: EmissionMLP, updates) -> None:
 
 
 def neural_m_step(
-    params: DnnHMMParams, batches: list[tuple[Corpus, torch.Tensor]]
+    params: DnnHMMParams, batches: list[tuple[Corpus, torch.Tensor]], mesh=None
 ) -> tuple[DnnHMMParams, torch.Tensor]:
     """``n_sgd`` Adam steps of CE(r, MLP(x)) pooled over ``batches`` of
     (corpus, r): gradients of the unnormalized CE are summed over the
     batches and scaled by the total frame weight, so with one batch this is
-    the single-corpus neural M-step."""
+    the single-corpus neural M-step.  With ``mesh`` the batches are this
+    rank's: the frame weight, each step's gradients (in ``adam_update``)
+    and the last step's CE are summed over the ranks too."""
+    group = group_of(mesh)
     ws = [_frame_weights(c) for c, _ in batches]
-    total_w = torch.clamp(sum(w.sum() for w in ws), min=1.0)
+    total_w = torch.clamp(all_sum(sum(w.sum() for w in ws), group), min=1.0)
     mlp, state = copy.deepcopy(params.mlp), params.opt_state["mlp"]
-    ce = torch.zeros((), device=total_w.device)
+    num = torch.zeros((), device=total_w.device)
     for _ in range(params.n_sgd):
         num, grads = 0.0, None
         for (c, r), w in zip(batches, ws):
@@ -351,11 +362,10 @@ def neural_m_step(
             num = num + n_b.detach()
             grads = g_b if grads is None else [a + b for a, b in zip(grads, g_b)]
         updates, state = adam_update([g / total_w for g in grads], state,
-                                     params.learning_rate)
+                                     params.learning_rate, group=group)
         apply_updates(mlp, updates)
-        ce = num / total_w
     opt = dict(params.opt_state, mlp=state)
-    return dataclasses.replace(params, mlp=mlp, opt_state=opt), ce
+    return dataclasses.replace(params, mlp=mlp, opt_state=opt), all_sum(num, group) / total_w
 
 
 def em_step(
@@ -364,15 +374,20 @@ def em_step(
     smoothing: float = 1e-6,
     use_kernels: bool | None = None,
     dot_dtype: str = "float32",
+    mesh=None,
 ) -> tuple[DnnHMMParams, dict[str, torch.Tensor]]:
     """One generalized-EM iteration: E-step, the closed-form M-step, then
-    ``n_sgd`` Adam steps of the CE on the full corpus."""
+    ``n_sgd`` Adam steps of the CE on the full corpus.  With ``mesh`` the
+    corpus is this rank's rows: the counts and loglik are summed over the
+    ranks (one all_reduce) and the neural M-step all-reduces its
+    gradients."""
     r, width_counts, logz = frame_posteriors(params, corpus, use_kernels, dot_dtype)
     w = _frame_weights(corpus)
-    params = m_step(params, {"prior": (r * w).sum(dim=(0, 1)), "width": width_counts},
-                    smoothing)
-    params, ce = neural_m_step(params, [(corpus, r)])
-    return params, {"loglik": logz.sum(), "ce": ce}
+    counts, ll = all_sum(({"prior": (r * w).sum(dim=(0, 1)), "width": width_counts},
+                          logz.sum()), group_of(mesh))
+    params = m_step(params, counts, smoothing)
+    params, ce = neural_m_step(params, [(corpus, r)], mesh)
+    return params, {"loglik": ll, "ce": ce}
 
 
 def align(

@@ -734,20 +734,27 @@ def quantize_shards_streaming(
     generator: torch.Generator | None = None,
     n_sample: int = 65536,
     codebook: torch.Tensor | None = None,
+    shard_ids=None,
+    write_manifest: bool = True,
 ) -> torch.Tensor:
     """Out-of-core ``quantize_frames``: fit the codebook on a cross-shard
     frame reservoir (``fit_codebook_reservoir``; or take ``codebook`` as
     fitted), assign every shard's frames on the reader's device and write a
     parallel DISCRETE shard directory (``src`` = int32 code ids,
     ``src_vocab`` = n_codes; lengths, targets and gold copied).  Returns the
-    [n_codes, D] codebook."""
+    [n_codes, D] codebook.
+
+    ``shard_ids`` / ``write_manifest`` are the multi-rank hooks: each rank
+    writes only its own shards into a shared ``out_dir`` and only one
+    writes the manifest and gold
+    (``parallel.multihost.init_vq_teacher_streaming_multihost``)."""
     if codebook is None:
         codebook = fit_codebook_reservoir(reader, n_codes, num_iterations, generator, n_sample)
     cb = codebook.to(reader.device)
     n_codes = int(cb.shape[0])
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    for k in range(reader.num_shards):
+    for k in range(reader.num_shards) if shard_ids is None else shard_ids:
         src = reader.read_host(k, "src")
         # float16 storage crosses compact and is upcast on the device
         x = torch.from_numpy(src).to(reader.device).float()
@@ -755,12 +762,13 @@ def quantize_shards_streaming(
         np.save(out / f"src_{k}.npy", codes.to(torch.int32).cpu().numpy())
         for field in ("src_len", "trg", "trg_len"):
             shutil.copyfile(reader.directory / f"{field}_{k}.npy", out / f"{field}_{k}.npy")
-    manifest = json.loads((reader.directory / "manifest.json").read_text())
-    manifest["src_vocab"] = n_codes
-    manifest["name"] = manifest.get("name", "corpus") + "-vqcodes"
-    (out / "manifest.json").write_text(json.dumps(manifest))
-    if (reader.directory / "gold.json").exists():
-        shutil.copyfile(reader.directory / "gold.json", out / "gold.json")
+    if write_manifest:
+        manifest = json.loads((reader.directory / "manifest.json").read_text())
+        manifest["src_vocab"] = n_codes
+        manifest["name"] = manifest.get("name", "corpus") + "-vqcodes"
+        (out / "manifest.json").write_text(json.dumps(manifest))
+        if (reader.directory / "gold.json").exists():
+            shutil.copyfile(reader.directory / "gold.json", out / "gold.json")
     return codebook
 
 

@@ -2,8 +2,9 @@
 
 ``gather_batch`` selects the same rows as the reference's; a minibatch step
 equals ``em_step`` on the batch its generator draws; the samplers keep
-their protocols; the mesh forms raise until their queue item lands (the
-streamed trainer is tested in tests/test_torch_stream.py); the registry
+their protocols; the mesh forms reject a non-mesh (they run on gloo ranks
+in tests/test_torch_parallel.py; the streamed trainer is tested in
+tests/test_torch_stream.py); the registry
 returns the eight aligners under the reference's names.
 """
 
@@ -84,14 +85,17 @@ def test_samplers_keep_their_protocols(corpora):
 
 
 def test_mesh_and_streaming_forms_raise(corpora):
+    """The mesh forms take a 1-D DeviceMesh (tests/test_torch_parallel.py
+    runs them on gloo ranks): any other object is a TypeError, and local
+    sampling needs a mesh, as in the reference."""
     _, tc = corpora
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmb.make_minibatch_step(attention.em_step, tc, 4, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         tmb.make_minibatch_step(attention.em_step, tc, 4, sample="local")
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmb.sample_local_batch(tc, torch.Generator(), 4, object())
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmb.train_minibatch(attention.em_step, None, tc, 4, 1, mesh=object())
 
 
