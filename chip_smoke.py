@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodalworddiscovery_tpu_torch/csrc``
 into ``build/``, checks each kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives nineteen paths through the kernels
+shapes the main paths give it, then drives twenty paths through the kernels
 (paths 1-4, 6, 8, 10 and 12 also through the plain path) on the same card:
 
 1. the headline discrete-HMM EM workload (synthetic Flickr8k-scale corpus,
@@ -153,6 +153,35 @@ shapes the main paths give it, then drives nineteen paths through the kernels
     counts; ms per data-parallel EM iteration at world size 1 and 2 and the
     all-reduce's share of it, and the time-sharded E-step against K4, are
     printed.
+20. the port's CLI, ``mwd-torch``, as a user runs it: each command through
+    ``cli.main`` in this process, at full width.  20a:
+    ``configs/hmm_mini.py`` with bench.py's corpus as overrides (N=8000,
+    S=12, seed 0), 10 iterations (K1 + K2), each iteration's loglik in
+    ``train_metrics.jsonl`` within rtol 1e-5 of path 1's, the CLI's ms per
+    iteration printed beside path 1's; ``align``, ``segment``, ``evaluate``
+    (alignment F1 within 0.002 of path 1's), ``retrieve --pool 100``,
+    ``export`` (the JAX export's keys) and ``lexicon`` (K3); K3 against the
+    plain decoder on the trained parameters, differing utterances and ties
+    counted (the measurement behind the CLI's decode rule); a run cut at 5
+    iterations and resumed to 10 giving the uninterrupted logliks; and
+    ``python -m ...cli train`` with ``train.profile=true`` in a fresh
+    process, whose Chrome trace must name K1's and K2's kernels.  20b:
+    ``configs/stretch_hubert_clip.py`` as written (N=4000, Ts=401, S=64,
+    the VQ teacher through K1 + K2, its seeding and 4-chunk annealed EM
+    through K1 + K4, ``data_parallel`` on a world of one NCCL rank that the
+    CLI starts), then ``evaluate`` with DTW and pooled retrieval (K3): it
+    draws path 3's seeding numbers, so its first loglik is held to path 3's
+    kernel run (rtol 1e-4) and its F1 to path 3's (within 0.005; >= 0.30);
+    the chunks sum the counts in another order, which the annealing
+    amplifies, so the final loglik is printed beside path 3's.  20c: ``shard`` of 20a's corpus in
+    shards of 2000, streamed ``train``, ``align`` and ``evaluate`` (K1, K2,
+    K3 a shard): logliks within rtol 1e-5 and F1 within 1e-6 of 20a's, the
+    streamed decode equal to the resident decode of the same checkpoint;
+    K1, K2 and K3 checked at the shard's shape.  20d:
+    ``scripts/run_pipeline_fullscale`` at 16,384 utterances in shards of
+    4096, 5 iterations (K5 a sub-batch of 2048, K4 and K3 a shard), its
+    stage 6 (streamed equals resident) passing, stage times and host RSS
+    printed; K5 checked at its sub-batch, K4 and K3 at its shard.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
 gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
@@ -224,6 +253,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3664,6 +3694,368 @@ def parallel_phase(here: str, card: str, counters, dev, head: dict, gauss: dict,
                    "k4_seq_shape": k4_ms}}
 
 
+# ---------------------------------------------------------------------------
+# path 20: the port's CLI on the card, as a user runs it
+# ---------------------------------------------------------------------------
+
+# bench.py's corpus as overrides of the port's configs/hmm_mini.py (seed 0,
+# S=12); 20a trains it CLI_ITERS iterations, resumes a run cut at
+# CLI_RESUME_AT, and scores retrieval over pools of CLI_POOL
+CLI_HEADLINE = ["data.n_utterances=8000", "data.n_concepts=60", "data.n_phones=48",
+                "data.min_concepts=3", "data.max_concepts=6", "seed=0"]
+CLI_ITERS = 10
+CLI_RESUME_AT = 5
+CLI_POOL = 100
+CLI_SHARD = 2000  # 20c's shards of the headline corpus
+CLI_STRETCH_CHUNKS = 4  # configs/stretch_hubert_clip.py's train.corpus_chunks
+FULLSCALE = ["--utterances", "16384", "--shard-size", "4096", "--iters", "5"]
+FULLSCALE_SHARDS, FULLSCALE_SUB, FULLSCALE_ITERS = 4, 2048, 5
+
+
+def _cli(argv: list[str]) -> None:
+    """One ``mwd-torch`` command line, in this process (its launches count)."""
+    from multimodalworddiscovery_tpu_torch import cli
+
+    print(f"  $ mwd-torch {' '.join(argv)}", flush=True)
+    cli.main(argv)
+
+
+def _train_records(workdir: str) -> list[dict]:
+    with open(os.path.join(workdir, "train_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _restored(workdir: str, template):
+    from multimodalworddiscovery_tpu_torch.utils.checkpoint import CheckpointManager
+
+    return CheckpointManager(os.path.join(workdir, "ckpt")).restore(template)[0]
+
+
+def elapsed_since(t0: float) -> str:
+    return f"[path 20: {time.perf_counter() - t0:.1f} s]"
+
+
+def _decode_ties(params, corpus) -> dict:
+    """K3 against the plain ``viterbi_factored`` on the same trained
+    parameters: the utterances whose paths differ, and how many of them are
+    ties (equal path scores, rtol 1e-6); the measurement behind the CLI's
+    decode rule.  These are check launches, outside any path's count."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.models import hmm
+    from multimodalworddiscovery_tpu_torch.ops import viterbi as k3
+
+    _, fact = _estep_inputs(params, corpus)
+    inputs = (*fact, hmm._log_emissions(params, corpus), corpus.src_len)
+    path, path_p = k3.viterbi(*inputs), k3.viterbi_plain(*inputs)
+    valid = torch.arange(corpus.max_src_len, device=path.device)[None, :] < corpus.src_len[:, None]
+    differ = ((path != path_p) & valid).any(dim=1)
+    score, score_p = k3.path_score(path, *inputs), k3.path_score(path_p, *inputs)
+    tie = torch.isclose(score, score_p, rtol=1e-6, atol=0.0)
+    return {"utterances": corpus.n, "differ": int(differ.sum()),
+            "differ_tied": int((differ & tie).sum()),
+            "frames_differ": int(((path != path_p) & valid).sum()),
+            "max_score_gap": float((score - score_p).abs().max())}
+
+
+def cli_phase(here: str, card: str, counters, dev, head: dict, recipe: dict) -> dict:
+    """Path 20: ``mwd-torch`` driven as a user drives it, each command
+    through ``cli.main`` in this process (the profiled run through
+    ``python -m`` in a fresh one), in a temporary directory removed at the
+    end.  20a: configs/hmm_mini.py with bench.py's corpus, 10 iterations
+    (K1 + K2), then align, segment, evaluate, retrieve --pool 100, export
+    and lexicon (K3), a run cut at 5 iterations and resumed, and
+    ``train.profile=true``; 20b: configs/stretch_hubert_clip.py as written
+    (VQ teacher through K1 + K2, seeding and chunked annealed EM through K1
+    + K4, a world of one NCCL rank), then evaluate with DTW and pooled
+    retrieval (K3); 20c: shard, streamed train, align and evaluate (K1, K2,
+    K3 on shards of 2000); 20d: scripts/run_pipeline_fullscale at 16,384
+    utterances in shards of 4096, 5 iterations (K5, K4, K3)."""
+    import numpy as np
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.data.stream import ShardedCorpusReader
+    from multimodalworddiscovery_tpu_torch.data.synthetic import (
+        make_flickr8k_mini_batches,
+        phone_templates,
+    )
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core, hmm_gaussian
+    from multimodalworddiscovery_tpu_torch.ops import mfcc as k5
+    from multimodalworddiscovery_tpu_torch.scripts import run_pipeline as rp
+    from multimodalworddiscovery_tpu_torch.scripts import run_pipeline_fullscale as fs
+
+    t_path = time.perf_counter()
+    cfgs = os.path.join(here, "multimodalworddiscovery_tpu_torch", "configs")
+    hmm_cfg = os.path.join(cfgs, "hmm_mini.py")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    wa, wr, wp, wb, wc, dc, wf = (os.path.join(tmp, n) for n in (
+        "20a", "20a_resume", "20a_profile", "20b", "20c", "20c_shards", "20d"))
+    launches: dict[str, dict] = {}
+    times: dict[str, float] = {}
+
+    def run(key: str, argvs: list[list[str]]) -> dict:
+        _reset(counters)
+        t0 = time.perf_counter()
+        for argv in argvs:
+            _cli(argv)
+        torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t0
+        launches[key] = _counts(counters)
+        print(f"  [{key}: {times[key]:.2f} s] launches {launches[key]}", flush=True)
+        return launches[key]
+
+    def train(workdir, *override, config=hmm_cfg):
+        return ["train", "--config", config, "--workdir", workdir, "--override", *override]
+
+    # ---- 20a: the headline through the CLI ----
+    head_ov = [*CLI_HEADLINE, f"train.num_iterations={CLI_ITERS}"]
+    la = run("20a_train", [train(wa, *head_ov)])
+    recs = _train_records(wa)
+    lls = np.array([r["loglik"] for r in recs])
+    cli_ms = [1e3 * r["seconds"] for r in recs]
+    print(f"path 20a train: loglik per iteration {lls.tolist()}")
+    _check(la["table_lookup"] == CLI_ITERS and la["hmm_estep_counts"] == CLI_ITERS
+           and la["hmm_estep"] == 0 and la["viterbi"] == 0 and la["pair_counts"] == 0,
+           "path 20a train: K1 and K2 once an EM iteration, no K3, K4 or K7")
+    rel = _rel(lls, head["lls"])
+    _check(len(lls) == CLI_ITERS and rel <= 1e-5,
+           f"path 20a: each iteration's loglik within rtol 1e-5 of path 1's hmm.train "
+           f"(max rel {rel:.3e})")
+    ms_cli = float(np.median(cli_ms[1:]))
+    print(f"  [{card}] path 20a CLI ms per EM iteration (host clock, each iteration ended by a "
+          f"synchronize and the loglik's read; median of iterations 1-{CLI_ITERS - 1}, "
+          f"iteration 0 {cli_ms[0]:.2f}): {ms_cli:.4f}; path 1's hmm.train (CUDA events, no "
+          f"read per iteration): {head['ms']:.4f}; CLI overhead {ms_cli - head['ms']:+.4f} ms")
+    ov_pool = ["--override", f"eval.retrieval_pool={CLI_POOL}"]
+    ld = run("20a_decode", [
+        ["align", "--workdir", wa], ["segment", "--workdir", wa],
+        ["evaluate", "--workdir", wa, *ov_pool],
+        ["retrieve", "--workdir", wa, "--pool", str(CLI_POOL)],
+        ["export", "--workdir", wa], ["lexicon", "--workdir", wa]])
+    _check(ld["viterbi"] == 4 and ld["table_lookup"] == 0 and ld["hmm_estep_counts"] == 0
+           and ld["hmm_estep"] == 0,
+           "path 20a: K3 once for align, segment, evaluate and lexicon; no E-step kernel")
+    with open(os.path.join(wa, "metrics.json")) as f:
+        metrics_a = json.load(f)
+    f1_a = metrics_a["alignment"]["f1"]
+    _check(abs(f1_a - head["f1"]) <= 0.002,
+           f"path 20a evaluate: alignment F1 within 0.002 of path 1's ({f1_a:.5f} vs "
+           f"{head['f1']:.5f})")
+    ret = metrics_a["retrieval"]
+    with open(os.path.join(wa, "retrieval.json")) as f:
+        ret_cmd = json.load(f)["recall"]
+    print(f"  path 20a metrics: alignment {metrics_a['alignment']}, boundary "
+          f"{metrics_a['boundary']}, purity {metrics_a['purity']:.4f}, nmi "
+          f"{metrics_a['nmi']:.4f}; pooled retrieval (C={CLI_POOL}) {ret}")
+    _check(ret["pool_size"] == CLI_POOL and ret_cmd["pool_size"] == CLI_POOL
+           and all(0.0 <= ret[k] <= 1.0 for k in ret if k.startswith("recall@"))
+           and abs(ret_cmd["recall@1_c2i"] - round(ret["recall@1_c2i"], 4)) <= 1e-4,
+           "path 20a: evaluate's and retrieve's pooled recall agree and lie in [0, 1]")
+    corpus, gold, _ = make_flickr8k_mini(**HEADLINE, device=dev)
+    params_a = _restored(wa, hmm.init(corpus))
+    with np.load(os.path.join(wa, "model.npz")) as z:
+        _check(z.files == ["log_emit", "log_jump", "log_p0"]
+               and np.array_equal(z["log_emit"], params_a.log_emit.cpu().numpy()),
+               "path 20a export: the JAX export's keys, the checkpoint's values")
+    with open(os.path.join(wa, "lexicon.json")) as f:
+        lex = json.load(f)
+    _check(len(lex) > 30 and all(v and v[0]["count"] >= 1 for v in lex.values()),
+           f"path 20a lexicon: {len(lex)} concepts with phone strings")
+    ties = _decode_ties(params_a, corpus)
+    print(f"  [{card}] decode rule: K3 against the plain viterbi_factored on the CLI's trained "
+          f"headline parameters: {ties}")
+    del corpus
+
+    lr = run("20a_resume", [train(wr, *CLI_HEADLINE, f"train.num_iterations={CLI_RESUME_AT}"),
+                            train(wr, *head_ov)])
+    lls_r = [r["loglik"] for r in _train_records(wr)]
+    rel_r = _rel(lls_r, lls)
+    _check(len(lls_r) == CLI_ITERS and lr["hmm_estep_counts"] == CLI_ITERS and rel_r <= 1e-5,
+           f"path 20a: a run cut at {CLI_RESUME_AT} iterations and resumed gives the "
+           f"uninterrupted logliks (rtol 1e-5; max rel {rel_r:.3e})")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "multimodalworddiscovery_tpu_torch.cli",
+                           *train(wp, *CLI_HEADLINE, "train.num_iterations=3",
+                                  "train.profile=true")],
+                          cwd=here, capture_output=True, text=True, timeout=600)
+    times["20a_profile"] = time.perf_counter() - t0
+    print(proc.stdout[-1500:])
+    _check(proc.returncode == 0, f"path 20a: python -m ...cli train with train.profile=true "
+                                 f"ran ({proc.stderr[-2000:]})")
+    with open(os.path.join(wp, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in ("mwd_table_lookup", "mwd_estep_counts")}
+    print(f"  path 20a profile: {len(kernels)} device kernel events in "
+          f"{os.path.join('20a_profile', 'profile', 'trace.json')}, K1 / K2 events {named}")
+    _check(all(v > 0 for v in named.values()),
+           "path 20a: the Chrome trace of train.profile=true names K1's and K2's kernels")
+    print(elapsed_since(t_path))
+
+    # ---- 20b: the stretch config as written ----
+    stretch_cfg = os.path.join(cfgs, "stretch_hubert_clip.py")
+    lb = run("20b_train", [["train", "--config", stretch_cfg, "--workdir", wb]])
+    lbe = run("20b_evaluate", [["evaluate", "--workdir", wb]])
+    lls_b = [r["loglik"] for r in _train_records(wb)]
+    with open(os.path.join(wb, "metrics.json")) as f:
+        metrics_b = json.load(f)
+    f1_b = metrics_b["alignment"]["f1"]
+    seed_k1 = 3 * CLI_STRETCH_CHUNKS  # seed_rounds x chunks: the teacher's posteriors
+    _check(lb["table_lookup"] == EM_ITERS + seed_k1 and lb["hmm_estep_counts"] == EM_ITERS
+           and lb["hmm_estep"] == seed_k1 + EM_ITERS * CLI_STRETCH_CHUNKS
+           and lb["viterbi"] == 0 and lbe["viterbi"] == 1
+           and lbe["table_lookup"] + lbe["hmm_estep"] + lbe["hmm_estep_counts"] == 0,
+           "path 20b: K1 + K2 once a teacher iteration, K1 + K4 once a chunk a seeding round, "
+           "K4 once a chunk an EM iteration; K3 once in evaluate")
+    rels_b = [(a - float(b)) / abs(float(b)) for a, b in zip(lls_b, recipe["lls"])]
+    print(f"path 20b: loglik {lls_b}; path 3's kernel run {list(map(float, recipe['lls']))}; "
+          f"relative differences {[f'{r:+.3e}' for r in rels_b]}; alignment "
+          f"{metrics_b['alignment']}; boundary {metrics_b['boundary']}; dtw "
+          f"{metrics_b.get('dtw')}; retrieval {metrics_b.get('retrieval')}")
+    # Both draw the seeding numbers from one CPU generator seeded 0 (the
+    # jitter, then the codebook's seed frames), so the first iteration's
+    # loglik agrees up to the teacher's rounding: K2's count atomics vary in
+    # the last bits between runs (two calls of path 3 began 1.7e-5 apart),
+    # and the config's corpus_chunks=4, which path 3 cut, sums the counts
+    # in another order.  The annealed EM amplifies that to a few 1e-3 by
+    # the last iteration, so the final loglik is printed, not held (PERF.md
+    # §6); the F1 is held to path 3's and to the recipe's floor.
+    _check(abs(rels_b[0]) <= 1e-4, f"path 20b: the first iteration's loglik within rtol 1e-4 "
+                                   f"of path 3's (the same seeding numbers; rel "
+                                   f"{rels_b[0]:+.3e})")
+    _check(f1_b >= 0.30 and abs(f1_b - recipe["f1"]) <= 0.005,
+           f"path 20b: F1 >= 0.30 and within 0.005 of path 3's ({f1_b:.5f} vs "
+           f"{recipe['f1']:.5f}; the final loglik {rels_b[-1]:+.3e} from path 3's, the chunks' "
+           f"summation order amplified by the annealing)")
+    _check("dtw" in metrics_b and metrics_b["retrieval"]["pool_size"] == 100,
+           "path 20b evaluate: DTW and pooled retrieval (C=100) scored")
+    print(elapsed_since(t_path))
+
+    # ---- 20c: streamed ----
+    stream_ov = ["data.source=stream", f"data.dir={dc}"]
+    _cli(["shard", "--config", hmm_cfg, "--output", dc, "--shard-size", str(CLI_SHARD),
+          "--override", *CLI_HEADLINE])
+    lc = run("20c_train", [train(wc, *head_ov, *stream_ov)])
+    lcd = run("20c_decode", [["align", "--workdir", wc],
+                             ["evaluate", "--workdir", wc, *ov_pool]])
+    lcr = run("20c_resident_decode", [["align", "--workdir", wc, "--output",
+                                       os.path.join(wc, "alignment_resident.json"),
+                                       "--override", "data.source=synthetic"]])
+    n_sh = -(-8000 // CLI_SHARD)
+    _check(lc["table_lookup"] == CLI_ITERS * n_sh and lc["hmm_estep_counts"] == CLI_ITERS * n_sh
+           and lcd["viterbi"] == 2 * n_sh and lcr["viterbi"] == 1,
+           "path 20c: K1 + K2 once a shard an EM iteration, K3 once a shard a decode")
+    lls_c = [r["loglik"] for r in _train_records(wc)]
+    rel_c = _rel(lls_c, lls)
+    with open(os.path.join(wc, "metrics.json")) as f:
+        f1_c = json.load(f)["alignment"]["f1"]
+    with open(os.path.join(wc, "alignment.json")) as f:
+        streamed_align = f.read()
+    with open(os.path.join(wc, "alignment_resident.json")) as f:
+        resident_align = f.read()
+    print(f"path 20c: loglik {lls_c}; F1 {f1_c:.6f} (20a {f1_a:.6f})")
+    _check(rel_c <= 1e-5, f"path 20c: streamed logliks within rtol 1e-5 of 20a's "
+                          f"(max rel {rel_c:.3e})")
+    _check(abs(f1_c - f1_a) <= 1e-6, f"path 20c: streamed alignment F1 within 1e-6 of 20a's "
+                                     f"({f1_c} vs {f1_a})")
+    _check(streamed_align == resident_align,
+           "path 20c: the streamed decode equals the resident decode of the same checkpoint")
+    reader = ShardedCorpusReader(dc, device=dev)
+    shard0 = reader.load_shard(0)
+    checks = {"k2_shard": parity(f"path 20c shard (N={CLI_SHARD})", shard0, reps=5)}
+    p_c = _restored(wc, hmm.init(shard0))
+    checks["k1_shard"] = k1_check("path 20c shard", p_c.log_emit, shard0.src,
+                                  hmm_core.state_concepts(shard0), 20)
+    _, fact = _estep_inputs(p_c, shard0)
+    checks["k3_shard"] = k3_parity(f"path 20c shard (N={CLI_SHARD})",
+                                   (*fact, hmm._log_emissions(p_c, shard0), shard0.src_len), 10)
+    del shard0, reader, fact
+    print(elapsed_since(t_path))
+
+    # ---- 20d: run_pipeline_fullscale ----
+    _reset(counters)
+    t0 = time.perf_counter()
+    rep = fs.main([*FULLSCALE, "--workdir", wf])
+    torch.cuda.synchronize()
+    times["20d"] = time.perf_counter() - t0
+    launches["20d"] = ldf = _counts(counters)
+    print(f"  [20d: {times['20d']:.2f} s] launches {ldf}")
+    _check(ldf["extract"] == FULLSCALE_SHARDS * 4096 // FULLSCALE_SUB
+           and ldf["hmm_estep"] == FULLSCALE_ITERS * FULLSCALE_SHARDS
+           and ldf["viterbi"] == 3 * FULLSCALE_SHARDS + 2,
+           "path 20d: K5 once a sub-batch, K4 once a shard an EM iteration, K3 once a shard "
+           "for align, segment and evaluate and twice in the cross-check")
+    _check(rep["crosscheck"]["max_abs_delta"] <= 1e-5,
+           "path 20d stage 6: shard 0 streamed equals resident")
+    print(f"  [{card}] path 20d stages: " + "; ".join(
+        f"{s['stage']} {s['seconds']:.2f} s (rss {s['rss_gb']:.2f} GB)" for s in rep["stages"])
+        + f"; metrics alignment {rep['metrics']['alignment']}")
+    # K5 at the pipeline's sub-batch, K4 and K3 at its shard, against plain
+    _, s_max, batches = make_flickr8k_mini_batches(
+        n_utterances=FULLSCALE_SUB, batch_size=FULLSCALE_SUB, n_concepts=40,
+        n_phones=fs.N_PHONES, seed=0, device=dev)
+    pc, _ = next(batches)
+    wavs, lens = fs.render_waveforms(pc.src.cpu().numpy(), pc.src_len.cpu().numpy(), s_max,
+                                     phone_templates(fs.N_PHONES + 1, seed=0),
+                                     np.random.default_rng(1))
+    wav, wav_len = torch.as_tensor(wavs, device=dev), torch.as_tensor(lens, device=dev)
+    got, fl = k5.extract(wav, wav_len, rp.MFCC)
+    want, fl_p = k5.extract_plain(wav, wav_len, rp.MFCC)
+    valid = torch.arange(got.shape[1], device=dev)[None, :] < fl[:, None]
+    k5_err = _max_abs(got[valid], want[valid])
+    _check(torch.equal(fl, fl_p) and torch.allclose(got[valid], want[valid], **MFCC_TOL),
+           f"K5 at path 20d's sub-batch {tuple(wav.shape)}: valid frames within rtol 1e-3 atol "
+           f"2e-3 of plain (max abs err {k5_err})")
+    checks["k5_fullscale"] = {"err": k5_err,
+                              "ms": _gpu_ms(lambda: k5.extract(wav, wav_len, rp.MFCC), 10),
+                              "plain_ms": _gpu_ms(lambda: k5.extract_plain(wav, wav_len,
+                                                                           rp.MFCC), 2)}
+    print(f"  [{card}] K5 at path 20d's sub-batch: kernel {checks['k5_fullscale']['ms']:.4f} ms, "
+          f"plain {checks['k5_fullscale']['plain_ms']:.4f} ms")
+    del wav, wav_len, got, want, valid
+    reader = ShardedCorpusReader(os.path.join(wf, "shards"), device=dev)
+    shard0 = reader.load_shard(0)
+    p_f = _restored(wf, hmm_gaussian.init(shard0, n_components=2))
+    pad0 = shard0.pad_to(shard0.n + ZERO_LENGTH_PAD)
+    _, fact = _estep_inputs(p_f, pad0)
+    checks["k4_fullscale"] = k4_check(f"path 20d shard (N={shard0.n})",
+                                      (*fact, hmm_gaussian._log_emissions(p_f, pad0),
+                                       pad0.src_len), 10)
+    _, fact = _estep_inputs(p_f, shard0)
+    checks["k3_fullscale"] = k3_parity(f"path 20d shard (N={shard0.n})",
+                                       (*fact, hmm_gaussian._log_emissions(p_f, shard0),
+                                        shard0.src_len), 10)
+    del shard0, pad0, reader, fact
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"path 20 wall time {time.perf_counter() - t_path:.1f} s; by part (s) {times}")
+
+    # each K1-K4 launch of path 20 at its checked shape
+    shape_launches = {
+        "table_lookup": {"S12_headline": la["table_lookup"] + lr["table_lookup"],
+                         "S64_teacher": EM_ITERS, "S64_teacher_shard": seed_k1,
+                         "path20c_shard": lc["table_lookup"]},
+        "hmm_estep_counts": {"S12_headline": la["hmm_estep_counts"] + lr["hmm_estep_counts"],
+                             "S64_teacher": lb["hmm_estep_counts"],
+                             "path20c_shard": lc["hmm_estep_counts"]},
+        "hmm_estep": {"S64_stretch_shard": lb["hmm_estep"], "path20d_shard": ldf["hmm_estep"]},
+        "viterbi": {"S12": ld["viterbi"] + lcr["viterbi"], "S64": lbe["viterbi"],
+                    "path20c_shard": lcd["viterbi"], "path20d_shard": ldf["viterbi"]},
+    }
+    return {"launches": launches, "shape_launches": shape_launches, "checks": checks,
+            "times": times, "ms_per_iteration": ms_cli, "ties": ties,
+            "fullscale": {s["stage"]: (s["seconds"], s["rss_gb"]) for s in rep["stages"]},
+            "f1": {"20a": f1_a, "20b": f1_b, "20c": f1_c}}
+
+
 def main() -> int:
     import torch
 
@@ -3792,6 +4184,7 @@ def main() -> int:
           f"bound {k7_head['bound_ms']:.4f} ms ({k7_head['bound_by']})")
     del emit, gamma
     head19 = {"corpus": corpus, "params": kern["params"], "lls": kern["lls"]}  # path 19a's
+    head20 = {"lls": kern["lls"], "f1": kern["prf"]["f1"], "ms": ms_k}  # path 20a's
     print(elapsed())
 
     # --- path 5: the headline EM at dot_dtype="bfloat16" (K1, K2-bf16, K3) ---
@@ -4014,6 +4407,7 @@ def main() -> int:
           f"plain path {r_p['boundary']['f1']:.4f}")
     # path 17 streams this corpus from path 3's initial parameters
     stretch_resident = (fc, fg, r_k["p0"], f1)
+    recipe20 = {"lls": r_k["lls"], "f1": f1}  # path 20b's
     del fc, fg, recipe, r_k, r_p
     torch.cuda.empty_cache()
     print(elapsed())
@@ -4112,6 +4506,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(elapsed())
 
+    # --- path 20: the port's CLI on the card, as a user runs it ---
+    s20 = cli_phase(here, card, kernels_all, dev, head20, recipe20)
+    torch.cuda.empty_cache()
+    print(elapsed())
+
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---
     launches_bench = bench_phase(here, kernels_all)
     torch.cuda.empty_cache()
@@ -4123,7 +4522,7 @@ def main() -> int:
             *ground["launches"].values(), skd["launches"], img["launches"],
             *(r["launches"] for r in crf_mb.values()), *(r["launches"] for r in vd.values()),
             *s16["launches"].values(), *s17["launches"].values(), *s18["launches"].values(),
-            *s19["launches"].values())
+            *s19["launches"].values(), *s20["launches"].values())
     launches = {name: sum(r[name] for r in runs) for name in launches_headline}
     launches["log_matmul_bf16"] = launches_bench["log_matmul_bf16"]
     print(f"kernel launches, summed over the paths' kernel runs (K6: its entry-point run; "
@@ -4155,8 +4554,10 @@ def main() -> int:
         "S8_stream_test": (s18["dnn"]["test"]["shapes"]["resident"],
                            s18["launches"]["dnn_test_resident"]["hmm_estep"], 0),
     }
-    s19l = s19["shape_launches"]
-    for k, n in s19l.get("hmm_estep", {}).items():  # path 19's launches at these shapes
+    s19l, s20l, s20c = s19["shape_launches"], s20["shape_launches"], s20["checks"]
+    k4_runs["path20d_shard"] = (s20c["k4_fullscale"], 0, 0)
+    for k, n in [*s19l.get("hmm_estep", {}).items(),  # paths 19's and 20's launches
+                 *s20l["hmm_estep"].items()]:
         r, n0, nb = k4_runs[k]
         k4_runs[k] = (r, n0 + n, nb)
     k4_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4186,7 +4587,9 @@ def main() -> int:
         **{f"path16_{k}": (r, 1) for k, r in s16["k3"].items()},
         "S64_stretch_shard": (s17["k3"], s17["launches"]["gauss"]["viterbi"]),
     }
-    for k, n in s19l.get("viterbi", {}).items():
+    k3_runs["path20c_shard"] = (s20c["k3_shard"], 0)
+    k3_runs["path20d_shard"] = (s20c["k3_fullscale"], 0)
+    for k, n in [*s19l.get("viterbi", {}).items(), *s20l["viterbi"].items()]:
         r, n0 = k3_runs[k]
         k3_runs[k] = (r, n0 + n)
     k3_shapes = {k: {"launches": n, "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4206,7 +4609,9 @@ def main() -> int:
                "S64_teacher_shard": (s17["k2"], s17["launches"]["teacher"]["hmm_estep_counts"],
                                      0)}
     k2_runs["path19_rank_shard"] = (s19["checks"]["parity"], 0, 0)
-    for k, n in s19l.get("hmm_estep_counts", {}).items():
+    k2_runs["path20c_shard"] = (s20c["k2_shard"], 0, 0)
+    for k, n in [*s19l.get("hmm_estep_counts", {}).items(),
+                 *s20l["hmm_estep_counts"].items()]:
         r, n0, nb = k2_runs[k]
         k2_runs[k] = (r, n0 + n, nb)
     k2_shapes = {k: {"launches": n, **r["k2"]} for k, (r, n, _) in k2_runs.items()}
@@ -4243,7 +4648,8 @@ def main() -> int:
                     for k, r in s16["k1"].items()},
                  "S64_teacher_shard": (s17["k1"], s17["launches"]["teacher"]["table_lookup"])}
     k1_launch["path19_rank_shard"] = (s19["checks"]["k1"], 0)
-    for k, n in s19l.get("table_lookup", {}).items():
+    k1_launch["path20c_shard"] = (s20c["k1_shard"], 0)
+    for k, n in [*s19l.get("table_lookup", {}).items(), *s20l["table_lookup"].items()]:
         r, n0 = k1_launch[k]
         k1_launch[k] = (r, n0 + n)
     k1_runs = [r for r, _ in k1_launch.values()]
@@ -4310,7 +4716,8 @@ def main() -> int:
          "source": "multimodalworddiscovery_tpu_torch/csrc/mfcc.cu",
          "replaces": "multimodalworddiscovery_tpu/ops/mfcc_pallas.py:93",
          "launches": launches["extract"] + launches["mfcc_from_frames"],
-         "max_abs_err": k5_r["err"], "ms": k5_r["ms"], "plain_ms": k5_r["plain_ms"],
+         "max_abs_err": max(k5_r["err"], s20c["k5_fullscale"]["err"]), "ms": k5_r["ms"],
+         "plain_ms": k5_r["plain_ms"],
          "bound_ms": k5_r["bound_ms"], "bound_by": k5_r["bound_by"], "library_ms": None,
          "spectrum_library_ms": k5_r["spectrum_library_ms"],
          "direct_400_ms": k5_r["direct_400_ms"]},

@@ -22,10 +22,12 @@ aligners and the bf16 and remat E-step variants; slice 10, Model-1, the
 attention and grounding aligners, segmental k-means, minibatch training,
 the registry, retrieval and DTW; slice 11, the image branch; slice 12,
 out-of-core and bucketed EM, corpus I/O and the dataset builders; slice
-13, parallelism on torch.distributed and the mesh forms of the trainers):
+13, parallelism on torch.distributed and the mesh forms of the trainers;
+slice 14, the user surface: the ``mwd-torch`` CLI, configs, checkpoints):
 
 core      NEG_INF log-semiring helpers, masking, gather/scatter counts; the
-          mesh (a 1-D DeviceMesh over the ranks) and the collectives
+          mesh (a 1-D DeviceMesh over the ranks) and the collectives; the
+          config system and the JSONL metrics writer
 data      torch ``Corpus`` (ids or frames), ``GoldAnnotations``,
           ``make_flickr8k_mini`` (and its batched form),
           ``phones_to_frames``, the waveform synthesizers and
@@ -57,7 +59,13 @@ eval      alignment, word IoU, boundary, purity and NMI metrics; retrieval
           segment coherence)
 scripts   run_pipeline (config #4), extract_features (speech), the
           kernel and model benchmarks
-utils     audio (WAV read and write)
+utils     audio (WAV read and write), checkpoint (torch.save parameter
+          trees), profiling (torch.profiler traces, timing), plotting
+          (matplotlib, imported when a plot is drawn)
+cli       ``mwd-torch``: train / align / segment / evaluate / retrieve /
+          discover / lexicon / export / plot / shard / preprocess
+configs   the run configs (copies of the reference's ``configs/``), on
+          ``core/config.py``'s ConfigDict
 native    the token-file packer (C extension, pure-Python fallback)
 """
 

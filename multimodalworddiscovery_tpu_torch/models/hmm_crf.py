@@ -43,6 +43,7 @@ init = hmm_dnn.init
 align = hmm_dnn.align
 posteriors = hmm_dnn.posteriors
 loglik = hmm_dnn.loglik
+_machinery = hmm_dnn._machinery  # retrieval re-pairing path
 
 # Adam's rate on (log_jump, log_p0) with learn_transitions: Adam is
 # invariant to the gradient's scale, so at the MLP's rate the handful of

@@ -1,1 +1,3 @@
-"""Host-side utilities (ported so far: ``audio``, WAV read and write)."""
+"""Host-side utilities: ``audio`` (WAV read and write), ``checkpoint``
+(parameter trees with ``torch.save``), ``profiling`` (``torch.profiler``
+traces, timing) and ``plotting`` (matplotlib figures)."""

@@ -325,3 +325,14 @@ def multihost_world(dirs: dict, store: str, attention_tree: dict) -> dict:
                          "disagree": collectives.max_disagreement(gp, group)}
     dist.barrier()
     return out
+
+
+def cli_world(argvs: list) -> list:
+    """Each ``mwd-torch`` command line of ``argvs`` in turn on this rank
+    (tests/test_torch_cli.py: ``train.distributed=true`` over the spawned
+    world); returns the ranks' world size and rank."""
+    from multimodalworddiscovery_tpu_torch import cli
+
+    for argv in argvs:
+        cli.main(argv)
+    return [dist.get_world_size(), dist.get_rank()]
