@@ -93,7 +93,8 @@ shapes the main paths give it, then drives twenty-one paths through the kernels
     its decode; then the dense ``hmm_core.viterbi`` at the reference's
     viterbi_dense rows (S12 N=8000, S128 N=512) after one EM step, its
     emissions from K1, against ``viterbi_factored`` through K3 (paths
-    equal except at counted ties, scores within rtol 1e-5), ms per decode.
+    equal except at counted ties, scores within rtol 1e-5); its time is
+    ``bench_kernels --only viterbi``'s.
 16. out-of-core and bucketed discrete EM: ``scripts/bench_stream.py``'s
     corpus (the headline family at N=65536) written to disk in shards of
     8192; ``data.stream.train_streaming(hmm, ...)`` at prefetch 1 and 2 (K1
@@ -157,13 +158,13 @@ shapes the main paths give it, then drives twenty-one paths through the kernels
     ``cli.main`` in this process, at full width.  20a:
     ``configs/hmm_mini.py`` with bench.py's corpus as overrides (N=8000,
     S=12, seed 0), 10 iterations (K1 + K2), each iteration's loglik in
-    ``train_metrics.jsonl`` within rtol 1e-5 of path 1's, the CLI's ms per
+    ``train_metrics.jsonl`` equal to path 1's, the CLI's ms per
     iteration printed beside path 1's; ``align``, ``segment``, ``evaluate``
     (alignment F1 within 0.002 of path 1's), ``retrieve --pool 100``,
     ``export`` (the JAX export's keys) and ``lexicon`` (K3); K3 against the
     plain decoder on the trained parameters, differing utterances and ties
     counted (the measurement behind the CLI's decode rule); a run cut at 5
-    iterations and resumed to 10 giving the uninterrupted logliks; and
+    iterations and resumed to 10 giving the uninterrupted logliks, equal; and
     ``python -m ...cli train`` with ``train.profile=true`` in a fresh
     process, whose Chrome trace must name K1's and K2's kernels.  20b:
     ``configs/stretch_hubert_clip.py`` as written (N=4000, Ts=401, S=64,
@@ -173,7 +174,8 @@ shapes the main paths give it, then drives twenty-one paths through the kernels
     draws path 3's seeding numbers, so its first loglik is held to path 3's
     kernel run (rtol 1e-4) and its F1 to path 3's (within 0.005; >= 0.30);
     the chunks sum the counts in another order, which the annealing
-    amplifies, so the final loglik is printed beside path 3's.  20c: ``shard`` of 20a's corpus in
+    amplifies, so the final loglik is printed beside path 3's.  20c:
+    ``shard`` of 20a's corpus in
     shards of 2000, streamed ``train``, ``align`` and ``evaluate`` (K1, K2,
     K3 a shard): logliks within rtol 1e-5 and F1 within 1e-6 of 20a's, the
     streamed decode equal to the resident decode of the same checkpoint;
@@ -212,6 +214,18 @@ shapes the main paths give it, then drives twenty-one paths through the kernels
     trained parameters, and at the flat start (per-utterance logZ near
     -24,000, where one float32 ulp moves gamma by 0.2%) only its logZ and
     loglik are held.
+22. reproducibility: paths 1 (the headline EM, K1 + K2, then K3), 3 (the
+    stretch recipe with its codebook and seeding: K1 + K2, K4, K3), 8 (the
+    dense-caption EM: K1 -> K4 -> K7), 2 (the Gaussian EM: K4, K3), 6 (the
+    CRF, 5 iterations: K4 with the MLP's gradient, K3), 10 (Model-1: K1)
+    and 13 (segmental k-means, 3 iterations) each run twice in this process
+    from the same seed and inputs; the two runs must agree bit for bit
+    (``torch.equal``) on every iteration's loglik, the final parameters, the
+    counts of one E-step from them and the decode.  One attention step and
+    one grounding step (paths 11-12) are run twice and whether they agree is
+    printed, not held (autograd's backward of their index ops may add with
+    atomics).  Every check of K2, K2-bf16 and K7 against its plain version
+    also calls the kernel a second time and requires equal bits.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
 gate edge and at the VQ teacher's shape (the recipe's code corpus: N=4000,
@@ -384,7 +398,9 @@ DENSE = dict(n_utterances=512, n_concepts=400, n_phones=48, min_concepts=48,
 # tests/discrete_reference.py (P 0.26373, R 0.27946)
 REFERENCE_DENSE_F1 = 0.27137
 REFERENCE_DENSE_LL = -287512.34  # its loglik at the 10th iteration
-K7_TOL = dict(rtol=1e-5)  # and atol 1e-4 x the largest count: atomics order the sums
+# and atol 1e-4 x the largest count: the plain scatter sums the posteriors in
+# another order (its atomics' order, which changes from run to run)
+K7_TOL = dict(rtol=1e-5)
 # the many-states phase: corpora above the 160 states K4, K6 and K3 once
 # took; S~200, and S~260, past K3's 8-bit backpointers
 MANY_200 = dict(n_utterances=64, n_concepts=400, min_concepts=96, max_concepts=100,
@@ -425,6 +441,7 @@ GUIDED_FRAMES_FEAT = dict(feat_dim=13, seed=0)
 GUIDED_TEACHER_ITERS = 15
 GUIDED_STEPS = 60  # cut from the config's 400
 SEGKMEANS_ITERS = 10  # path 13: on bench_kernels' SEGKMEANS_CORPUS frames
+REPRO_CRF_ITERS, REPRO_SKM_ITERS = 5, 3  # path 22's cuts of paths 6 and 13
 # tests/test_golden_metrics.py test_golden_dtw_coherence: its corpus and
 # tests/golden_metrics.json "dtw_gold_segments", held within rtol 0.02
 # (atol 1e-3) as that test holds them
@@ -550,6 +567,51 @@ def _check(ok: bool, what: str) -> None:
 
 def _max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def _tensors(x, key: str = ""):
+    """(name, tensor) of each tensor in a result: tensors, numpy arrays and
+    numbers, dataclasses, modules (their state dicts), dicts, lists and
+    tuples."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield key, x
+    elif isinstance(x, (np.ndarray, np.generic, int, float)):
+        yield key, torch.as_tensor(np.asarray(x))
+    elif isinstance(x, torch.nn.Module):
+        yield from _tensors(x.state_dict(), key)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name), f"{key}.{f.name}")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _tensors(v, f"{key}.{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from _tensors(v, f"{key}[{i}]")
+
+
+def _differing(a, b) -> list[str]:
+    """The names of the tensors in which two results differ in a bit (or in
+    their structure)."""
+    import torch
+
+    ta, tb = list(_tensors(a)), list(_tensors(b))
+    if [k for k, _ in ta] != [k for k, _ in tb]:
+        return ["structure"]
+    return [k for (k, x), (_, y) in zip(ta, tb) if not torch.equal(x, y)]
+
+
+def _same_twice(what: str, first, second) -> None:
+    """Two calls of a kernel (or two runs of a path) from the same inputs
+    must give the same bits."""
+    diff = _differing(first, second)
+    _check(not diff, f"{what}: two calls give equal bits"
+                     f"{'' if not diff else f' (differ: {diff[:8]})'}")
 
 
 def _gpu_ms(fn, reps: int) -> float:
@@ -776,9 +838,11 @@ def parity(name, corpus, max_jump: int = 3, reps: int = 10, bf16_flips: bool = F
     args = (log_init, base, rowz, colmask, emit, corpus.src, concepts,
             corpus.src_len, v_src, v_trg)
     counts, xi, logz = k2.hmm_estep_counts(*args)
+    _same_twice(f"K2 at {name}", (counts, xi, logz), k2.hmm_estep_counts(*args))
     errs = _k2_checks("K2", (counts, xi, logz), k2.hmm_estep_counts_plain(*args),
                       ZERO_LENGTH_PAD, exact=_exact_counts(args))
     got = k2.hmm_estep_counts(*args, dot_dtype="bfloat16")
+    _same_twice(f"K2-bf16 at {name}", got, k2.hmm_estep_counts(*args, dot_dtype="bfloat16"))
     want = k2.hmm_estep_counts_plain(*args, dot_dtype="bfloat16")
     errs_bf = _k2_checks("K2-bf16", got, want, ZERO_LENGTH_PAD, flips=bf16_flips,
                          exact=_exact_counts(args, "bfloat16"))
@@ -809,7 +873,7 @@ def parity(name, corpus, max_jump: int = 3, reps: int = 10, bf16_flips: bool = F
     # and against the dense plain E-step (the use_kernels=False route), its
     # posteriors summed in float64 as _exact_counts does: the float32 scatter's
     # own error at S=64 and Ts~400 comes within a factor of two of the bound,
-    # and its atomics make it vary from run to run
+    # and the oracle's atomics (the plain pair_counts) vary it from run to run
     gamma, wc_d, logz_d = hmm_core.estep(
         params.log_jump, params.log_p0, params.max_jump,
         hmm._log_emissions(params, corpus, concepts), corpus, use_kernels=False,
@@ -1228,7 +1292,9 @@ def _profile(fn, what: str, card: str) -> dict[str, float]:
                 "K8 log_matmul": ("mwd_lm_",),
                 "K5 mfcc": ("mwd_mfcc",), "K2 forward": ("mwd_estep_counts_fwd",),
                 "K2 backward with counts": ("mwd_estep_counts_bwd",),
-                "K2 table and xi sum": ("mwd_estep_counts_prep", "mwd_estep_counts_xi"),
+                "K2 table, xi sum, counts' conversion": ("mwd_estep_counts_prep",
+                                                         "mwd_estep_counts_xi",
+                                                         "mwd_estep_counts_finish"),
                 "K4 forward": ("mwd_estep_fwd",), "K4 backward": ("mwd_estep_bwd",),
                 "K4 table and xi sum": ("mwd_estep_prep", "mwd_estep_xi"),
                 "length order rank (K2, K3, K4)": ("mwd_length_rank",),
@@ -1512,6 +1578,7 @@ def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict
     from multimodalworddiscovery_tpu_torch.ops import counts as k7
 
     got = k7.pair_counts(gamma, src, concepts, f, e)
+    _same_twice(f"K7 at {what}", got, k7.pair_counts(gamma, src, concepts, f, e))
     want = k7.pair_counts_plain(gamma, src, concepts, f, e)
     # the plain posteriors summed in float64 (K2's comparison): the float32
     # scatter drifts where ~1e5 posteriors add into one entry
@@ -1535,6 +1602,8 @@ def k7_check(what: str, gamma, src, concepts, f: int, e: int, reps: int) -> dict
            f"posteriors summed in float64")
     # n_cols = 4096: a table beyond shared memory, added straight into counts
     wide = k7.pair_counts(gamma, src, concepts, f, 4096)
+    _same_twice(f"K7 at {what} with n_cols=4096", wide,
+                k7.pair_counts(gamma, src, concepts, f, 4096))
     _check(torch.allclose(wide[:, :e], got, atol=1e-4 * scale, **K7_TOL)
            and not bool(wide[:, e:].any()),
            f"K7 at {what} with n_cols=4096 (the table in device memory): the first {e} "
@@ -2217,6 +2286,10 @@ def attention_phase(card: str, counters, dev, corpus, gold) -> dict:
                f"path 11 {name}: the loss falls from the first step to the last")
         batch = minibatch.gather_batch(corpus, torch.arange(bk.ATT_BATCH, device=dev))
         _profile(lambda: step_fn(state, batch), f"one path 11 {name} step (B={bk.ATT_BATCH})", card)
+        runs[name]["same_bits"] = _twice_printed(
+            f"path 11 {name}: one step (B={bk.ATT_BATCH})",
+            lambda: step_fn(attention.init(corpus, dim=bk.MODEL_DIM,
+                                           generator=torch.Generator().manual_seed(SEED)), batch))
     print(f"  discrete teacher: loglik {t_lls.tolist()}, alignment F1 {t_f1:.5f}, launches "
           f"{launches['teacher']}")
     _check(launches["teacher"]["table_lookup"] > 0
@@ -2334,6 +2407,10 @@ def grounding_retrieval_phase(card: str, counters, dev, corpus, teacher) -> dict
     batch = minibatch.gather_batch(corpus, torch.arange(bk.GROUND_BATCH, device=dev))
     _profile(lambda: grounding.em_step(state, batch), f"one grounding step (B={bk.GROUND_BATCH})",
              card)
+    _twice_printed(f"path 12: one grounding step (B={bk.GROUND_BATCH})",
+                   lambda: grounding.em_step(grounding.init(
+                       corpus, dim=bk.MODEL_DIM, generator=torch.Generator().manual_seed(SEED)),
+                       batch))
     m1, _ = model1.train(model1.init(corpus), corpus, EM_ITERS)
     scorers = {
         "model1": lambda d: retrieval.retrieval_scores_model1_pooled(m1, corpus, cand, d),
@@ -2736,13 +2813,10 @@ def viterbi_dense_phase(card: str, counters, dev) -> dict:
         _check(torch.allclose(s_dense, s_fast, rtol=1e-5, atol=0),
                f"viterbi_dense {label}: every path's score within rtol 1e-5 of K3's (the "
                f"{ties} differing paths are ties)")
-        ms_dense = _gpu_ms(lambda: hmm_core.viterbi(li, lt, le, corpus.src_len), 5)
+        # the dense decoder's time is bench_kernels' viterbi entry's
         k3r = k3_parity(f"viterbi_dense {label}", inputs, 20)
         k1r = k1_check(f"viterbi_dense {label}", params.log_emit, corpus.src, concepts, 20)
-        print(f"  [{card}] ms per decode: dense (plain torch) {ms_dense:.4f}, factored through "
-              f"K3 {k3r['ms']:.4f}, factored plain {k3r['plain_ms']:.4f}")
-        out[label] = {"ties": ties, "err": err, "ms_dense": ms_dense, "k3": k3r, "k1": k1r,
-                      "launches": launches}
+        out[label] = {"ties": ties, "err": err, "k3": k3r, "k1": k1r, "launches": launches}
         del corpus, params, li, lt, le, dense, fast
         torch.cuda.empty_cache()
     return out
@@ -3862,10 +3936,13 @@ def cli_phase(here: str, card: str, counters, dev, head: dict, recipe: dict) -> 
     _check(la["table_lookup"] == CLI_ITERS and la["hmm_estep_counts"] == CLI_ITERS
            and la["hmm_estep"] == 0 and la["viterbi"] == 0 and la["pair_counts"] == 0,
            "path 20a train: K1 and K2 once an EM iteration, no K3, K4 or K7")
-    rel = _rel(lls, head["lls"])
-    _check(len(lls) == CLI_ITERS and rel <= 1e-5,
-           f"path 20a: each iteration's loglik within rtol 1e-5 of path 1's hmm.train "
-           f"(max rel {rel:.3e})")
+    # the CLI's loop runs hmm.em_step as hmm.train does, on the same corpus,
+    # and the EM gives the same bits every run (path 22)
+    diff = (lls - np.asarray(head["lls"], np.float64)).tolist()
+    print(f"  path 20a train against path 1's hmm.train, loglik differences per iteration: "
+          f"{diff}")
+    _check(len(lls) == CLI_ITERS and np.array_equal(lls.astype(np.float32), head["lls"]),
+           "path 20a: each iteration's loglik equal to path 1's hmm.train")
     ms_cli = float(np.median(cli_ms[1:]))
     print(f"  [{card}] path 20a CLI ms per EM iteration (host clock, each iteration ended by a "
           f"synchronize and the loglik's read; median of iterations 1-{CLI_ITERS - 1}, "
@@ -3914,10 +3991,10 @@ def cli_phase(here: str, card: str, counters, dev, head: dict, recipe: dict) -> 
     lr = run("20a_resume", [train(wr, *CLI_HEADLINE, f"train.num_iterations={CLI_RESUME_AT}"),
                             train(wr, *head_ov)])
     lls_r = [r["loglik"] for r in _train_records(wr)]
-    rel_r = _rel(lls_r, lls)
-    _check(len(lls_r) == CLI_ITERS and lr["hmm_estep_counts"] == CLI_ITERS and rel_r <= 1e-5,
+    _check(len(lls_r) == CLI_ITERS and lr["hmm_estep_counts"] == CLI_ITERS
+           and lls_r == lls.tolist(),
            f"path 20a: a run cut at {CLI_RESUME_AT} iterations and resumed gives the "
-           f"uninterrupted logliks (rtol 1e-5; max rel {rel_r:.3e})")
+           f"uninterrupted logliks, equal")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "multimodalworddiscovery_tpu_torch.cli",
                            *train(wp, *CLI_HEADLINE, "train.num_iterations=3",
@@ -3958,13 +4035,12 @@ def cli_phase(here: str, card: str, counters, dev, head: dict, recipe: dict) -> 
           f"{metrics_b['alignment']}; boundary {metrics_b['boundary']}; dtw "
           f"{metrics_b.get('dtw')}; retrieval {metrics_b.get('retrieval')}")
     # Both draw the seeding numbers from one CPU generator seeded 0 (the
-    # jitter, then the codebook's seed frames), so the first iteration's
-    # loglik agrees up to the teacher's rounding: K2's count atomics vary in
-    # the last bits between runs (two calls of path 3 began 1.7e-5 apart),
-    # and the config's corpus_chunks=4, which path 3 cut, sums the counts
-    # in another order.  The annealed EM amplifies that to a few 1e-3 by
-    # the last iteration, so the final loglik is printed, not held (PERF.md
-    # §6); the F1 is held to path 3's and to the recipe's floor.
+    # jitter, then the codebook's seed frames), and every count reduction
+    # gives the same bits in every run (path 22), so the two differ only by
+    # the config's corpus_chunks=4, which path 3 cut: the chunks sum the
+    # counts in another order.  The annealed EM amplifies that by the last
+    # iteration, so the final loglik is printed, not held (PERF.md §6); the
+    # F1 is held to path 3's and to the recipe's floor.
     _check(abs(rels_b[0]) <= 1e-4, f"path 20b: the first iteration's loglik within rtol 1e-4 "
                                    f"of path 3's (the same seeding numbers; rel "
                                    f"{rels_b[0]:+.3e})")
@@ -4502,6 +4578,105 @@ def studies_phase(here: str, card: str, counters, dev, stretch, stretch_gold) ->
             "rounding": rounding, "times": times, "wall": time.perf_counter() - t_path}
 
 
+def _twice_printed(what: str, step) -> bool:
+    """``step()`` (a fresh state's one gradient step) twice: printed whether
+    the two agree bit for bit, not held."""
+    first, second = step(), step()
+    diff = _differing(first, second)
+    print(f"  {what}, run twice from one state: "
+          f"{'equal bits' if not diff else f'{len(diff)} tensors differ, e.g. {diff[:4]}'}")
+    return not diff
+
+
+def repro_phase(card: str, counters, dev, stretch) -> dict:
+    """Path 22: paths 1, 3, 8, 2, 6, 10 and 13 each run twice from the same
+    seed and inputs; the runs must agree bit for bit on every iteration's
+    loglik, the final parameters, one E-step's counts from them and the
+    decode.  ``stretch`` is path 3's (frame corpus, gold)."""
+    import torch
+
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.models import (
+        hmm, hmm_crf, hmm_dnn, hmm_gaussian, model1, segmental_kmeans as skm,
+    )
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+
+    fc, fg = stretch
+    head, _, _ = make_flickr8k_mini(**HEADLINE, device=dev)
+    dense, _, _ = make_flickr8k_mini(**DENSE, device=dev)
+    pc, pg, _ = make_flickr8k_mini(**CRF_CORPUS, device=dev)
+    crf_fc, _, _ = phones_to_frames(pc, pg, **CRF_FRAMES, device=dev)
+    m1c, _, _ = make_flickr8k_mini(**bk.MODEL1_SHAPES["Tt6"], device=dev)
+    tok, tok_gold, _ = make_flickr8k_mini(**bk.SEGKMEANS_CORPUS, device=dev)
+    skm_fc, _, _ = phones_to_frames(tok, tok_gold, **bk.SEGKMEANS_FRAMES, device=dev)
+
+    def discrete(corpus):
+        p, lls = hmm.train(hmm.init(corpus), corpus, EM_ITERS, use_kernels=True)
+        return {"lls": lls, "params": p, "counts": hmm.expected_counts(p, corpus, True),
+                "decode": hmm.align(p, corpus, use_kernels=True)}
+
+    def gaussian(p0):
+        p, lls = hmm_gaussian.train(p0, fc, EM_ITERS, use_kernels=True, anneal=ANNEAL)
+        return {"lls": lls, "params": p,
+                "counts": hmm_gaussian.expected_counts(p, fc, use_kernels=True),
+                "decode": hmm_gaussian.align(p, fc, use_kernels=True)}
+
+    def recipe():
+        pv = hmm_gaussian.init_vq_teacher(
+            fc, max_jump=MAX_JUMP, n_components=2, generator=torch.Generator().manual_seed(SEED),
+            n_codes=N_CODES, teacher_iters=EM_ITERS, seed_rounds=3, use_kernels=True)
+        return {"seeded": pv, **gaussian(pv)}
+
+    def diagonal():
+        return gaussian(hmm_gaussian.init_diagonal(
+            fc, max_jump=MAX_JUMP, n_components=1, generator=torch.Generator().manual_seed(SEED)))
+
+    def crf():
+        p0 = hmm_dnn.init(crf_fc, **CRF_MODEL, generator=torch.Generator().manual_seed(SEED))
+        p, lls = hmm_crf.train(p0, crf_fc, REPRO_CRF_ITERS, use_kernels=True)
+        return {"lls": lls, "params": p, "counts": hmm_dnn.expected_counts(p, crf_fc, True),
+                "decode": hmm_crf.align(p, crf_fc, use_kernels=True)}
+
+    def m1():
+        p, lls = model1.train(model1.init(m1c), m1c, EM_ITERS)
+        return {"lls": lls, "params": p, "counts": model1.expected_counts(p, m1c),
+                "decode": model1.align(p, m1c, use_kernels=True)}
+
+    def kmeans():
+        p0 = skm.init(skm_fc, n_clusters=64, generator=torch.Generator().manual_seed(2))
+        p, lls = skm.train(p0, skm_fc, REPRO_SKM_ITERS)
+        return {"lls": lls, "params": p, "counts": skm.expected_counts(p, skm_fc),
+                "decode": skm.discover(p, skm_fc)}
+
+    paths = {"1 headline EM": (lambda: discrete(head), "hmm_estep_counts"),
+             "3 stretch recipe": (recipe, "hmm_estep_counts"),
+             "8 dense-caption EM": (lambda: discrete(dense), "pair_counts"),
+             "2 Gaussian EM": (diagonal, "hmm_estep"),
+             "6 CRF": (crf, "hmm_estep"),
+             "10 Model-1": (m1, "table_lookup"),
+             "13 segmental k-means": (kmeans, None)}
+    launches = {}
+    print(f"path 22 (reproducibility): paths {', '.join(paths)}, each twice")
+    for name, (run, kernel) in paths.items():
+        _reset(counters)
+        t0 = time.perf_counter()
+        first = run()
+        torch.cuda.synchronize()
+        launches[name] = _counts(counters)
+        second = run()
+        torch.cuda.synchronize()
+        print(f"  path {name}: {time.perf_counter() - t0:.2f} s for both runs; the first run's "
+              f"launches {({k: n for k, n in launches[name].items() if n})}")
+        if kernel is not None:
+            _check(launches[name][kernel] > 0, f"path 22, path {name}: {kernel} launched")
+        _same_twice(f"path 22, path {name} (logliks, parameters, counts, decode)", first,
+                    second)
+        del first, second
+    del head, dense, crf_fc, m1c, skm_fc
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4855,6 +5030,7 @@ def main() -> int:
     stretch_resident = (fc, fg, r_k["p0"], f1)
     recipe20 = {"lls": r_k["lls"], "f1": f1}  # path 20b's
     stretch21 = (fc, fg.alignment)  # path 21b's shape
+    stretch22 = (fc, fg)  # path 22's
     del fc, fg, recipe, r_k, r_p
     torch.cuda.empty_cache()
     print(elapsed())
@@ -4962,6 +5138,11 @@ def main() -> int:
     s21 = studies_phase(here, card, kernels_all, dev, *stretch21)
     del stretch21
     torch.cuda.empty_cache()
+    print(elapsed())
+
+    # --- path 22: reproducibility, paths 1, 3, 8, 2, 6, 10 and 13 twice ---
+    repro_phase(card, kernels_all, dev, stretch22)
+    del stretch22
     print(elapsed())
 
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---

@@ -238,30 +238,33 @@ extern "C" int mwd_table_lookup(const float* table, const int* src, const int* c
 //   the sum.  Every other nonzero posterior goes into the block's [F, E]
 //   table in shared memory with a shared-memory atomic (the concepts of an
 //   utterance's real states are distinct, so a warp's adds rarely meet).
-// - The grid is persistent: up to two blocks an SM (as the table allows),
-//   each over a contiguous range of rows, and each block adds its table's
-//   nonzero entries into counts once, one global atomic each (K2's flush).
-// - Where F x E floats do not fit in shared memory (227 KB), the same
+// - The grid is persistent: up to two blocks of 512 threads an SM, or where
+//   the table fits only once (above 113 KB, path 8's 49 x 401 entries) one
+//   block of 1024 (the adds are latency-bound: the warps in flight set
+//   their rate), each over a contiguous range of rows, and each block adds
+//   its table's nonzero entries into counts once (K2's flush).
+// - Where F x E 64-bit entries do not fit in shared memory (227 KB), the same
 //   kernel adds straight into counts, still with the null pre-sum: a layout
 //   choice, as K4's buffers in device memory are.
-// What is left is the table's adds: a float atomic in shared memory is a
-// compare-and-swap loop, and at S = 12 (six real states a row) they, not
-// the bytes, set the kernel's time.
+// - The adds are integer adds in fixed point (counts.cuh: 64-bit numbers
+//   at a scale of 2^48, exact for values from 2^-24 up), turned into
+//   float32 at the end of the call.  Integer addition does not depend on
+//   its order, so the counts come out the same in every run, as the TPU
+//   kernel's in-order grid gave them.
+// What is left is the table's adds, and at S = 12 (six real states a row)
+// they, not the bytes, set the kernel's time.
 // gamma is 0 wherever (t, k) is padding (the E-step's contract), so those
-// elements are read and add nothing.  The order of the atomics varies
-// between runs, and so do the counts' last bits.  The TPU kernel's static
-// null_rows flag has no counterpart: NULL states carry concept 0 in conc.
-#define MWD_K7_NT 512  // threads a block
-#define MWD_K7_BPS 2   // blocks an SM at most
+// elements are read and add nothing.  The TPU kernel's static null_rows
+// flag has no counterpart: NULL states carry concept 0 in conc.
 #define MWD_K7_U 4     // rows a segment has in flight
 
 // Lane j of a segment of sp lanes (a power of two) holds states j W ..
 // j W + W - 1 of its row, then those sp W further on, up to S.
-template <bool VEC>
-__global__ void __launch_bounds__(MWD_K7_NT, MWD_K7_BPS) mwd_pair_counts_rows(
+template <bool VEC, int NT, int BPS>
+__global__ void __launch_bounds__(NT, BPS) mwd_pair_counts_rows(
     const float* __restrict__ gamma, MwdCnt c, int rows, int ts, int s, int sp, int per_block) {
     extern __shared__ float4 smem4[];
-    float* tab = reinterpret_cast<float*>(smem4);
+    auto* tab = reinterpret_cast<unsigned long long*>(smem4);
     if (c.tab_sm) mwd_cnt_zero(c, tab);
     __syncthreads();
     constexpr int W = VEC ? 4 : 1;
@@ -319,32 +322,45 @@ __global__ void __launch_bounds__(MWD_K7_NT, MWD_K7_BPS) mwd_pair_counts_rows(
 
 typedef void (*MwdK7Kernel)(const float*, MwdCnt, int, int, int, int, int);
 
+__global__ void mwd_pair_counts_finish(const unsigned long long* __restrict__ acc,
+                                       float* __restrict__ counts, int cells) {
+    mwd_cnt_to_float(acc, counts, cells);
+}
+
+// counts [f, e] in float32; acc holds 2 x f x e 64-bit integers (the counts
+// in fixed point, zeroed here).  An empty shape writes nothing.
 extern "C" int mwd_pair_counts(const float* gamma, const int* src, const int* conc,
-                               float* counts, int n, int ts, int s, int f, int e,
-                               void* stream) {
+                               unsigned long long* acc, float* counts, int n, int ts, int s,
+                               int f, int e, void* stream) {
     if (n < 0 || ts < 0 || s < 0 || f < 0 || e < 0) return (int)cudaErrorInvalidValue;
-    const long long rows = (long long)n * ts;
-    if (rows == 0 || s == 0 || (long long)f * e == 0) return (int)cudaGetLastError();
-    if (rows >= (1LL << 31) || (long long)f * e >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    MwdCnt c{src, conc, counts, f, e, 0};
-    const size_t tab = (size_t)f * e * sizeof(float);
-    c.tab_sm = tab <= MWD_SMEM_OPTIN_MAX;
-    const size_t smem = c.tab_sm ? tab : 0;
+    const long long rows = (long long)n * ts, cells = (long long)f * e;
+    if (rows == 0 || s == 0 || cells == 0) return (int)cudaGetLastError();
+    if (rows >= (1LL << 31) || cells >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    int r = mwd_cnt_start(acc, (int)cells, st);
+    if (r != 0) return r;
+    const size_t tab = (size_t)cells * sizeof(unsigned long long);
+    const bool tab_sm = tab <= MWD_SMEM_OPTIN_MAX;
+    const bool wide = tab_sm && tab > MWD_SMEM_SM / 2 - 1024;  // one block an SM
+    const int nt = wide ? 1024 : 512, bps = wide ? 1 : 2;
+    const size_t smem = tab_sm ? tab : 0;
     const bool vec = s % 4 == 0 && ((uintptr_t)gamma & 15) == 0 && ((uintptr_t)conc & 15) == 0;
-    const MwdK7Kernel kernel = vec ? &mwd_pair_counts_rows<true> : &mwd_pair_counts_rows<false>;
+    const MwdK7Kernel kernel =
+        vec ? (wide ? &mwd_pair_counts_rows<true, 1024, 1> : &mwd_pair_counts_rows<true, 512, 2>)
+            : (wide ? &mwd_pair_counts_rows<false, 1024, 1> : &mwd_pair_counts_rows<false, 512, 2>);
     const int need = vec ? s / 4 : s;  // lanes a row would take
     int sp = 1;
     while (sp < need && sp < 32) sp <<= 1;
     int sms = 0, per_sm = 0;
-    const int st = mwd_occupancy(kernel, MWD_K7_NT, smem, MWD_K7_BPS, &sms, &per_sm);
-    if (st != 0) return st;
-    // persistent: at most per_sm (<= 2) blocks an SM, and no block without
+    if ((r = mwd_occupancy(kernel, nt, smem, bps, &sms, &per_sm)) != 0) return r;
+    // persistent: at most per_sm (<= bps) blocks an SM, and no block without
     // a pass of rows for each of its warps
-    const long long pass = (long long)(MWD_K7_NT / 32) * (32 / sp) * MWD_K7_U;
+    const long long pass = (long long)(nt / 32) * (32 / sp) * MWD_K7_U;
     long long blocks = (rows + pass - 1) / pass;
     blocks = blocks < (long long)sms * per_sm ? blocks : (long long)sms * per_sm;
     const int per_block = (int)((rows + blocks - 1) / blocks);
-    kernel<<<(unsigned)blocks, MWD_K7_NT, smem, (cudaStream_t)stream>>>(gamma, c, (int)rows, ts,
-                                                                       s, sp, per_block);
-    return (int)cudaGetLastError();
+    const MwdCnt c{src, conc, acc, f, e, tab_sm};
+    kernel<<<(unsigned)blocks, nt, smem, st>>>(gamma, c, (int)rows, ts, s, sp, per_block);
+    if ((r = (int)cudaGetLastError()) != 0) return r;
+    return mwd_cnt_finish(mwd_pair_counts_finish, acc, counts, (int)cells, st);
 }

@@ -24,29 +24,31 @@
 // backward adds it, in place of K4's gamma store, into a [V_src, V_trg] table
 // of the block in shared memory (a shared-memory atomic; the phone is loaded a
 // step ahead, off the chain), and once the block's sweep is done its nonzero
-// entries go into counts with one global atomic each.  Half of the states are
-// null states, which all emit concept 0: their posteriors at a step would hit
-// one entry from every lane (a float atomic in shared memory is a
-// compare-and-swap loop, so a warp's 32 adds to one address serialise), so
-// a warp sums them by shuffles first and adds once.  Flushing partial
-// tables in a fixed order would make the counts deterministic, but would move
-// N / B x V_src x V_trg floats (26 MB at the VQ teacher's shape) through a second
-// pass; the nonzero entries of a block are a few thousand atomics, and their
-// order varies between runs as K7's and the first K2's did (comparisons use
-// tolerances). The table takes 11.7 KB at the headline shape (49 x 61), 50.3 KB
-// at the teacher's (64 x 201) and 128 KB at the gate's maximum (128 x 256).  On
+// entries go into the counts with one global atomic each.  Half of the states
+// are null states, which all emit concept 0: their posteriors at a step would
+// hit one entry from every lane, so a warp sums them by shuffles first and
+// adds once.  The adds are integer adds in fixed point (counts.cuh: 64-bit
+// numbers at a scale of 2^48, exact for posteriors from 2^-24 up), turned
+// into float32 at the end of the call, so the counts come out the same in
+// every run whatever order the blocks and warps add in.  Partial
+// tables reduced in a fixed order would do that too, at the price of moving
+// N / B x V_src x V_trg entries (26 MB at the VQ teacher's shape) through a
+// second pass, and would still leave the order of the adds inside a block
+// open.  The table takes 23.9 KB at the headline shape (49 x 61), 103 KB at
+// the teacher's (64 x 201) and 256 KB at the gate's maximum (128 x 256).  On
 // the block path it lives in shared memory beside the block's buffers where
-// both fit with two blocks an SM (xi's chunk shrinks for it: 5 steps at the
-// teacher's shape), else with one; on the warp path (128-thread blocks) where
-// it takes at most MWD_K2_WARP_TAB bytes.  Elsewhere the posteriors go straight
-// into counts, one atomic each: a layout choice, as K4's buffers in device
-// memory are.
+// both fit with two blocks an SM (xi's chunk shrinks for it), else with one
+// (the teacher's shape); on the warp path (128-thread blocks) where it takes
+// at most MWD_K2_WARP_TAB bytes.  Elsewhere the posteriors go straight into
+// the counts, two 64-bit atomics each: a layout choice, as K4's buffers in
+// device memory are.
 //
 // One C call (mwd_estep_counts) runs the whole E-step: the counts' zeroing,
-// the order and table, the forward, the backward with the counts and the
-// xi reduction.  Its kernels carry their own names (mwd_estep_counts_*),
-// so a profile tells K2's device time from K4's; only what K2 launches is
-// instantiated (S <= 64: no remat, no buffers in device memory).
+// the order and table, the forward, the backward with the counts, the
+// counts' conversion to float32 and the xi reduction.  Its kernels carry
+// their own names (mwd_estep_counts_*), so a profile tells K2's device time
+// from K4's; only what K2 launches is instantiated (S <= 64: no remat, no
+// buffers in device memory).
 
 #include "estep.cuh"
 
@@ -57,6 +59,11 @@ __global__ void __launch_bounds__(MWD_ORDER_NT) mwd_estep_counts_prep(
     const float* __restrict__ base, const int* __restrict__ part, int n_utt, int s, int bf16,
     float* __restrict__ ws, int* __restrict__ perm) {
     mwd_prep_body(base, part, n_utt, s, bf16, ws, perm);
+}
+
+__global__ void mwd_estep_counts_finish(const unsigned long long* __restrict__ acc,
+                                        float* __restrict__ counts, int cells) {
+    mwd_cnt_to_float(acc, counts, cells);
 }
 
 __global__ void mwd_estep_counts_xi(const float* __restrict__ src, int rows, int cols,
@@ -99,15 +106,18 @@ extern "C" long long mwd_estep_counts_work(int n, int ts, int s) {
     return mwd_work(n, ts, s, 0).total;
 }
 
-// K2 (bf16 = 0) or K2-bf16: counts [v_src, v_trg] (zeroed here), xi [S, S]
-// and logz [N] of the batch; work holds mwd_estep_counts_work(n, ts, s)
-// floats.
+// K2 (bf16 = 0) or K2-bf16: counts [v_src, v_trg], xi [S, S] and logz [N]
+// of the batch; work holds mwd_estep_counts_work(n, ts, s) floats and acc
+// 2 x v_src x v_trg 64-bit integers (the counts in fixed point, zeroed here).
 extern "C" int mwd_estep_counts(const float* base, const float* init, const float* rowz,
                                 const float* colmask, const float* emit, const int* lens,
-                                const int* src, const int* conc, float* work, float* counts,
-                                float* xi, float* logz, int n, int ts, int s, int v_src,
-                                int v_trg, int bf16, void* stream) {
-    if (mwd_k2_bad(n, ts, s) || v_src < 1 || v_trg < 1) return (int)cudaErrorInvalidValue;
+                                const int* src, const int* conc, float* work,
+                                unsigned long long* acc, float* counts, float* xi, float* logz,
+                                int n, int ts, int s, int v_src, int v_trg, int bf16,
+                                void* stream) {
+    if (mwd_k2_bad(n, ts, s) || v_src < 1 || v_trg < 1 || (long long)n * ts >= (1LL << 31) ||
+        (long long)v_src * v_trg >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     const cudaStream_t st = (cudaStream_t)stream;
     const MwdWork w = mwd_work(n, ts, s, 0);
@@ -115,17 +125,18 @@ extern "C" int mwd_estep_counts(const float* base, const float* init, const floa
     int* perm = reinterpret_cast<int*>(work + w.perm);
     float* alph = work + w.alph;
     float* xpart = work + w.xpart;
-    int r = (int)cudaMemsetAsync(counts, 0, (size_t)v_src * v_trg * sizeof(float), st);
+    const int cells = v_src * v_trg;
+    int r = mwd_cnt_start(acc, cells, st);
     if (r == 0) r = mwd_estep_prepare(mwd_estep_counts_prep, base, lens, work, w, n, s, bf16, st);
     if (r != 0) return r;
     const int nb = mwd_n_blocks(n, s);
-    MwdCnt cnt{src, conc, counts, v_src, v_trg, 0};
+    MwdCnt cnt{src, conc, acc, v_src, v_trg, 0};
 #define MWD_K2_FWD ws, init, rowz, colmask, emit, lens, perm, alph, logz, n, ts, s, 0
 #define MWD_K2_BWD                                                                            \
     ws, init, rowz, colmask, emit, lens, perm, alph, logz, (float*)nullptr, xpart
     if (s <= 32) {
         const int th = MWD_WARPS * 32;
-        const size_t tab = (size_t)v_src * v_trg * sizeof(float);
+        const size_t tab = (size_t)cells * sizeof(unsigned long long);
         cnt.tab_sm = tab <= MWD_K2_WARP_TAB;
         const size_t smem = cnt.tab_sm ? tab : 0;
 #define MWD_K2_WARP(SP, BF)                                                                   \
@@ -145,7 +156,7 @@ extern "C" int mwd_estep_counts(const float* base, const float* init, const floa
     } else {
         const int b = mwd_blk_b(n, s);
         const MwdPlan pf = mwd_plan(s, false, false, b, bf16);
-        const MwdPlan pb = mwd_plan_counts(s, b, bf16, v_src * v_trg);
+        const MwdPlan pb = mwd_plan_counts(s, b, bf16, cells);
         cnt.tab_sm = pb.cnt_sm;
 #define MWD_K2_BLK(B, BF)                                                                     \
     if (b == B && (bool)bf16 == BF) {                                                         \
@@ -164,6 +175,7 @@ extern "C" int mwd_estep_counts(const float* base, const float* init, const floa
     }
 #undef MWD_K2_FWD
 #undef MWD_K2_BWD
+    if (r == 0) r = mwd_cnt_finish(mwd_estep_counts_finish, acc, counts, cells, st);
     if (r != 0) return r;
     return mwd_estep_xi(mwd_estep_counts_xi, work, w, n, s, xi, st);
 }

@@ -198,6 +198,7 @@ def purity_counts(
     cluster = torch.where(pred_mask, pred_segs[..., 2], 0)
     pair = (cluster.long() * n_concepts + gold_class.long()).reshape(-1)
     counts = torch.zeros(n_concepts * n_concepts, device=pred_segs.device)
+    # 0s and 1s only: exact integer sums, the same in any order of the atomics
     counts.index_add_(0, pair, pred_mask.reshape(-1).float())
     counts = counts.reshape(n_concepts, n_concepts)
     counts[0, :] = 0.0  # drop masked slots bucketed at cluster 0

@@ -26,6 +26,8 @@ An explicit False keeps the plain path on the card (for comparisons).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multimodalworddiscovery_tpu_torch.core.logsemiring import (
@@ -331,9 +333,17 @@ def project_widths(
 ) -> torch.Tensor:
     """Pooled transition posteriors [S, S] -> expected jump-width counts
     [2*max_jump+3] (..., p0 slot, impossible slot)."""
-    ids = jump_width_ids(tt_max, max_jump, xi_pooled.device)
-    out = torch.zeros(2 * max_jump + 3, dtype=xi_pooled.dtype, device=xi_pooled.device)
-    return out.index_add_(0, ids.reshape(-1), xi_pooled.reshape(-1))
+    onehot = _width_onehot(tt_max, max_jump, xi_pooled.device, xi_pooled.dtype)
+    return (xi_pooled.reshape(1, -1) @ onehot)[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _width_onehot(tt_max: int, max_jump: int, device, dtype) -> torch.Tensor:
+    """[S*S, 2*max_jump+3] one-hot of ``jump_width_ids``: ``project_widths``'
+    fixed operand, built once per shape (``core.counts.segment_sum``'s form,
+    the same bits in every run)."""
+    ids = jump_width_ids(tt_max, max_jump, device).reshape(-1)
+    return (ids[:, None] == torch.arange(2 * max_jump + 3, device=device)).to(dtype)
 
 
 def posteriors_from(

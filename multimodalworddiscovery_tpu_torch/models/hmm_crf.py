@@ -104,7 +104,6 @@ def _transition_moments(gamma, width_counts, log_jump, log_p0, corpus: Corpus,
     ts = gamma.shape[1]
     w_jump = 2 * max_jump + 1
     base, rowz, colmask = hmm_core.factor_log_trans(log_jump, log_p0, corpus, max_jump)
-    ids = hmm_core.jump_width_ids(tt, max_jump, gamma.device)
 
     t_idx = torch.arange(ts, device=gamma.device)
     not_last = (t_idx[None, :] + 1) < corpus.src_len[:, None]
@@ -112,8 +111,7 @@ def _transition_moments(gamma, width_counts, log_jump, log_p0, corpus: Corpus,
     a = occ_out * torch.exp(torch.clamp(-rowz, max=60.0))
     valid = (colmask > NEG_INF / 2).to(a.dtype)  # [N, S']
     m = torch.exp(base) * (a.T @ valid)
-    e_model = torch.zeros(w_jump + 2, dtype=m.dtype, device=m.device)
-    e_model.index_add_(0, ids.reshape(-1), m.reshape(-1))
+    e_model = hmm_core.project_widths(m, tt, max_jump)
     d_table = width_counts - e_model  # [W + 2]; the impossible slot is 0 - 0
 
     _, is_null = hmm_core.state_positions(tt, gamma.device)

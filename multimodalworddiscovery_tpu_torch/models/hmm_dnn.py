@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of
-from multimodalworddiscovery_tpu_torch.core.counts import select_columns
+from multimodalworddiscovery_tpu_torch.core.counts import pool_columns, select_columns
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm_core
 
@@ -285,11 +285,8 @@ def frame_posteriors(
         params.log_jump, params.log_p0, params.max_jump, log_emit, corpus,
         use_kernels=use_kernels, dot_dtype=dot_dtype,
     )
-    n, ts, s = gamma.shape
     # r[n, t, c] = sum over the states s of concept c of gamma[n, t, s]
-    r = torch.zeros((n, ts, corpus.trg_vocab), dtype=gamma.dtype, device=gamma.device)
-    r.scatter_add_(2, concepts.long()[:, None, :].expand(n, ts, s), gamma)
-    return r, width_counts, logz
+    return pool_columns(gamma, concepts, corpus.trg_vocab), width_counts, logz
 
 
 def _frame_weights(corpus: Corpus) -> torch.Tensor:

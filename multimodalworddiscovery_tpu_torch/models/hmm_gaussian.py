@@ -37,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from multimodalworddiscovery_tpu_torch.core.counts import select_columns
+from multimodalworddiscovery_tpu_torch.core.counts import pool_columns, segment_sum, select_columns
 from multimodalworddiscovery_tpu_torch.core.logsemiring import masked_logsumexp
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm as dhmm
@@ -130,8 +130,8 @@ def init_moments(
         slot = torch.minimum(torch.clamp(slot, min=0), torch.clamp(tlen - 1, min=0))
         concept = corpus.trg.long().gather(1, slot).reshape(-1)  # [N*Ts]
         w = tmask.reshape(-1).float()
-        csum = torch.zeros((e, d), device=x.device).index_add_(0, concept, xm.reshape(-1, d))
-        ccnt = torch.zeros((e,), device=x.device).index_add_(0, concept, w)
+        csum = segment_sum(xm.reshape(-1, d), concept, e)
+        ccnt = segment_sum(w, concept, e)
     else:
         csum = torch.zeros((e, d), device=x.device)
         ccnt = torch.zeros((e,), device=x.device)
@@ -490,8 +490,7 @@ def supervised_counts(
         torch.where(has_from, w_id, w + 1),
         torch.where(both & (a[:, 1:] == 0), w, w + 1),
     )
-    width = torch.zeros(w + 2, dtype=params.means.dtype, device=a.device)
-    width.index_add_(0, w_id.reshape(-1), both.reshape(-1).to(width.dtype))
+    width = segment_sum(both.reshape(-1).to(params.means.dtype), w_id.reshape(-1), w + 2)
     return counts_from_responsibilities(params, corpus, r, width)
 
 
@@ -509,12 +508,8 @@ def supervised_fit(
 
 def teacher_responsibilities(teacher_gamma: torch.Tensor, corpus: Corpus) -> torch.Tensor:
     """Pool state posteriors [N, Ts, S] onto concept responsibilities
-    [N, Ts, C] (a scatter-add over each state's concept id)."""
-    n, ts, s = teacher_gamma.shape
-    concepts = hmm_core.state_concepts(corpus).long()[:, None, :].expand(n, ts, s)
-    r = torch.zeros((n, ts, corpus.trg_vocab), dtype=teacher_gamma.dtype,
-                    device=teacher_gamma.device)
-    return r.scatter_add_(2, concepts, teacher_gamma)
+    [N, Ts, C] (the sum over each concept's states, ``pool_columns``)."""
+    return pool_columns(teacher_gamma, hmm_core.state_concepts(corpus), corpus.trg_vocab)
 
 
 def _kmeans_assign(cb: torch.Tensor, fl: torch.Tensor) -> torch.Tensor:
@@ -533,10 +528,9 @@ def _kmeans_fit(
     n_codes, d = cb0.shape
     for _ in range(num_iterations):
         a = _kmeans_assign(cb, flat)
-        sums = torch.zeros((n_codes, d), device=flat.device).index_add_(
-            0, a, flat * wflat[:, None]
-        )
-        cnt = torch.zeros((n_codes,), device=flat.device).index_add_(0, a, wflat)
+        stats = segment_sum(torch.cat([flat * wflat[:, None], wflat[:, None]], dim=1), a,
+                            n_codes)
+        sums, cnt = stats[:, :d], stats[:, d]
         cb = torch.where(cnt[:, None] > 0, sums / torch.clamp(cnt, min=1.0)[:, None], cb)
     return cb
 

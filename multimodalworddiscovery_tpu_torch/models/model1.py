@@ -115,6 +115,8 @@ def _count_stats(
     n, dev = corpus.n, corpus.device
     rows = torch.arange(n, device=dev)[:, None]
     v_src, v_trg = corpus.src_vocab, corpus.trg_vocab
+    # The scatters add only 0s and 1s: their float sums are exact integers,
+    # the same in any order, so the atomics on the card cannot change a bit.
     h = torch.zeros(n * v_src, dtype=dtype, device=dev)
     h.index_add_(0, (rows * v_src + corpus.src.long()).reshape(-1),
                  corpus.src_mask().to(dtype).reshape(-1))

@@ -12,7 +12,8 @@ the corpus.
               over time batched over the corpus, then the backtrace, one
               loop over time backwards
   update      the centroid sums and counts over the winning segments,
-              scatter-added (``index_add_``)
+              one one-hot product (``core.counts.segment_sum``: the same
+              bits in every run, as the reference's one-hot form)
 
 The cluster ids are unsupervised word classes (evaluated by boundary F1 and
 purity).  Keep ``torch.backends.cuda.matmul.allow_tf32`` off: the distances
@@ -26,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from multimodalworddiscovery_tpu_torch.core.counts import segment_sum
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 
 _BIG = 1e30
@@ -195,10 +197,9 @@ def expected_counts(
     k, e = params.centroids.shape
     ends = is_end.reshape(-1)
     lbl = chosen_label.reshape(-1)[ends].long()
-    sums = torch.zeros((k, e), dtype=emb.dtype, device=emb.device)
-    sums.index_add_(0, lbl, chosen_emb.reshape(-1, e)[ends])
-    counts = torch.zeros(k, dtype=emb.dtype, device=emb.device)
-    counts.index_add_(0, lbl, torch.ones_like(lbl, dtype=emb.dtype))
+    chosen = chosen_emb.reshape(-1, e)[ends]
+    stats = segment_sum(torch.cat([chosen, torch.ones_like(chosen[:, :1])], dim=1), lbl, k)
+    sums, counts = stats[:, :e], stats[:, e]
     total_cost = torch.sum(torch.where(is_end, _take_l(seg_cost, chosen_l), 0.0))
     # 'loglik' = negative distortion, for uniform monotonicity displays
     return (sums, counts, is_end.sum()), -total_cost

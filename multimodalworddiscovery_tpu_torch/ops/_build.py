@@ -38,11 +38,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # strides as long long; each returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "mwd_table_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mwd_pair_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mwd_pair_counts": [_P] * 5 + [_I] * 5 + [_P],
     "mwd_log_matmul": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_I, ctypes.c_float, _P],
     "mwd_log_matmul_work": [_I] * 6,
     "mwd_estep_counts_work": [_I] * 3,
-    "mwd_estep_counts": [_P] * 12 + [_I] * 6 + [_P],
+    "mwd_estep_counts": [_P] * 13 + [_I] * 6 + [_P],
     "mwd_estep_work": [_I] * 4,
     "mwd_estep": [_P] * 10 + [_I] * 5 + [_P],
     "mwd_viterbi": [_P] * 8 + [_I] * 3 + [_P],

@@ -22,12 +22,15 @@ lane layout), on K2's count consumer (``csrc/counts.cuh``): a segment of a
 warp (32 lanes, or fewer for short rows, so several rows share a warp)
 reads a (n, t) row, the posteriors of concept 0 (the null states, wherever
 they sit) are summed by shuffles and added once, the others go into a
-per-block [F, E] table in shared memory, and a persistent grid of up to two
-blocks an SM flushes each table's nonzero entries into the counts with one
-atomic each.  A table larger than shared memory is skipped and the adds go
-straight into the counts, so it takes every shape K4 does and any
-vocabulary.  The plain version is the scatter-add
-``core.counts.pair_counts``.
+per-block [F, E] table in shared memory, and a persistent grid (up to two
+blocks of 512 threads an SM, or one of 1024 where the table fits only once)
+flushes each table's nonzero entries into the counts.  A table larger than
+shared memory is skipped and the adds go straight into the counts, so it
+takes every shape K4 does and any vocabulary.  The adds are integer adds
+in fixed point (64-bit numbers at a scale of 2^48, exact for values from
+2^-24 up; float32 at the end), so one input gives the same counts in every
+run; gamma must be nonnegative (a negative or NaN element adds nothing).
+The plain version is the scatter-add ``core.counts.pair_counts``.
 """
 
 from __future__ import annotations
@@ -94,14 +97,16 @@ def pair_counts(
     _build.require(gamma, "gamma", torch.float32, (n, ts, s), dev)
     _build.require(src, "src", torch.int32, (n, ts), dev)
     _build.require(concepts, "concepts", torch.int32, (n, s), dev)
-    counts = torch.zeros((n_rows, n_cols), dtype=torch.float32, device=dev)
-    if gamma.numel() == 0 or counts.numel() == 0:
-        return counts
+    if gamma.numel() == 0 or n_rows * n_cols == 0:
+        return torch.zeros((n_rows, n_cols), dtype=torch.float32, device=dev)
+    counts = torch.empty((n_rows, n_cols), dtype=torch.float32, device=dev)
+    acc = torch.empty((2, n_rows * n_cols), dtype=torch.int64, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         status = lib.mwd_pair_counts(
-            gamma.data_ptr(), src.data_ptr(), concepts.data_ptr(), counts.data_ptr(),
-            n, ts, s, n_rows, n_cols, torch.cuda.current_stream(dev).cuda_stream,
+            gamma.data_ptr(), src.data_ptr(), concepts.data_ptr(), acc.data_ptr(),
+            counts.data_ptr(), n, ts, s, n_rows, n_cols,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "mwd_pair_counts")
     pair_counts.launches += 1

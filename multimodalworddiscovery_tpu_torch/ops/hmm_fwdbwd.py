@@ -43,7 +43,8 @@ longest; xi is added once per chunk of steps and reduced over blocks in a
 fixed order (see ``csrc/hmm_estep.cu``'s header for the rest of the
 design).  K2's backward adds each posterior into a [V_src, V_trg] table of
 its block in shared memory, flushed once per block, in place of K4's
-gamma store.  Each E-step is one C call.
+gamma store; the adds are integer adds in fixed point (``csrc/counts.cuh``),
+so one input gives the same counts in every run.  Each E-step is one C call.
 """
 
 from __future__ import annotations
@@ -294,11 +295,12 @@ def hmm_estep_counts(
     xi = torch.empty((s, s), **f32)
     logz = torch.empty((n,), **f32)
     work = torch.empty((_counts_work_floats(n, ts, s),), **f32)
+    acc = torch.empty((2, n_rows * n_cols), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         status = _build.load().mwd_estep_counts(
             base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
             emit.data_ptr(), src_len.data_ptr(), src.data_ptr(), concepts.data_ptr(),
-            work.data_ptr(), counts.data_ptr(), xi.data_ptr(), logz.data_ptr(),
+            work.data_ptr(), acc.data_ptr(), counts.data_ptr(), xi.data_ptr(), logz.data_ptr(),
             n, ts, s, n_rows, n_cols, int(bf16), _stream(dev),
         )
     _build.check(status, "mwd_estep_counts")

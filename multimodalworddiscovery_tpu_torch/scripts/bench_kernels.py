@@ -9,9 +9,9 @@ n_fft 512, 400, 401, 1024 and 4096, and 300 mels at n_fft 512), ``counts``
 (K1 lookup and K7 pair counts against their plain versions and the library
 scatter, at the headline shape N=8000, Ts=31, S=12 and at the dense-caption
 shape N=512, Ts=181, S=128, gamma from K4; K1 also at the VQ teacher's
-shape N=4004, Ts=401, S=64 on random ids, each K1 row with its device time
-from torch.profiler, since back-to-back calls of so short a kernel are
-paced by the host) and ``log_matmul`` (K8 and K8-bf16 at square sizes 512,
+shape N=4004, Ts=401, S=64 on random ids, each K1 and K7 row with its
+device time from torch.profiler, since back-to-back calls of so short a
+kernel are paced by the host) and ``log_matmul`` (K8 and K8-bf16 at square sizes 512,
 1024 and 2048 from 5 * normal, the broadcast library form at <= 1024, as
 the reference; then K8 on the first combine of ``scripts/bench_assoc.py``'s
 S64 and S128 step matrices, parameters after 10 EM iterations, with the
@@ -30,14 +30,28 @@ iterations and discover on N=2000 utterances of 13-dim frames),
 directions: Model-1 through K1 and plain, the discrete HMM, grounding) and
 ``detector`` (the region-proposal network's Adam steps at B=64 drawn from
 N=512 images of 64 x 64, and ``propose`` at k=8 on all 512; medians of
-five timed rounds).  The reference's entries em, hmm_estep and viterbi
-have their counterparts in ``bench_estep``; its ``viterbi_dense`` row (the
-dense ``hmm_core.viterbi``) waits for the port's benchmark (ROADMAP queue
-1 item 1), and ``chip_smoke.py`` path 15 times it meanwhile.
+five timed rounds).  Three entries time whole training and decoding calls,
+the medians of five rounds each: ``em`` (100 iterations of ``train`` on
+bench.py's corpus, N=8000: Model-1, the discrete HMM plain and through its
+kernels, K1 + K2), ``hmm_estep`` (50 iterations of ``hmm.train`` at the
+reference's S12, S64 and S128 corpora: plain, through the kernels, and
+through the kernels in bf16; K1 + K2 up to S=64, K1 -> K4 -> K7 at S=128;
+each record with its final loglik's relative gap from the plain run's) and
+``viterbi`` (the S12 and S128 corpora after one EM step: the dense
+``hmm_core.viterbi``, the factored plain decoder and K3, with K3's
+agreement with the factored decoder).  Their bounds count the E-step's
+7 S^2 operations per valid utterance-step (the bf16 rows' products at the
+bf16 tensor-core rate), Viterbi's 2 S^2, Model-1's two products, against
+the bytes of the corpus and the parameters.  ``glue`` times each EM count
+reduction that sums in a fixed order (``core.counts.segment_sum`` and
+``pool_columns``, and ``select_columns``' gradient) against the float
+scatter-add it replaced, at the stretch recipe's shape (N=4000, Ts=401,
+S=64, 200 concepts, 64-dim frames), the CRF's (N=400, S=8) and segmental
+k-means' (N=2000, 13-dim frames); the scatters are timed only.
 
     python -m multimodalworddiscovery_tpu_torch.scripts.bench_kernels \\
-        [--only mfcc counts log_matmul model1_align models retrieval detector] \\
-        [--reps 10] [--out build/bench/kernels.jsonl]
+        [--only mfcc counts log_matmul model1_align models retrieval detector em \\
+         hmm_estep viterbi glue] [--reps 10] [--out build/bench/kernels.jsonl]
 
 Each record is printed as one JSON line and appended to ``--out`` (default
 ``build/bench/kernels.jsonl`` in the repository), with the card's name and
@@ -61,7 +75,8 @@ import time
 import numpy as np
 import torch
 
-BENCHES = ("mfcc", "counts", "log_matmul", "model1_align", "models", "retrieval", "detector")
+BENCHES = ("mfcc", "counts", "log_matmul", "model1_align", "models", "retrieval", "detector",
+           "em", "hmm_estep", "viterbi", "glue")
 DEFAULT_OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "bench" / "kernels.jsonl"
 # bench.py's headline corpus, and the dense-caption S=128 row of the
 # reference's estep benchmark (scripts/bench_kernels.py:261-263)
@@ -111,6 +126,23 @@ CRF_MB_CORPUS = dict(n_utterances=2048, n_concepts=60, n_phones=48, min_concepts
                      max_concepts=6, seed=4)
 CRF_MB_FRAMES = dict(feat_dim=13, noise=0.1, seed=4)
 CRF_MB_BATCH = 256
+# bench_em (scripts/bench_kernels.py:95-124) and bench_hmm_estep's
+# (:242-304) iterations, bench_hmm_estep's and bench_viterbi's corpora
+# (:254-264, :320-326); each timed in five rounds
+EM_BENCH_ITERS, ESTEP_BENCH_ITERS, TIMED_ROUNDS = 100, 50, 5
+ESTEP_SHAPES = {
+    "S12": COUNTS_SHAPES["S12_headline"],
+    "S64": dict(n_utterances=1024, n_concepts=200, n_phones=48, min_concepts=24,
+                max_concepts=32, min_word_len=3, max_word_len=5, seed=1),
+    "S128": COUNTS_SHAPES["S128_dense"],
+}
+VITERBI_SHAPES = ("S12", "S128")
+# the glue's shapes: chip_smoke.py's stretch recipe corpus (paths 2-3) and
+# CRF corpus (path 6), with their max_jump
+GLUE_STRETCH = (dict(n_utterances=4000, n_concepts=200, n_phones=48, min_concepts=16,
+                     max_concepts=32, seed=0), dict(feat_dim=64, seed=0), 5)
+GLUE_CRF = (dict(n_utterances=400, n_concepts=40, n_phones=48, min_concepts=2, max_concepts=4,
+                 seed=0), dict(feat_dim=12, seed=0), 3)
 # bench_detector (scripts/bench_kernels.py:681-749)
 DET_N, DET_BATCH, DET_SIZE, DET_K = 512, 64, 64, 8
 LIBRARY_MAX_SIZE = 1024  # the broadcast [I, K, J] form: 4.3 GB at 1024
@@ -297,8 +329,12 @@ def bench_counts(record: Recorder, reps: int, dev: torch.device) -> None:
         ):
             rec = dict(kernel=name, shape=shape, ms=gpu_ms(fn, reps), N=n, T=ts, S=s, F=f, E=e)
             if name == "pair_counts_kernel":
+                # every kernel of the call (the adds and, where there is one,
+                # the counts' conversion), per call
                 rec |= dict(max_abs_err_vs_plain=err, largest_count=float(counts.max()),
-                            nonzero=int((gamma != 0).sum()), **k7_bound)
+                            nonzero=int((gamma != 0).sum()),
+                            device_ms=device_ms(fn, reps, "mwd_pair_counts",
+                                                per="mwd_pair_counts_rows"), **k7_bound)
             if name == "table_lookup_kernel":
                 rec |= bench_lookup(*lookup_args, reps)
             record(**rec)
@@ -572,6 +608,217 @@ def bench_detector(record: Recorder, reps: int, dev: torch.device) -> None:
            images_per_sec=DET_N * 1e3 / ms)
 
 
+def rounds_ms(fn, rounds: int = TIMED_ROUNDS) -> list[float]:
+    """ms of each of ``rounds`` calls of ``fn()`` by CUDA events, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def estep_bound(corpus, params, bf16: bool = False) -> dict:
+    """One discrete-HMM EM iteration's bound: the E-step's 7 S^2 operations
+    per valid utterance-step (forward, backward and xi's products, 2 + 2 +
+    2, and xi's multiply; in bf16 the products' 6 at the bf16 rate), against
+    the corpus's ids and lengths read and the parameters read and written."""
+    s = 2 * corpus.max_trg_len
+    steps = float(int(corpus.src_len.sum()) * s * s)
+    nbytes = 4 * (corpus.src.numel() + corpus.trg.numel() + 2 * corpus.n
+                  + 2 * sum(x.numel() for x in (params.log_emit, params.log_jump)))
+    return bound(nbytes, steps * (1 if bf16 else 7), 6 * steps if bf16 else 0.0)
+
+
+def bench_em(record: Recorder, reps: int, dev: torch.device) -> None:
+    """100 iterations of ``train`` on bench.py's corpus (N=8000, S=12):
+    Model-1 (two float32 products over its count statistics), the discrete
+    HMM plain, and through its kernels (K1 + K2 each iteration); ms per
+    iteration, the median of five rounds."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm, model1
+
+    corpus, _, _ = make_flickr8k_mini(**COUNTS_SHAPES["S12_headline"], device=dev)
+    n, f, e = corpus.n, corpus.src_vocab, corpus.trg_vocab
+    jobs = (("model1_em", model1, {}, bound(4 * n * (f + e) + 8 * f * e, 4.0 * n * f * e)),
+            ("hmm_em", hmm, dict(use_kernels=False), estep_bound(corpus, hmm.init(corpus))),
+            ("hmm_em_fused", hmm, dict(use_kernels=True), estep_bound(corpus, hmm.init(corpus))))
+    for name, mod, kw, b in jobs:
+        p0 = mod.init(corpus)
+        runs = rounds_ms(lambda: mod.train(p0, corpus, EM_BENCH_ITERS, **kw))
+        ms = float(np.median(runs)) / EM_BENCH_ITERS
+        lls = mod.train(p0, corpus, EM_BENCH_ITERS, **kw)[1]
+        record(kernel=name, N=n, iters=EM_BENCH_ITERS, ms_per_iter=ms,
+               utt_iter_per_sec=n * 1e3 / ms, rounds_ms=runs, final_loglik=float(lls[-1]), **b)
+    del corpus
+    torch.cuda.empty_cache()
+
+
+def bench_hmm_estep(record: Recorder, reps: int, dev: torch.device) -> None:
+    """50 iterations of ``hmm.train`` at the S12, S64 and S128 corpora:
+    plain, through the kernels (K1 + K2 where S <= 64, K1 -> K4 -> K7 at
+    S=128) and through them in bf16; ms per iteration (median of five
+    rounds) and the final loglik's relative gap from the plain run's."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm
+
+    variants = (("hmm_estep_plain", dict(use_kernels=False)),
+                ("hmm_estep_kernel", dict(use_kernels=True)),
+                ("hmm_estep_kernel_bf16", dict(use_kernels=True, dot_dtype="bfloat16")))
+    for label, gen in ESTEP_SHAPES.items():
+        corpus, _, _ = make_flickr8k_mini(**gen, device=dev)
+        s, p0 = 2 * corpus.max_trg_len, hmm.init(corpus)
+        route = hmm.estep_route(s, corpus.src_vocab, corpus.trg_vocab, True, "float32")
+        plain_ll = None
+        for name, kw in variants:
+            runs = rounds_ms(lambda: hmm.train(p0, corpus, ESTEP_BENCH_ITERS, **kw))
+            ms = float(np.median(runs)) / ESTEP_BENCH_ITERS
+            ll = float(hmm.train(p0, corpus, ESTEP_BENCH_ITERS, **kw)[1][-1])
+            plain_ll = ll if plain_ll is None else plain_ll
+            record(kernel=name, shape=label, S=s, Ts=corpus.max_src_len, N=corpus.n,
+                   route="plain" if name == "hmm_estep_plain" else route,
+                   iters=ESTEP_BENCH_ITERS, ms_per_iter=ms, utt_iter_per_sec=corpus.n * 1e3 / ms,
+                   rounds_ms=runs, final_loglik=ll,
+                   ll_rel_gap_vs_plain=abs(ll - plain_ll) / max(1.0, abs(plain_ll)),
+                   **estep_bound(corpus, p0, bf16="dot_dtype" in kw))
+        del corpus, p0
+        torch.cuda.empty_cache()
+
+
+def bench_viterbi(record: Recorder, reps: int, dev: torch.device) -> None:
+    """Decode at the S12 and S128 corpora after one EM step: the dense
+    ``hmm_core.viterbi`` on ``hmm._machinery``'s inputs, the factored plain
+    decoder (``hmm.align``, plain) and K3 (``hmm.align`` through the
+    kernels), with K3's share of alignment entries equal to the factored
+    decoder's; ms per decode, the median of five rounds of ``--reps``."""
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini
+    from multimodalworddiscovery_tpu_torch.models import hmm, hmm_core
+
+    for label in VITERBI_SHAPES:
+        corpus, _, _ = make_flickr8k_mini(**ESTEP_SHAPES[label], device=dev)
+        s = 2 * corpus.max_trg_len
+        params, _ = hmm.em_step(hmm.init(corpus), corpus, use_kernels=False)
+        li, lt, le = hmm._machinery(params, corpus)
+        factored = hmm.align(params, corpus, use_kernels=False)
+        kernel = hmm.align(params, corpus, use_kernels=True)
+        # the inputs read once (the factored ones; the dense decoder's [N, S, S]
+        # transitions are its own layout) and the path written once
+        b = bound(4 * (le.numel() + 3 * li.numel() + s * s + 2 * corpus.n * corpus.max_src_len),
+                  float(2 * s * s * int(corpus.src_len.sum())))
+        for name, fn in (
+            ("viterbi_dense", lambda: hmm_core.viterbi(li, lt, le, corpus.src_len)),
+            ("viterbi_factored", lambda: hmm.align(params, corpus, use_kernels=False)),
+            ("viterbi_kernel", lambda: hmm.align(params, corpus, use_kernels=True)),
+        ):
+            ms = float(np.median([gpu_ms(fn, reps) for _ in range(TIMED_ROUNDS)]))
+            rec = dict(kernel=name, shape=label, S=s, Ts=corpus.max_src_len, N=corpus.n, ms=ms,
+                       utt_per_sec=corpus.n * 1e3 / ms, **b)
+            if name == "viterbi_kernel":
+                rec["agree_vs_factored"] = float((kernel == factored).float().mean())
+            record(**rec)
+        del corpus, params, li, lt, le
+        torch.cuda.empty_cache()
+
+
+def bench_glue(record: Recorder, reps: int, dev: torch.device) -> None:
+    """The EM glue's fixed-order count reductions against the scatter-adds
+    they replaced (timed only), each at its site's operand shapes: the
+    posteriors from one E-step (K4) of ``init_diagonal``'s parameters, the
+    sites' ids where the corpus gives them, random ids of the same count
+    and range elsewhere."""
+    from multimodalworddiscovery_tpu_torch.core import counts
+    from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini, phones_to_frames
+    from multimodalworddiscovery_tpu_torch.models import hmm_core, hmm_gaussian
+    from multimodalworddiscovery_tpu_torch.models import segmental_kmeans as skm
+
+    gen = torch.Generator().manual_seed(0)
+
+    def frames(spec):
+        kw, frame_kw, max_jump = spec
+        pc, pg, _ = make_flickr8k_mini(**kw, device=dev)
+        fc, _, _ = phones_to_frames(pc, pg, **frame_kw, device=dev)
+        p = hmm_gaussian.init_diagonal(fc, max_jump=max_jump, n_components=1, generator=gen)
+        gamma = hmm_core.estep(p.log_jump, p.log_p0, max_jump, hmm_gaussian._log_emissions(p, fc),
+                               fc, use_kernels=True)[0]
+        return fc, gamma, max_jump
+
+    def scatter_pool(g, ids, n_cols):
+        n, ts, s = g.shape
+        out = torch.zeros((n, ts, n_cols), dtype=g.dtype, device=g.device)
+        return out.scatter_add_(2, ids.long()[:, None, :].expand(n, ts, s), g)
+
+    def scatter_sum(x, ids, k):
+        return torch.zeros((k,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=x.device).index_add_(0, ids, x)
+
+    def row(site, shape, new, old):
+        record(kernel=f"glue_{site}", shape=shape, ms=median_ms(new, reps),
+               scatter_ms=median_ms(old, reps))
+
+    def sums(site, shape, x, ids, k):
+        row(site, shape, lambda: counts.segment_sum(x, ids, k), lambda: scatter_sum(x, ids, k))
+
+    def widths(site, tt, mj):
+        # [S, S] onto the jump widths: project_widths' cached one-hot product
+        xi = torch.rand((2 * tt, 2 * tt), generator=gen).to(dev)
+        ids = hmm_core.jump_width_ids(tt, mj, dev).reshape(-1)
+        row(site, f"S={2 * tt}, max_jump={mj}", lambda: hmm_core.project_widths(xi, tt, mj),
+            lambda: scatter_sum(xi.reshape(-1), ids, 2 * mj + 3))
+
+    def rand_ids(m, k):
+        return torch.randint(0, k, (m,), generator=gen).to(dev)
+
+    fc, gamma, mj = frames(GLUE_STRETCH)
+    tt, conc, c = fc.max_trg_len, hmm_core.state_concepts(fc), fc.trg_vocab
+    shape = f"N={fc.n}, Ts={fc.max_src_len}, S={2 * tt}, C={c}"
+    row("teacher_responsibilities", shape, lambda: hmm_gaussian.teacher_responsibilities(gamma, fc),
+        lambda: scatter_pool(gamma, conc, c))
+    widths("project_widths", tt, mj)
+    flat = fc.src.reshape(-1, fc.src.shape[-1])
+    wflat = fc.src_mask().reshape(-1).float()
+    a = hmm_gaussian._kmeans_assign(flat[torch.nonzero(wflat)[:64, 0]], flat)
+    sums("kmeans_sweep", f"{flat.shape[0]} frames x {flat.shape[1]} (+ weight), 64 codes",
+         torch.cat([flat * wflat[:, None], wflat[:, None]], dim=1), a, 64)
+    sums("init_moments_diagonal", f"{flat.shape[0]} frames x {flat.shape[1]}, {c} concepts",
+         flat * wflat[:, None], rand_ids(flat.shape[0], c), c)
+    m = fc.n * (fc.max_src_len - 1)
+    sums("supervised_counts_widths", f"{m} steps, {2 * mj + 3} widths",
+         (torch.rand(m, generator=gen) < 0.9).float().to(dev), rand_ids(m, 2 * mj + 3),
+         2 * mj + 3)
+    del gamma, flat, wflat, a
+    torch.cuda.empty_cache()
+
+    fc, gamma, mj = frames(GLUE_CRF)
+    tt, conc, c = fc.max_trg_len, hmm_core.state_concepts(fc), fc.trg_vocab
+    shape = f"N={fc.n}, Ts={fc.max_src_len}, S={2 * tt}, C={c}"
+    row("frame_posteriors", shape, lambda: counts.pool_columns(gamma, conc, c),
+        lambda: scatter_pool(gamma, conc, c))
+    widths("transition_moments", tt, mj)
+    values = torch.randn((fc.n, fc.max_src_len, c), generator=gen).to(dev).requires_grad_()
+    grad = torch.randn(gamma.shape, generator=gen).to(dev)
+    idx = conc.long()[:, None, :].expand(gamma.shape)
+    row("select_columns_grad", shape,
+        lambda: torch.autograd.grad(counts.select_columns(values, conc), values, grad),
+        lambda: torch.autograd.grad(torch.gather(values, 2, idx), values, grad))
+    del gamma, values, grad
+
+    tok, tok_gold, _ = make_flickr8k_mini(**SEGKMEANS_CORPUS, device=dev)
+    kfc, _, _ = phones_to_frames(tok, tok_gold, **SEGKMEANS_FRAMES, device=dev)
+    kp = skm.init(kfc, n_clusters=64, generator=torch.Generator().manual_seed(2))
+    (ksums, _, n_seg), _ = skm.expected_counts(kp, kfc)
+    n_seg, e = int(n_seg), ksums.shape[1]
+    x = torch.randn((n_seg, e + 1), generator=gen).to(dev)
+    sums("segmental_kmeans_update", f"{n_seg} segments x {e} (+ count), 64 clusters", x,
+         rand_ids(n_seg, 64), 64)
+    torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=pathlib.Path, default=DEFAULT_OUT)
@@ -585,7 +832,8 @@ def main(argv: list[str] | None = None) -> None:
     record = Recorder(args.out)
     fns = dict(mfcc=bench_mfcc, counts=bench_counts, log_matmul=bench_log_matmul,
                model1_align=bench_model1_align, models=bench_models,
-               retrieval=bench_retrieval, detector=bench_detector)
+               retrieval=bench_retrieval, detector=bench_detector, em=bench_em,
+               hmm_estep=bench_hmm_estep, viterbi=bench_viterbi, glue=bench_glue)
     for name in args.only or BENCHES:
         fns[name](record, args.reps, dev)
 

@@ -42,13 +42,13 @@ TPU = re.compile(r"TPU|v5 lite|v5e")
 CLAIMS = [
     ("chip_smoke.py wall time, final run",
      r"`python3 chip_smoke\.py` takes about ([\d.]+) s",
-     r"\(PR 15: ([\d.]+) s, build", 0.01),
+     r"\(PR \d+: ([\d.]+) s, build", 0.01),
     ("chip_smoke.py kernel build, final run",
      r"the kernels' build \(([\d.]+) s in that run\)",
-     r"\(PR 15: [\d.]+ s, build ([\d.]+) s", 0.01),
+     r"\(PR \d+: [\d.]+ s, build ([\d.]+) s", 0.01),
     ("path 21 wall time, final run",
      r"path 21 \(the studies\) about ([\d.]+) s of it",
-     r"\(PR 15: [\d.]+ s, build [\d.]+ s, path 21 ([\d.]+) s", 0.01),
+     r"\(PR \d+: [\d.]+ s, build [\d.]+ s, path 21 ([\d.]+) s", 0.01),
     ("headline EM ms per iteration",
      r"headline EM \(K1 \+ K2\) takes ([\d.]+) ms an iteration",
      r"\*\*Headline EM\*\* \(K1 \+ K2\): ([\d.]+) ms an iteration", 0.01),
@@ -66,18 +66,16 @@ CLAIMS = [
      r"40k `self_train`: [\d.]+ → [\d.]+ → [\d.]+ → ([\d.]+)", 0.005),
     ("exp_crf40k em_trans accuracy",
      r"exp_crf40k: em_trans ([\d.]+) at",
-     r"21c em_trans, e2e_trans accuracy; ms a step \| [^|]* \| ([\d.]+),", 0.005),
+     r"CRF steps at [\d.]+ / [\d.]+ ms, accuracy ([\d.]+) /", 0.005),
     ("exp_crf40k em_trans ms per step",
      r"exp_crf40k: em_trans [\d.]+ at ([\d.]+) ms a step",
-     r"21c em_trans, e2e_trans accuracy; ms a step \| [^|]* \| [\d.]+, [\d.]+; ([\d.]+),",
-     0.01),
+     r"CRF steps at ([\d.]+) / [\d.]+ ms, accuracy", 0.01),
     ("exp_crf40k e2e_trans accuracy",
      r"e2e_trans ([\d.]+) at [\d.]+ ms",
-     r"21c em_trans, e2e_trans accuracy; ms a step \| [^|]* \| [\d.]+, ([\d.]+);", 0.005),
+     r"CRF steps at [\d.]+ / [\d.]+ ms, accuracy [\d.]+ / ([\d.]+)\)", 0.005),
     ("exp_crf40k e2e_trans ms per step",
      r"e2e_trans [\d.]+ at ([\d.]+) ms",
-     r"21c em_trans, e2e_trans accuracy; ms a step \| [^|]* \| [\d.]+, [\d.]+; [\d.]+, "
-     r"([\d.]+)", 0.01),
+     r"CRF steps at [\d.]+ / ([\d.]+) ms, accuracy", 0.01),
 ]
 
 

@@ -205,34 +205,47 @@ def test_k7_plain_matches_pallas_pair_counts(seed):
 
 
 def _k7_plan(gamma, src, concepts, f, e, rows_per_block):
-    """csrc/counts.cu's K7 plan in float64 numpy: blocks over contiguous
-    ranges of (n, t) rows, each with its own [F, E] table; in each row the
-    posteriors of concept 0 summed first and added once, every other
-    nonzero posterior added into its entry; then each table's nonzero
-    entries added into the counts."""
+    """csrc/counts.cu's K7 plan (its adds in counts.cuh) in numpy: blocks
+    over contiguous ranges of (n, t) rows, each with its own [F, E] table;
+    in each row the posteriors of concept 0 summed first (float32) and added
+    once, every other nonzero posterior added into its entry.  The adds are
+    integers: each value rounded to 2^-48 (a value of 32 or more straight
+    into the counts, as two words); each table's entries join the counts,
+    and the counts turn into float32 at the end."""
     n, t, s = gamma.shape
-    g = gamma.reshape(n * t, s).astype(np.float64)
+    g = gamma.reshape(n * t, s)
     rows_src = src.reshape(-1)
-    counts = np.zeros((f, e))
+    acc = np.zeros((f, e), np.int64)
+
+    def add(tab, ph, cj, v):
+        if v < 32:
+            tab[ph, cj] += int(np.rint(np.float64(v) * 2.0**48))
+        else:
+            d = np.float64(v) * 2.0**16
+            acc[ph, cj] += (int(np.floor(d)) << 32) + int(np.rint((d - np.floor(d)) * 2.0**32))
+
     for r0 in range(0, n * t, rows_per_block):
-        tab = np.zeros((f, e))
+        tab = np.zeros((f, e), np.int64)
         for r in range(r0, min(n * t, r0 + rows_per_block)):
             c = concepts[r // t]
             ph = rows_src[r]
             null = c == 0
-            tab[ph, 0] += g[r, null].sum()
-            real = ~null & (g[r] != 0)
-            np.add.at(tab[ph], c[real], g[r, real])
-        counts[tab != 0] += tab[tab != 0]
-    return counts
+            g0 = g[r, null].sum(dtype=np.float32)
+            if g0 != 0:
+                add(tab, ph, 0, g0)
+            for k in np.nonzero(~null & (g[r] != 0))[0]:
+                add(tab, ph, c[k], g[r, k])
+        assert tab.max() < 2**62
+        acc += tab
+    return (acc.astype(np.float64) * 2.0**-48).astype(np.float32)
 
 
 @pytest.mark.parametrize("layout", ["path 8 (S=128, nulls the upper half)", "nulls scattered"])
 def test_k7_plan_matches_pair_counts(layout):
-    """K7's plan (per-row null pre-sum, per-block tables) against the JAX
-    package's ``core.counts.pair_counts``: at path 8's state layout
-    (``hmm_core.state_concepts`` of a dense-caption corpus, S=128,
-    V_trg=401) and with the null states placed at random; rtol 1e-5,
+    """K7's plan (per-row null pre-sum, per-block tables, fixed-point adds)
+    against the JAX package's ``core.counts.pair_counts``: at path 8's
+    state layout (``hmm_core.state_concepts`` of a dense-caption corpus,
+    S=128, V_trg=401) and with the null states placed at random; rtol 1e-5,
     atol 1e-5 (float64 sums against float32 ones)."""
     from multimodalworddiscovery_tpu_torch.data import make_flickr8k_mini as torch_make
     from multimodalworddiscovery_tpu_torch.models import hmm_core as tcore

@@ -471,6 +471,68 @@ def test_k2_kernels_batch_utterances(dev, s, n, vocab):
                                    rtol=0, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("v_trg", [61, 4096])
+@pytest.mark.parametrize("s, n", [(12, 29), (12, 2100), (64, 21), (64, 2100)])
+def test_k2_same_bits_twice(dev, s, n, v_trg):
+    """K2 and K2-bf16 called twice on one input give the same counts, xi
+    and logZ bit for bit (the counts' adds are integer adds, in any order),
+    on the warp path (S=12) and the block path (S=64, blocks of 4 and 8),
+    with the count table in shared memory (V_trg=61) and the counts in
+    device memory (V_trg=4096)."""
+    ts = 41
+    lens = [(5 * i) % (ts + 1) for i in range(n)]
+    args6 = _random_factored(n, ts, s, lens, 300 + s, dev)
+    gen = torch.Generator().manual_seed(n)
+    src = torch.randint(0, 49, (n, ts), generator=gen, dtype=torch.int32).to(dev)
+    conc = torch.randint(0, 61, (n, s), generator=gen, dtype=torch.int32).to(dev)
+    args = (*args6[:5], src, conc, args6[5], 49, v_trg)
+    for dot_dtype in ("float32", "bfloat16"):
+        first = k2.hmm_estep_counts(*args, dot_dtype=dot_dtype)
+        second = k2.hmm_estep_counts(*args, dot_dtype=dot_dtype)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+        assert first[0].any()
+
+
+@pytest.mark.parametrize("name", ["S12", "S64"])
+def test_hmm_train_same_bits_twice(dev, name):
+    """hmm.train through the kernels twice from one init: every
+    iteration's loglik and the final parameters equal bit for bit, at the
+    headline's S=12 and at S=64 (both through K1 + K2)."""
+    gen = CASES["S12"] if name == "S12" else dict(
+        n_utterances=300, n_concepts=200, min_concepts=29, max_concepts=32, min_word_len=2,
+        max_word_len=3, seed=5)
+    corpus, _, _ = make_flickr8k_mini(**gen)
+    assert 2 * corpus.max_trg_len == int(name[1:])
+    runs = []
+    for _ in range(2):
+        before = k2.hmm_estep_counts.launches
+        runs.append(hmm.train(hmm.init(corpus), corpus, 5))
+        assert k2.hmm_estep_counts.launches == before + 5
+    (p1, l1), (p2, l2) = runs
+    assert torch.equal(l1, l2)
+    for f in ("log_emit", "log_jump", "log_p0"):
+        assert torch.equal(getattr(p1, f), getattr(p2, f))
+
+
+@pytest.mark.parametrize("s, n, ts", [(12, 300, 31), (128, 64, 181)])
+def test_k7_same_bits_twice(dev, s, n, ts):
+    """K7 called twice gives the same counts bit for bit, on K4's
+    posteriors and on random nonnegative weights (rows summing to far more
+    than 1), with the table in shared memory and in device memory."""
+    gamma, src, conc = (x.to(dev) for x in _k7_random(n, ts, s, 49, 401, s))
+    for n_cols in (401, 4096):
+        first = k1.pair_counts(gamma, src, conc, 49, n_cols)
+        assert torch.equal(first, k1.pair_counts(gamma, src, conc, 49, n_cols))
+    corpus, params, concepts, fact = _inputs("S128", dev)
+    post = k2.hmm_estep(*fact, k1.table_lookup(params.log_emit, corpus.src, concepts),
+                        corpus.src_len)[0]
+    f, e = params.log_emit.shape
+    for n_cols in (e, 4096):
+        first = k1.pair_counts(post, corpus.src, concepts, f, n_cols)
+        assert torch.equal(first, k1.pair_counts(post, corpus.src, concepts, f, n_cols))
+
+
 @pytest.mark.parametrize("s", [12, 40])
 def test_k2_empty_batch_launches_nothing(dev, s):
     """A batch of no utterances gives zero counts and xi and an empty logZ,
