@@ -126,7 +126,8 @@ shapes the main paths give it, then drives twenty-one paths through the kernels
     bounds (loglik rising, accuracy at least the resident trainer's minus
     0.05); ``train_minibatch_streaming`` of the attention step on path 11's
     corpus in 4 shards (B=512, 60 steps): the loss falls, and a run resumed
-    at step 30 gives the uninterrupted run's losses within rtol 1e-5.
+    at step 30 gives the uninterrupted run's losses, final parameters and
+    AdamW moments bit for bit.
     Shards go to a temporary directory removed at the end.
 19. the parallel layer (``parallel/``, ``core/mesh``, ``core/collectives``).
     19a at world size 1 over NCCL (a one-rank group in this process, its
@@ -214,17 +215,26 @@ shapes the main paths give it, then drives twenty-one paths through the kernels
     trained parameters, and at the flat start (per-utterance logZ near
     -24,000, where one float32 ulp moves gamma by 0.2%) only its logZ and
     loglik are held.
-22. reproducibility: paths 1 (the headline EM, K1 + K2, then K3), 3 (the
-    stretch recipe with its codebook and seeding: K1 + K2, K4, K3), 8 (the
-    dense-caption EM: K1 -> K4 -> K7), 2 (the Gaussian EM: K4, K3), 6 (the
-    CRF, 5 iterations: K4 with the MLP's gradient, K3), 10 (Model-1: K1)
-    and 13 (segmental k-means, 3 iterations) each run twice in this process
-    from the same seed and inputs; the two runs must agree bit for bit
-    (``torch.equal``) on every iteration's loglik, the final parameters, the
-    counts of one E-step from them and the decode.  One attention step and
-    one grounding step (paths 11-12) are run twice and whether they agree is
-    printed, not held (autograd's backward of their index ops may add with
-    atomics).  Every check of K2, K2-bf16 and K7 against its plain version
+22. reproducibility.  22a: paths 1 (the headline EM, K1 + K2, then K3), 3
+    (the stretch recipe with its codebook and seeding: K1 + K2, K4, K3), 8
+    (the dense-caption EM: K1 -> K4 -> K7), 2 (the Gaussian EM: K4, K3), 6
+    (the CRF, 5 iterations: K4 with the MLP's gradient, K3), 10 (Model-1:
+    K1) and 13 (segmental k-means, 3 iterations) each run twice in this
+    process from the same seed and inputs; the two runs must agree bit for
+    bit (``torch.equal``) on every iteration's loglik, the final
+    parameters, the counts of one E-step from them and the decode.  22b:
+    every gradient trainer twice from one seed and one state, with cuDNN
+    left free outside the steps (each step scopes its deterministic
+    convolutions): path 11's attention (one B=512 step guided by the
+    discrete teacher: K1 + K4), guided frames attention with a subsampling
+    encoder (one step, the Gaussian teacher's guide from K4), path 12's
+    grounding (one B=256 step), grounding on path 14's region features from
+    the reference's proposals (one step), the DNN-HMM and the e2e CRF (2
+    iterations each, K4), path 15's CRF on minibatches (5 steps, N=2048,
+    B=256, K4), the detector (5 of ``train_detector``'s steps) and path
+    19a's data-parallel attention and grounding steps (NCCL, world size 1);
+    every loss, the final parameters and the Adam moments must agree bit
+    for bit.  Every check of K2, K2-bf16 and K7 against its plain version
     also calls the kernel a second time and requires equal bits.
 
 K1, K2 and K2-bf16 are checked and timed at the headline shape, at K2's
@@ -442,6 +452,9 @@ GUIDED_TEACHER_ITERS = 15
 GUIDED_STEPS = 60  # cut from the config's 400
 SEGKMEANS_ITERS = 10  # path 13: on bench_kernels' SEGKMEANS_CORPUS frames
 REPRO_CRF_ITERS, REPRO_SKM_ITERS = 5, 3  # path 22's cuts of paths 6 and 13
+# path 22b's cuts: DNN-HMM and e2e CRF iterations, CRF minibatch steps,
+# detector steps; its guided frames attention subsamples by 2
+REPRO_GRAD_ITERS, REPRO_CRF_MB_STEPS, REPRO_DET_STEPS, REPRO_SUBSAMPLE = 2, 5, 5, 2
 # tests/test_golden_metrics.py test_golden_dtw_coherence: its corpus and
 # tests/golden_metrics.json "dtw_gold_segments", held within rtol 0.02
 # (atol 1e-3) as that test holds them
@@ -610,7 +623,7 @@ def _same_twice(what: str, first, second) -> None:
     """Two calls of a kernel (or two runs of a path) from the same inputs
     must give the same bits."""
     diff = _differing(first, second)
-    _check(not diff, f"{what}: two calls give equal bits"
+    _check(not diff, f"{what}: equal bits"
                      f"{'' if not diff else f' (differ: {diff[:8]})'}")
 
 
@@ -2286,10 +2299,6 @@ def attention_phase(card: str, counters, dev, corpus, gold) -> dict:
                f"path 11 {name}: the loss falls from the first step to the last")
         batch = minibatch.gather_batch(corpus, torch.arange(bk.ATT_BATCH, device=dev))
         _profile(lambda: step_fn(state, batch), f"one path 11 {name} step (B={bk.ATT_BATCH})", card)
-        runs[name]["same_bits"] = _twice_printed(
-            f"path 11 {name}: one step (B={bk.ATT_BATCH})",
-            lambda: step_fn(attention.init(corpus, dim=bk.MODEL_DIM,
-                                           generator=torch.Generator().manual_seed(SEED)), batch))
     print(f"  discrete teacher: loglik {t_lls.tolist()}, alignment F1 {t_f1:.5f}, launches "
           f"{launches['teacher']}")
     _check(launches["teacher"]["table_lookup"] > 0
@@ -2407,10 +2416,6 @@ def grounding_retrieval_phase(card: str, counters, dev, corpus, teacher) -> dict
     batch = minibatch.gather_batch(corpus, torch.arange(bk.GROUND_BATCH, device=dev))
     _profile(lambda: grounding.em_step(state, batch), f"one grounding step (B={bk.GROUND_BATCH})",
              card)
-    _twice_printed(f"path 12: one grounding step (B={bk.GROUND_BATCH})",
-                   lambda: grounding.em_step(grounding.init(
-                       corpus, dim=bk.MODEL_DIM, generator=torch.Generator().manual_seed(SEED)),
-                       batch))
     m1, _ = model1.train(model1.init(corpus), corpus, EM_ITERS)
     scorers = {
         "model1": lambda d: retrieval.retrieval_scores_model1_pooled(m1, corpus, cand, d),
@@ -3260,18 +3265,16 @@ def stream_gradient_phase(card: str, counters, dev, tmp: str) -> dict:
         return state, torch.stack(losses).cpu().numpy(), ms
 
     _reset(counters)
-    _, full, ms = run(fresh(), ATT_STREAM_STEPS)
+    end, full, ms = run(fresh(), ATT_STREAM_STEPS)
     state, first, _ = run(fresh(), ATT_RESUME)
-    _, rest, _ = run(state, ATT_STREAM_STEPS - ATT_RESUME, start=ATT_RESUME)
+    resumed, rest, _ = run(state, ATT_STREAM_STEPS - ATT_RESUME, start=ATT_RESUME)
     launches["attention"] = _counts(counters)
     print(f"  attention streamed: loss {full[0]:.5f} at the first step, {full[-1]:.5f} at the "
           f"last; [{card}] {ATT_STREAM_STEPS} steps in {ms:.1f} ms (CUDA events)")
     _check(full[-1] < full[0], "path 18 streamed attention: the loss falls")
-    _check(np.allclose(first, full[:ATT_RESUME], rtol=1e-5, atol=0)
-           and np.allclose(rest, full[ATT_RESUME:], rtol=1e-5, atol=0),
-           f"path 18: the run resumed at step {ATT_RESUME} gives the uninterrupted run's "
-           f"losses within rtol 1e-5 (max rel "
-           f"{float(np.max(np.abs(rest - full[ATT_RESUME:]) / np.abs(full[ATT_RESUME:]))):.3e})")
+    _same_twice(f"path 18: the run resumed at step {ATT_RESUME} against the uninterrupted run "
+                f"(every loss, the final parameters and Adam moments)",
+                (np.concatenate([first, rest]), resumed), (full, end))
     _check(sum(launches["attention"].values()) == 0, "path 18 attention: no kernel")
     print(f"path 18 wall time {time.perf_counter() - t_path:.1f} s")
     return {"dnn": dnn, "launches": launches}
@@ -4578,18 +4581,28 @@ def studies_phase(here: str, card: str, counters, dev, stretch, stretch_gold) ->
             "rounding": rounding, "times": times, "wall": time.perf_counter() - t_path}
 
 
-def _twice_printed(what: str, step) -> bool:
-    """``step()`` (a fresh state's one gradient step) twice: printed whether
-    the two agree bit for bit, not held."""
-    first, second = step(), step()
-    diff = _differing(first, second)
-    print(f"  {what}, run twice from one state: "
-          f"{'equal bits' if not diff else f'{len(diff)} tensors differ, e.g. {diff[:4]}'}")
-    return not diff
+def _held_twice(counters, launches: dict, what: str, run, kernels=()) -> None:
+    """Path 22's check: ``run()`` twice; the launch counts set to 0 before
+    the first run and read after it (each of ``kernels`` launched); the two
+    results equal bit for bit."""
+    import torch
+
+    _reset(counters)
+    t0 = time.perf_counter()
+    first = run()
+    torch.cuda.synchronize()
+    launches[what] = _counts(counters)
+    second = run()
+    torch.cuda.synchronize()
+    print(f"  {what}: {time.perf_counter() - t0:.2f} s for both runs; the first run's "
+          f"launches {({k: n for k, n in launches[what].items() if n})}")
+    for kernel in kernels:
+        _check(launches[what][kernel] > 0, f"path 22, {what}: {kernel} launched")
+    _same_twice(f"path 22, {what}", first, second)
 
 
 def repro_phase(card: str, counters, dev, stretch) -> dict:
-    """Path 22: paths 1, 3, 8, 2, 6, 10 and 13 each run twice from the same
+    """Path 22a: paths 1, 3, 8, 2, 6, 10 and 13 each run twice from the same
     seed and inputs; the runs must agree bit for bit on every iteration's
     loglik, the final parameters, one E-step's counts from them and the
     decode.  ``stretch`` is path 3's (frame corpus, gold)."""
@@ -4656,23 +4669,148 @@ def repro_phase(card: str, counters, dev, stretch) -> dict:
              "10 Model-1": (m1, "table_lookup"),
              "13 segmental k-means": (kmeans, None)}
     launches = {}
-    print(f"path 22 (reproducibility): paths {', '.join(paths)}, each twice")
+    print(f"path 22a (reproducible EM): paths {', '.join(paths)}, each twice")
     for name, (run, kernel) in paths.items():
-        _reset(counters)
-        t0 = time.perf_counter()
-        first = run()
-        torch.cuda.synchronize()
-        launches[name] = _counts(counters)
-        second = run()
-        torch.cuda.synchronize()
-        print(f"  path {name}: {time.perf_counter() - t0:.2f} s for both runs; the first run's "
-              f"launches {({k: n for k, n in launches[name].items() if n})}")
-        if kernel is not None:
-            _check(launches[name][kernel] > 0, f"path 22, path {name}: {kernel} launched")
-        _same_twice(f"path 22, path {name} (logliks, parameters, counts, decode)", first,
-                    second)
-        del first, second
+        _held_twice(counters, launches, f"path {name} (logliks, parameters, counts, decode)",
+                    run, (kernel,) if kernel else ())
     del head, dense, crf_fc, m1c, skm_fc
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def repro_gradient_phase(here: str, card: str, counters, dev) -> dict:
+    """Path 22b: every gradient trainer twice from one seed and one state;
+    the runs must agree bit for bit on every loss, the final parameters and
+    the Adam moments.  Attention (one B=512 step on path 11's corpus,
+    guided by the discrete teacher: K1 + K4), guided frames attention with
+    a subsampling encoder (one step, the Gaussian teacher's guide from
+    K4), grounding (one B=256 step), grounding on path 14's region
+    features from the reference's proposals (one step), the DNN-HMM and the
+    e2e CRF (REPRO_GRAD_ITERS iterations, K4), the CRF on minibatches
+    (REPRO_CRF_MB_STEPS steps of path 15's bench row, K4), the detector
+    (REPRO_DET_STEPS of train_detector's steps) and path 19a's
+    data-parallel attention and grounding steps (NCCL, world size 1)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multimodalworddiscovery_tpu_torch.core.mesh import make_mesh
+    from multimodalworddiscovery_tpu_torch.data import (
+        make_boxes_mini, make_flickr8k_mini, phones_to_frames,
+    )
+    from multimodalworddiscovery_tpu_torch.frontend import detector
+    from multimodalworddiscovery_tpu_torch.models import (
+        attention, grounding, hmm, hmm_crf, hmm_dnn, hmm_gaussian, minibatch,
+    )
+    from multimodalworddiscovery_tpu_torch.parallel import multihost, shard_corpus
+    from multimodalworddiscovery_tpu_torch.scripts import bench_kernels as bk
+    from multimodalworddiscovery_tpu_torch.scripts import image_pipeline as ip
+    from multimodalworddiscovery_tpu_torch.scripts import train_detector as td
+
+    def gen(seed=SEED):
+        return torch.Generator().manual_seed(seed)
+
+    # the inputs, each made once: corpora, teachers, region features, images
+    mc, _, _ = make_flickr8k_mini(**bk.MODELS_CORPUS, device=dev)
+    teacher, _ = hmm.train(hmm.init(mc), mc, TEACHER_ITERS)
+    pc, pg, _ = make_flickr8k_mini(**GUIDED_FRAMES)
+    gfc, _, _ = phones_to_frames(pc, pg, **GUIDED_FRAMES_FEAT, device=dev)
+    gt = hmm_gaussian.init(gfc, max_jump=3, n_components=2, generator=gen(SEED + 1))
+    gt, _ = hmm_gaussian.train(gt, gfc, GUIDED_TEACHER_ITERS)
+    pc, pg, _ = make_flickr8k_mini(**CRF_CORPUS, device=dev)
+    crf_fc, _, _ = phones_to_frames(pc, pg, **CRF_FRAMES, device=dev)
+    data = ip.paired_corpus(ip.DEFAULTS["n_utterances"], ip.DEFAULTS["n_concepts"],
+                            ip.DEFAULTS["image_size"], dev)
+    with np.load(os.path.join(here, IMAGE_PROPOSALS)) as z:
+        rc, _, _ = ip.regions_corpus(data, z["boxes"], z["keep"], device=dev)
+    det_cfg = detector.DetectorConfig(image_size=td.DEFAULTS["image_size"])
+    images, boxes, mask = (torch.as_tensor(a, device=dev) for a in make_boxes_mini(
+        n_images=td.DEFAULTS["n_images"], image_size=td.DEFAULTS["image_size"], seed=0))
+
+    def one_step(mod, step_fn, batch, corpus=mc, mesh=None):
+        state = mod.init(mc, dim=bk.MODEL_DIM, generator=gen())
+        return minibatch.make_minibatch_step(step_fn, corpus, batch, mesh=mesh)(
+            state, gen(SEED + 1))
+
+    def guided(s, b):
+        return attention.em_step(s, b, guide=attention.hmm_guide_matrix(teacher, b))
+
+    def guided_frames():
+        state = attention.init(gfc, dim=bk.MODEL_DIM, subsample=REPRO_SUBSAMPLE,
+                               generator=gen())
+        guide = attention.hmm_guide_matrix(gt, gfc, posteriors_fn=hmm_gaussian.posteriors)
+        return attention.em_step(state, gfc, guide=guide)
+
+    def regions():
+        return grounding.em_step(grounding.init(rc, dim=ip.GROUNDING_DIM,
+                                                generator=gen(ip.GROUNDING_SEED)), rc)
+
+    def dnn():
+        return hmm_dnn.train(hmm_dnn.init(crf_fc, **CRF_MODEL, generator=gen()), crf_fc,
+                             REPRO_GRAD_ITERS, use_kernels=True)
+
+    def e2e():
+        return hmm_crf.train(hmm_crf.init_e2e(crf_fc, **CRF_MODEL, generator=gen()), crf_fc,
+                             REPRO_GRAD_ITERS, use_kernels=True, learn_transitions=True)
+
+    def crf_minibatches():
+        _, _, params, step = bk.crf_minibatch_setup(dev)
+        g, stats = gen(3), []
+        for _ in range(REPRO_CRF_MB_STEPS):
+            params, st = step(params, g)
+            stats.append(st)
+        return params, stats
+
+    def detector_steps():
+        model = detector.init(det_cfg, gen(td.SEED), dev)
+        step = detector.make_train_step(model, torch.as_tensor(det_cfg.anchors(), device=dev),
+                                        td.DEFAULTS["lr"])
+        opt, stats = hmm_dnn.adam_init(model.parameters()), []
+        for _ in range(REPRO_DET_STEPS):
+            opt, st = step(opt, images, boxes, mask)
+            stats.append(st)
+        return model, opt, stats
+
+    trainers = {
+        f"11 attention, one guided step (B={bk.ATT_BATCH})":
+            (lambda: one_step(attention, guided, bk.ATT_BATCH), ("table_lookup", "hmm_estep")),
+        f"11 guided frames attention, subsample {REPRO_SUBSAMPLE}, one step (N={gfc.n})":
+            (guided_frames, ("hmm_estep",)),
+        f"12 grounding, one step (B={bk.GROUND_BATCH})":
+            (lambda: one_step(grounding, grounding.em_step, bk.GROUND_BATCH), ()),
+        f"14 grounding on region features, one step (N={rc.n})": (regions, ()),
+        f"6 DNN-HMM, {REPRO_GRAD_ITERS} iterations": (dnn, ("hmm_estep",)),
+        f"7 e2e CRF, {REPRO_GRAD_ITERS} iterations": (e2e, ("hmm_estep",)),
+        f"15 CRF on minibatches, {REPRO_CRF_MB_STEPS} steps (B={bk.CRF_MB_BATCH})":
+            (crf_minibatches, ("hmm_estep",)),
+        f"14 detector, {REPRO_DET_STEPS} train_detector steps": (detector_steps, ()),
+    }
+    launches = {}
+    t_path = time.perf_counter()
+    print(f"path 22b (reproducible gradient steps): {len(trainers) + 2} trainers, each twice "
+          f"(cudnn.deterministic {torch.backends.cudnn.deterministic} outside the steps)")
+    for name, (run, kernels) in trainers.items():
+        _held_twice(counters, launches, f"path {name} (losses, parameters, Adam moments)",
+                    run, kernels)
+    work = pathlib.Path(here, "build", "chip_smoke", "path22")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    multihost.initialize("file://" + str(work / "nccl_store"), 1, 0, device="cuda")
+    try:
+        mesh = make_mesh()
+        shard = shard_corpus(mc, mesh)
+        for mod, batch in ((attention, bk.ATT_BATCH), (grounding, bk.GROUND_BATCH)):
+            _held_twice(counters, launches,
+                        f"path 19a data-parallel {mod.__name__.rsplit('.', 1)[-1]} step over "
+                        f"{dist.get_backend()} at world size 1 (B={batch}; losses, parameters, "
+                        f"Adam moments)",
+                        lambda mod=mod, batch=batch: one_step(mod, mod.em_step, batch, shard,
+                                                              mesh))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"path 22b wall time {time.perf_counter() - t_path:.1f} s")
+    del mc, gfc, crf_fc, data, rc, images, boxes, mask
     torch.cuda.empty_cache()
     return {"launches": launches}
 
@@ -5140,9 +5278,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(elapsed())
 
-    # --- path 22: reproducibility, paths 1, 3, 8, 2, 6, 10 and 13 twice ---
+    # --- path 22: reproducibility, paths 1, 3, 8, 2, 6, 10 and 13 twice,
+    # then every gradient trainer twice ---
     repro_phase(card, kernels_all, dev, stretch22)
     del stretch22
+    repro_gradient_phase(here, card, kernels_all, dev)
     print(elapsed())
 
     # --- the port's bench_kernels (counts, log_matmul) and bench_assoc ---

@@ -11,10 +11,13 @@ time in a fixed order, which give the same bits in every run as the
 reference's contractions do.  ``table_lookup`` and ``pair_counts`` are the
 plain versions of the K1 lookup kernel and of K7 / K2's count half
 (``ops/``); ``select_columns`` picks each state's column of per-concept
-emissions, and its gradient pools back by ``pool_columns``.
+emissions, and its gradient pools back by ``pool_columns``; ``embed_rows``
+is an embedding lookup whose gradient sums back by ``segment_sum``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -65,6 +68,36 @@ def select_columns(
     return _SelectColumns.apply(values, col_ids)
 
 
+class _EmbedRows(torch.autograd.Function):
+    """The row gather with ``segment_sum`` as its backward (autograd's
+    backward of an index gather adds rows into the weight with atomics on
+    the card)."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = weight.shape[0]
+        return weight[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        d = grad.shape[-1]
+        return segment_sum(grad.reshape(-1, d), ids.reshape(-1), ctx.n_rows), None
+
+
+def embed_rows(
+    weight: torch.Tensor,  # [V, D]
+    ids: torch.Tensor,     # [...] int in [0, V)
+) -> torch.Tensor:
+    """out[...] = weight[ids[...]]  ->  [..., D], the exact index gather.
+    Its gradient with respect to ``weight`` is ``segment_sum`` of the
+    output's gradient over ``ids`` (``jnp.take``'s VJP, the same terms in a
+    fixed order), so a gradient step through it gives the same bits in
+    every run."""
+    return _EmbedRows.apply(weight, ids.long())
+
+
 def segment_sum(
     data: torch.Tensor,  # [M] or [M, D]
     ids: torch.Tensor,   # [M] int in [0, num_segments)
@@ -77,7 +110,7 @@ def segment_sum(
     while TF32 is off (``torch.backends.cuda.matmul.allow_tf32``, off by
     default), as the reference's HIGHEST-precision contractions are."""
     m = ids.shape[0]
-    x = data.reshape(m, -1)
+    x = data.reshape(m, math.prod(data.shape[1:]))
     cols = torch.arange(num_segments, device=ids.device)
     step = max(1, ONEHOT_ELEMENTS // max(num_segments, 1))
     out = None

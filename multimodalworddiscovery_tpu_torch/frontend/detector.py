@@ -17,7 +17,9 @@ What keeps it equal to the reference:
   (``scatter_reduce(..., "amax")``), as ``.at[].max()`` resolves
   collisions; every argmax is ``torch.argmax``'s first maximum.
 
-Adam is optax's (``hmm_dnn.adam_update``).  Keep cuDNN's TF32 off
+Adam is optax's (``hmm_dnn.adam_update``); a training step takes its loss
+and gradient under ``core.determinism.deterministic_convolutions``, so it
+gives the same bits in every run.  Keep cuDNN's TF32 off
 (``torch.backends.cudnn.allow_tf32``) where a result is held to float32.
 Boxes are normalized (y1, x1, y2, x2) in [0, 1] throughout.
 """
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodalworddiscovery_tpu_torch.core.determinism import deterministic_convolutions
 from multimodalworddiscovery_tpu_torch.models import flax_params, hmm_dnn
 
 # clamp on predicted log-size deltas: exp(4) ~ 55x an anchor's size
@@ -326,8 +329,9 @@ def make_train_step(model: Detector, anchors: torch.Tensor, learning_rate: float
     weights = list(model.parameters())
 
     def step(opt_state, images, gt_boxes, gt_mask):
-        loss, stats = loss_fn(model, anchors, images, gt_boxes, gt_mask)
-        grads = torch.autograd.grad(loss, weights)
+        with deterministic_convolutions():
+            loss, stats = loss_fn(model, anchors, images, gt_boxes, gt_mask)
+            grads = torch.autograd.grad(loss, weights)
         updates, opt_state = hmm_dnn.adam_update(grads, opt_state, learning_rate)
         hmm_dnn.apply_updates(model, updates)
         return opt_state, {k: v.detach() for k, v in stats.items()}

@@ -13,7 +13,9 @@ The networks are ``nn.Module``s laid out as the reference's flax modules
 decoder row gets uniform weights) and a stride-s conv front end of width
 2s-1 with "SAME" padding.  The attention is the reference's own
 einsum/softmax in plain torch: ``align`` needs the weights, which a fused
-attention does not return.
+attention does not return.  The embeddings' gradients sum in a fixed order
+and a step's convolution backward runs cuDNN's deterministic algorithms
+(``core.determinism``), so one seed gives the same step bits in every run.
 
 Optional guidance (``em_step(guide=...)``): cross-entropy between the
 attention rows and a teacher alignment distribution, ``hmm_guide_matrix``
@@ -35,6 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalworddiscovery_tpu_torch.core.collectives import all_sum, group_of
+from multimodalworddiscovery_tpu_torch.core.determinism import (
+    FixedOrderEmbedding,
+    deterministic_convolutions,
+)
 from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import flax_params, hmm_dnn
@@ -112,7 +118,7 @@ class AttentionAligner(nn.Module):
         super().__init__()
         self.dim, self.subsample = dim, subsample
         if src_vocab > 0:
-            self.src_embed = nn.Embedding(src_vocab, dim)
+            self.src_embed = FixedOrderEmbedding(src_vocab, dim)
         else:
             self.src_proj = nn.Linear(feat_dim, dim)
         if subsample > 1:
@@ -122,7 +128,7 @@ class AttentionAligner(nn.Module):
         self.src_pos = nn.Parameter(torch.zeros(1, ts, dim))
         self.enc = nn.ModuleList(_Block(dim, heads) for _ in range(enc_layers))
         self.enc_norm = _layer_norm(dim)
-        self.trg_embed = nn.Embedding(trg_vocab, dim)
+        self.trg_embed = FixedOrderEmbedding(trg_vocab, dim)
         self.trg_pos = nn.Parameter(torch.zeros(1, tt, dim))
         self.dec_self = _Block(dim, heads)
         self.ln_cross, self.ln_mlp, self.ln_out = (_layer_norm(dim) for _ in range(3))
@@ -278,6 +284,7 @@ def _loss_fn(model, src, src_mask, trg_in, trg_mask, trg, entropy_weight=0.0,
     (a data-parallel rank's part of the global batch)."""
     logits, attn = model(src, src_mask, trg_in, trg_mask)
     logp = torch.log_softmax(logits, dim=-1)
+    # gather's backward adds each element once into zeros: exact in any order
     nll = -torch.gather(logp, 2, trg.long()[..., None])[..., 0]
     nll = torch.where(trg_mask, nll, 0.0)
     ntok = torch.clamp(trg_mask.sum() if norms is None else norms[0], min=1)
@@ -345,10 +352,11 @@ def em_step(
     if group is not None:
         norms = all_sum(torch.stack([ntok, src_mask.sum()]), group)
         ntok = norms[0]
-    loss = _loss_fn(model, src, src_mask, trg_in, trg_mask, corpus.trg,
-                    state.entropy_weight, guide, guide_weight, norms)
     weights = list(model.parameters())
-    grads = torch.autograd.grad(loss, weights)
+    with deterministic_convolutions():
+        loss = _loss_fn(model, src, src_mask, trg_in, trg_mask, corpus.trg,
+                        state.entropy_weight, guide, guide_weight, norms)
+        grads = torch.autograd.grad(loss, weights)
     updates, opt = hmm_dnn.adam_update(grads, state.opt_state, state.learning_rate,
                                        WEIGHT_DECAY, weights, group)
     hmm_dnn.apply_updates(model, updates)

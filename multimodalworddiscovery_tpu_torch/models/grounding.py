@@ -8,7 +8,10 @@ read off the frame-region similarity matrix.  The speech encoder is a small
 features); one training step scores every pair of the batch at once
 (the in-batch contrastive setup).  Training uses Adam (optax.adam, no
 decay).  The networks are ``nn.Module``s laid out as the reference's flax
-modules, so ``params_from_numpy`` maps a flax tree onto them.
+modules, so ``params_from_numpy`` maps a flax tree onto them.  The
+embeddings' gradients sum in a fixed order and a step's convolution
+backward runs cuDNN's deterministic algorithms (``core.determinism``), so
+one seed gives the same step bits in every run.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalworddiscovery_tpu_torch.core.collectives import gather_rows, group_of
+from multimodalworddiscovery_tpu_torch.core.determinism import (
+    FixedOrderEmbedding,
+    deterministic_convolutions,
+)
 from multimodalworddiscovery_tpu_torch.core.masking import lengths_to_mask
 from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import flax_params, hmm_dnn
@@ -50,7 +57,7 @@ class SpeechEncoder(nn.Module):
     def __init__(self, dim: int = 128, vocab: int = 0, feat_dim: int = 0):
         super().__init__()
         if vocab > 0:
-            self.embed = nn.Embedding(vocab, dim)
+            self.embed = FixedOrderEmbedding(vocab, dim)
         else:
             self.proj = nn.Linear(feat_dim, dim)
         self.conv_0 = nn.Conv1d(dim, dim, 5)
@@ -71,7 +78,7 @@ class RegionEncoder(nn.Module):
     def __init__(self, dim: int = 128, vocab: int = 0, feat_dim: int = 0):
         super().__init__()
         if vocab > 0:
-            self.embed = nn.Embedding(vocab, dim)
+            self.embed = FixedOrderEmbedding(vocab, dim)
         else:
             self.hidden = nn.Linear(feat_dim, dim)
             self.proj = nn.Linear(dim, dim)
@@ -219,8 +226,9 @@ def em_step(state: GroundingParams, corpus: Corpus,
     same step."""
     group = group_of(mesh)
     model = copy.deepcopy(state.model)
-    loss = _loss_fn(model, corpus, state.margin, group)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
+    with deterministic_convolutions():
+        loss = _loss_fn(model, corpus, state.margin, group)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
     updates, opt = hmm_dnn.adam_update(grads, state.opt_state, state.learning_rate,
                                        group=group)
     hmm_dnn.apply_updates(model, updates)

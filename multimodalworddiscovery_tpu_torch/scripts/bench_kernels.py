@@ -21,19 +21,20 @@ iterations at the reference's Tt6 shape, N=8000, and Tt32 shape, N=2048
 with 24-32 concepts: the EM iteration, the dense decode through K1 and
 through the plain gather, and the concept-space decode), ``models``
 (minibatch steps of the attention aligner at B=512 and of the grounding
-model at B=256 on the N=8192 corpus at dim 128, with each step's
-operations from ``torch.utils.flop_counter``; the end-to-end CRF's
+model at B=256 on the N=8192 corpus at dim 128, medians of five timed
+rounds, with each step's operations from ``torch.utils.flop_counter`` and
+its kernels' device time from torch.profiler; the end-to-end CRF's
 minibatch steps at B=256 on N=2048 utterances of 13-dim frames, with
 learned transitions, its E-steps through K4; segmental k-means EM
 iterations and discover on N=2000 utterances of 13-dim frames),
 ``retrieval`` (pooled scores, pool 32, on the N=8192 corpus, both
 directions: Model-1 through K1 and plain, the discrete HMM, grounding) and
 ``detector`` (the region-proposal network's Adam steps at B=64 drawn from
-N=512 images of 64 x 64, and ``propose`` at k=8 on all 512; medians of
-five timed rounds).  Three entries time whole training and decoding calls,
-the medians of five rounds each: ``em`` (100 iterations of ``train`` on
-bench.py's corpus, N=8000: Model-1, the discrete HMM plain and through its
-kernels, K1 + K2), ``hmm_estep`` (50 iterations of ``hmm.train`` at the
+N=512 images of 64 x 64, with the step's device time, and ``propose`` at
+k=8 on all 512; medians of five timed rounds).  Three entries time whole
+training and decoding calls, the medians of five rounds each: ``em``
+(100 iterations of ``train`` on bench.py's corpus, N=8000: Model-1, the
+discrete HMM plain and through its kernels, K1 + K2), ``hmm_estep`` (50 iterations of ``hmm.train`` at the
 reference's S12, S64 and S128 corpora: plain, through the kernels, and
 through the kernels in bf16; K1 + K2 up to S=64, K1 -> K4 -> K7 at S=128;
 each record with its final loglik's relative gap from the plain run's) and
@@ -47,7 +48,15 @@ reduction that sums in a fixed order (``core.counts.segment_sum`` and
 ``pool_columns``, and ``select_columns``' gradient) against the float
 scatter-add it replaced, at the stretch recipe's shape (N=4000, Ts=401,
 S=64, 200 concepts, 64-dim frames), the CRF's (N=400, S=8) and segmental
-k-means' (N=2000, 13-dim frames); the scatters are timed only.
+k-means' (N=2000, 13-dim frames); the scatters are timed only.  It also
+times the gradient steps' fixed-order embedding backward
+(``core.counts.embed_rows``) against autograd's ``F.embedding`` backward at
+the attention and grounding batches (source and target), and their
+convolutions' forward and backward (grounding's width-5 conv, of which
+its speech encoder has two, the subsampling conv of guided frames
+attention, the detector's whole loss and gradient) under
+``core.determinism.deterministic_convolutions`` against cuDNN's default
+choice.
 
     python -m multimodalworddiscovery_tpu_torch.scripts.bench_kernels \\
         [--only mfcc counts log_matmul model1_align models retrieval detector em \\
@@ -214,6 +223,23 @@ def device_ms(fn, reps: int, key: str, per: str | None = None) -> float:
     calls = sum(e.count for e in events if (per or key) in e.key)
     total = sum(e.self_device_time_total for e in events if key in e.key)
     return total / 1e3 / calls if calls else float("nan")
+
+
+def device_total_ms(fn, reps: int) -> float:
+    """Every CUDA kernel's time per call of ``fn``, from torch.profiler
+    over ``reps`` calls after a warm-up (the profiler drops a window's first
+    kernels, so this reads low by at most those over ``reps``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps
 
 
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> dict:
@@ -473,8 +499,9 @@ def _flops(fn) -> float:
 
 def bench_models(record: Recorder, reps: int, dev: torch.device) -> None:
     """Minibatch steps of the gradient models on the N=8192 corpus at dim
-    128 (attention AdamW at B=512, grounding Adam at B=256; ms a step over
-    ``reps`` steps, each drawing its batch), of the end-to-end CRF at B=256
+    128 (attention AdamW at B=512, grounding Adam at B=256; ms a step, the
+    median of five rounds of ``reps`` steps, each drawing its batch, and
+    the device ms a step), of the end-to-end CRF at B=256
     on N=2048 utterances of 13-dim frames (learned transitions; each step's
     n_sgd + 1 E-steps through K4), and segmental k-means (EM iterations and
     discover) on N=2000 utterances of 13-dim frames."""
@@ -493,11 +520,12 @@ def bench_models(record: Recorder, reps: int, dev: torch.device) -> None:
         def run(step=step, state=state, gen=gen):  # each call steps from the last state
             state[0] = step(state[0], gen)[0]
 
-        ms = gpu_ms(run, reps)
+        ms = median_ms(run, reps)
         flops = _flops(lambda: mod.em_step(state[0], minibatch.gather_batch(
             corpus, torch.arange(batch, device=dev))))
         record(kernel=name, batch=batch, N=corpus.n, dim=MODEL_DIM, ms_per_step=ms,
-               steps_per_sec=1e3 / ms, utt_per_sec=batch * 1e3 / ms, flops_per_step=flops,
+               device_ms=device_total_ms(run, reps), steps_per_sec=1e3 / ms,
+               utt_per_sec=batch * 1e3 / ms, flops_per_step=flops,
                flops_per_sec=flops * 1e3 / ms)
     del corpus
     fc, _, crf, step = crf_minibatch_setup(dev)
@@ -601,7 +629,8 @@ def bench_detector(record: Recorder, reps: int, dev: torch.device) -> None:
 
     ms = median_ms(train_step, reps)
     record(kernel="detector_train_step", batch=DET_BATCH, N=DET_N, image_size=DET_SIZE,
-           ms_per_step=ms, steps_per_sec=1e3 / ms, images_per_sec=DET_BATCH * 1e3 / ms)
+           ms_per_step=ms, device_ms=device_total_ms(train_step, reps),
+           steps_per_sec=1e3 / ms, images_per_sec=DET_BATCH * 1e3 / ms)
     ms = median_ms(lambda: detector.propose(model, anchors, images, k=DET_K), reps)
     keep = detector.propose(model, anchors, images, k=DET_K)[2]
     record(kernel="detector_propose", N=DET_N, k=DET_K, n_kept=int(keep.sum()), ms=ms,
@@ -816,6 +845,93 @@ def bench_glue(record: Recorder, reps: int, dev: torch.device) -> None:
     x = torch.randn((n_seg, e + 1), generator=gen).to(dev)
     sums("segmental_kmeans_update", f"{n_seg} segments x {e} (+ count), 64 clusters", x,
          rand_ids(n_seg, 64), 64)
+    del kfc, x
+    torch.cuda.empty_cache()
+    bench_step_backward(record, reps, gen, dev)
+
+
+def bench_step_backward(record: Recorder, reps: int, gen: torch.Generator,
+                        dev: torch.device) -> None:
+    """The glue rows of the gradient steps, each form's ms a call by CUDA
+    events (host-paced at these sizes) and its kernels' device ms: the
+    embeddings' fixed-order backward against autograd's (path 11's and 12's
+    batches of the N=8192 corpus, source and target), and the convolutions
+    under the deterministic context against cuDNN's default choice
+    (grounding's conv_0 at B=256, whose shape conv_1 shares, guided
+    frames attention's subsampling conv at N=800, the detector's loss and
+    gradient at B=64)."""
+    import torch.nn.functional as F
+
+    from multimodalworddiscovery_tpu_torch.core import counts
+    from multimodalworddiscovery_tpu_torch.core.determinism import deterministic_convolutions
+    from multimodalworddiscovery_tpu_torch.data import (
+        make_boxes_mini, make_flickr8k_mini, phones_to_frames,
+    )
+    from multimodalworddiscovery_tpu_torch.frontend import detector
+
+    def row(site, shape, new, old, old_name):
+        record(kernel=f"glue_{site}", shape=shape, ms=median_ms(new, reps),
+               device_ms=device_total_ms(new, reps), **{
+                   f"{old_name}_ms": median_ms(old, reps),
+                   f"{old_name}_device_ms": device_total_ms(old, reps)})
+
+    mc, _, _ = make_flickr8k_mini(**MODELS_CORPUS, device=dev)
+    for site, ids, v in (("attention_src_embed_grad", mc.src[:ATT_BATCH], mc.src_vocab),
+                         ("attention_trg_embed_grad", mc.trg[:ATT_BATCH], mc.trg_vocab),
+                         ("grounding_src_embed_grad", mc.src[:GROUND_BATCH], mc.src_vocab),
+                         ("grounding_trg_embed_grad", mc.trg[:GROUND_BATCH], mc.trg_vocab)):
+        ids = ids.long()
+        weight = torch.randn((v, MODEL_DIM), generator=gen).to(dev).requires_grad_()
+        grad = torch.randn(tuple(ids.shape) + (MODEL_DIM,), generator=gen).to(dev)
+        row(site, f"{ids.numel()} ids, V={v}, D={MODEL_DIM}",
+            lambda: torch.autograd.grad(counts.embed_rows(weight, ids), weight, grad),
+            lambda: torch.autograd.grad(F.embedding(ids, weight), weight, grad), "autograd")
+
+    def conv(site, x, weight, stride=1):
+        x, weight = x.requires_grad_(), weight.requires_grad_()
+        bias = torch.zeros(weight.shape[0], device=dev, requires_grad=True)
+
+        def step():
+            out = F.conv1d(x, weight, bias, stride=stride)
+            return torch.autograd.grad(out, (x, weight, bias), torch.ones_like(out))
+
+        def deterministic():
+            with deterministic_convolutions():
+                return step()
+
+        row(site, f"input {list(x.shape)}, kernel {list(weight.shape)}, stride {stride}",
+            deterministic, step, "default")
+
+    d = MODEL_DIM
+    conv("grounding_conv_grad",
+         torch.randn((GROUND_BATCH, d, mc.max_src_len + 4), generator=gen).to(dev),
+         torch.randn((d, d, 5), generator=gen).to(dev))
+    del mc
+    pc, pg, _ = make_flickr8k_mini(n_utterances=800, n_concepts=40, n_phones=48,
+                                   min_concepts=2, max_concepts=4, seed=0, device=dev)
+    fc, _, _ = phones_to_frames(pc, pg, feat_dim=13, seed=0, device=dev)
+    ts = -(-fc.max_src_len // 2) * 2 + 1  # "SAME" padding of a width-3, stride-2 conv
+    conv("attention_subsample_conv_grad",
+         torch.randn((fc.n, d, ts), generator=gen).to(dev),
+         torch.randn((d, d, 3), generator=gen).to(dev), stride=2)
+    del fc
+    images, boxes, mask = (torch.as_tensor(a, device=dev)[:DET_BATCH] for a in make_boxes_mini(
+        n_images=DET_N, image_size=DET_SIZE))
+    cfg = detector.DetectorConfig(image_size=DET_SIZE)
+    model = detector.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    anchors = torch.as_tensor(cfg.anchors(), device=dev)
+    weights = list(model.parameters())
+
+    def det_step():
+        loss, _ = detector.loss_fn(model, anchors, images, boxes, mask)
+        return torch.autograd.grad(loss, weights)
+
+    def det_deterministic():
+        with deterministic_convolutions():
+            return det_step()
+
+    row("detector_step_grad", f"B={DET_BATCH} images of {DET_SIZE} x {DET_SIZE}",
+        det_deterministic, det_step, "default")
     torch.cuda.empty_cache()
 
 

@@ -100,6 +100,26 @@ def slot_gold_positions(boxes: np.ndarray, slot_to_prop, trg_len, gt_boxes, gt_m
     return out
 
 
+def regions_corpus(data, boxes: np.ndarray, keep: np.ndarray, crop: int = DEFAULTS["crop"],
+                   device="cuda"):
+    """(speech-to-regions corpus, slot -> proposal index, kept count) of
+    the corpus ``data`` (``paired_corpus``'s tuple) and given proposals
+    (host arrays: boxes [N, k, 4], keep [N, k]): the phone captions against
+    their images' cropped proposals, kept ones first."""
+    dev = torch.device(device)
+    corpus, _, images = data[:3]
+    feats = region_features(torch.as_tensor(images, device=dev),
+                            torch.as_tensor(boxes, device=dev), crop).cpu().numpy()
+    trg_feats, slot_to_prop, trg_len = compact(feats, keep)
+    region_corpus = Corpus(
+        src=corpus.src, src_len=corpus.src_len,
+        trg=torch.as_tensor(trg_feats, device=dev),
+        trg_len=torch.as_tensor(np.maximum(trg_len, 1), device=dev),
+        src_vocab=corpus.src_vocab, trg_vocab=0,
+    )
+    return region_corpus, slot_to_prop, trg_len
+
+
 def score_proposals(data, boxes: np.ndarray, keep: np.ndarray,
                     align_iters: int = DEFAULTS["align_iters"], crop: int = DEFAULTS["crop"],
                     device="cuda", clock: Clock | None = None) -> dict:
@@ -110,16 +130,8 @@ def score_proposals(data, boxes: np.ndarray, keep: np.ndarray,
     ("grounding_loss")."""
     dev = torch.device(device)
     clock = clock or Clock(dev)
-    corpus, gold, images, gt_boxes, gt_mask, gt_pos = data
-    feats = region_features(torch.as_tensor(images, device=dev),
-                            torch.as_tensor(boxes, device=dev), crop).cpu().numpy()
-    trg_feats, slot_to_prop, trg_len = compact(feats, keep)
-    region_corpus = Corpus(
-        src=corpus.src, src_len=corpus.src_len,
-        trg=torch.as_tensor(trg_feats, device=dev),
-        trg_len=torch.as_tensor(np.maximum(trg_len, 1), device=dev),
-        src_vocab=corpus.src_vocab, trg_vocab=0,
-    )
+    corpus, gold, _, gt_boxes, gt_mask, gt_pos = data
+    region_corpus, slot_to_prop, trg_len = regions_corpus(data, boxes, keep, crop, dev)
     clock.lap("crop")
     state = grounding.init(region_corpus, dim=GROUNDING_DIM,
                            generator=torch.Generator().manual_seed(GROUNDING_SEED))

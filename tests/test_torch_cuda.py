@@ -515,6 +515,108 @@ def test_hmm_train_same_bits_twice(dev, name):
         assert torch.equal(getattr(p1, f), getattr(p2, f))
 
 
+@pytest.fixture
+def cudnn_unpinned():
+    """cuDNN free to pick any algorithm outside the steps (another test may
+    have pinned it); restored afterwards."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, False
+    yield
+    cudnn.benchmark, cudnn.deterministic = saved
+
+
+def _all_equal(first, second):
+    """Every tensor of two (state, stats) results equal bit for bit."""
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, torch.nn.Module):
+            yield from x.state_dict().values()
+        elif hasattr(x, "__dataclass_fields__"):
+            for f in x.__dataclass_fields__:
+                yield from leaves(getattr(x, f))
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from leaves(v)
+
+    a, b = list(leaves(first)), list(leaves(second))
+    assert len(a) == len(b) and a
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["discrete", "frames"])
+def test_attention_step_same_bits_twice(dev, cudnn_unpinned, kind):
+    """One attention step twice from one state: the loss, the parameters
+    and the AdamW moments equal bit for bit.  Discrete: the embeddings'
+    fixed-order backward, guided by K4's posteriors on K1's emissions;
+    frames: the subsampling convolution's backward, guided by a Gaussian
+    teacher."""
+    from multimodalworddiscovery_tpu_torch.models import attention
+
+    c, g, _ = make_flickr8k_mini(**CASES["S12"], device=dev)
+    if kind == "discrete":
+        corpus, sub = c, 1
+        teacher, _ = hmm.train(hmm.init(corpus), corpus, 3)
+        guide = attention.hmm_guide_matrix(teacher, corpus)
+    else:
+        corpus, _, _ = phones_to_frames(c, g, feat_dim=13, seed=3, device=dev)
+        sub = 2
+        teacher = hmm_gaussian.init(corpus, n_components=2,
+                                    generator=torch.Generator().manual_seed(0))
+        teacher, _ = hmm_gaussian.train(teacher, corpus, 3)
+        guide = attention.hmm_guide_matrix(teacher, corpus,
+                                           posteriors_fn=hmm_gaussian.posteriors)
+    state = attention.init(corpus, dim=32, subsample=sub,
+                           generator=torch.Generator().manual_seed(0))
+    first = attention.em_step(state, corpus, guide=guide)
+    _all_equal(first, attention.em_step(state, corpus, guide=guide))
+    assert not torch.backends.cudnn.deterministic
+
+
+@pytest.mark.parametrize("kind", ["ids", "frames"])
+def test_grounding_step_same_bits_twice(dev, cudnn_unpinned, kind):
+    """One grounding step twice from one state (the embeddings' and the
+    convolutions' backward): the loss, the parameters and the Adam moments
+    equal bit for bit."""
+    from multimodalworddiscovery_tpu_torch.models import grounding
+
+    corpus, g, _ = make_flickr8k_mini(**CASES["S12"], device=dev)
+    if kind == "frames":
+        corpus, _, _ = phones_to_frames(corpus, g, feat_dim=13, seed=3, device=dev)
+    state = grounding.init(corpus, dim=32, generator=torch.Generator().manual_seed(0))
+    first = grounding.em_step(state, corpus)
+    _all_equal(first, grounding.em_step(state, corpus))
+    assert not torch.backends.cudnn.deterministic
+
+
+def test_detector_step_same_bits_twice(dev, cudnn_unpinned):
+    """Three detector Adam steps twice from one initialisation (the
+    convolutions' backward under the step's deterministic context): every
+    step's stats, the weights and the Adam moments equal bit for bit."""
+    from multimodalworddiscovery_tpu_torch.data import make_boxes_mini
+    from multimodalworddiscovery_tpu_torch.frontend import detector
+
+    cfg = detector.DetectorConfig(image_size=32, widths=(8, 16, 32), channels=16)
+    images, boxes, mask = (torch.as_tensor(a, device=dev)
+                           for a in make_boxes_mini(n_images=6, image_size=32, seed=2))
+    runs = []
+    for _ in range(2):
+        model = detector.init(cfg, torch.Generator().manual_seed(0), dev)
+        step = detector.make_train_step(model, torch.as_tensor(cfg.anchors(), device=dev), 1e-3)
+        opt, stats = hmm_dnn.adam_init(model.parameters()), []
+        for _ in range(3):
+            opt, st = step(opt, images, boxes, mask)
+            stats.append(st)
+        runs.append((model, opt, stats))
+    _all_equal(*runs)
+    assert not torch.backends.cudnn.deterministic
+
+
 @pytest.mark.parametrize("s, n, ts", [(12, 300, 31), (128, 64, 181)])
 def test_k7_same_bits_twice(dev, s, n, ts):
     """K7 called twice gives the same counts bit for bit, on K4's

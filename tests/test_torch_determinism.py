@@ -14,6 +14,7 @@ and 1s (exact integer sums in any order).
 """
 
 import ast
+import contextlib
 import pathlib
 
 import jax
@@ -314,3 +315,156 @@ def f(x, i, v, w):
     x.gather(1, i)
 """
     assert [line for _, line in _scatter_adds(ast.parse(src))] == [3, 4, 5, 6, 7, 8]
+
+
+# ---------------------------------------------------------------------------
+# the gradient steps: the embeddings' fixed-order backward and the scoped
+# deterministic convolutions
+# ---------------------------------------------------------------------------
+
+
+def _embed_case(seed, v=11, d=6, shape=(4, 9)):
+    """(weight [v, d], ids of ``shape`` with repeats, that never use the
+    last two rows, output gradient)."""
+    rng = np.random.default_rng(seed)
+    weight = rng.normal(size=(v, d)).astype(np.float32)
+    ids = rng.integers(0, v - 2, shape).astype(np.int32)
+    ids.flat[:3] = 0  # a row repeated within and across utterances
+    ct = rng.normal(size=shape + (d,)).astype(np.float32)
+    return weight, ids, ct
+
+
+def _autograd_embedding(weight, ids):
+    return torch.nn.functional.embedding(ids, weight)
+
+
+def _embed_grad(fn, weight, ids, ct):
+    w = torch.as_tensor(weight).requires_grad_()
+    out = fn(w, torch.as_tensor(ids))
+    (grad,) = torch.autograd.grad(out, w, torch.as_tensor(ct))
+    return out, grad
+
+
+@pytest.mark.parametrize("shape", [(4, 9), (37,), (3, 5, 7), (0, 9)])
+def test_embed_rows_gradient_matches_jax_and_autograd(shape):
+    """embed_rows: the forward equal to the index gather, the weight's
+    gradient against jax.grad of jnp.take and against F.embedding's
+    autograd (repeated ids, rows no id uses: exactly 0; an empty batch, a
+    data-parallel rank's share of a small batch: all 0)."""
+    weight, ids, ct = _embed_case(len(shape), shape=shape)
+    out, got = _embed_grad(tcounts.embed_rows, weight, ids, ct)
+    assert torch.equal(out, torch.as_tensor(weight)[torch.as_tensor(ids).long()])
+    _, vjp = jax.vjp(lambda w: jnp.take(w, jnp.asarray(ids), axis=0), jnp.asarray(weight))
+    _close(got, vjp(jnp.asarray(ct))[0], "embed_rows' gradient vs JAX")
+    _, old = _embed_grad(_autograd_embedding, weight, ids, ct)
+    _close(got, old.numpy(), "embed_rows' gradient vs F.embedding's autograd")
+    assert not got[-2:].any()
+
+
+def test_embed_rows_chunked_gives_one_chunks_bits(monkeypatch):
+    """Many chunks (ONEHOT_ELEMENTS cut to a few rows) against one chunk and
+    against autograd's scatter, on gradients in multiples of 1/8, whose
+    sums are exact in float32 in any order: equal bits."""
+    weight, ids, ct = _embed_case(9, shape=(6, 23))
+    ct = np.round(ct * 8) / 8
+    _, one = _embed_grad(tcounts.embed_rows, weight, ids, ct)
+    monkeypatch.setattr(tcounts, "ONEHOT_ELEMENTS", 40)
+    _, chunked = _embed_grad(tcounts.embed_rows, weight, ids, ct)
+    _, old = _embed_grad(_autograd_embedding, weight, ids, ct)
+    assert torch.equal(chunked, one)
+    assert torch.equal(chunked, old)
+
+
+def test_fixed_order_embedding_is_an_embedding():
+    """FixedOrderEmbedding keeps nn.Embedding's parameter and state dict
+    (so flax trees and checkpoints map onto it) and looks up by
+    embed_rows."""
+    from multimodalworddiscovery_tpu_torch.core.determinism import FixedOrderEmbedding
+
+    emb = FixedOrderEmbedding(7, 3)
+    assert isinstance(emb, torch.nn.Embedding) and list(emb.state_dict()) == ["weight"]
+    ids = torch.tensor([[1, 1, 6], [0, 2, 1]])
+    assert torch.equal(emb(ids), torch.nn.functional.embedding(ids, emb.weight))
+
+
+CUDNN_FLAGS = ("enabled", "benchmark", "deterministic", "allow_tf32")
+
+
+@pytest.mark.parametrize("raises", [False, True])
+@pytest.mark.parametrize("before", [(True, True, False, False), (True, False, True, True),
+                                    (False, True, False, True), (True, False, False, False)])
+def test_deterministic_convolutions_restores_the_flags(before, raises):
+    """Inside: benchmark off, deterministic on, enabled and allow_tf32 as
+    the caller set them; after the block (or an exception in it) every flag
+    as it was."""
+    from multimodalworddiscovery_tpu_torch.core.determinism import deterministic_convolutions
+
+    cudnn = torch.backends.cudnn
+    saved = tuple(getattr(cudnn, f) for f in CUDNN_FLAGS)
+    try:
+        for f, v in zip(CUDNN_FLAGS, before):
+            setattr(cudnn, f, v)
+        with pytest.raises(ValueError) if raises else contextlib.nullcontext():
+            with deterministic_convolutions():
+                inside = tuple(getattr(cudnn, f) for f in CUDNN_FLAGS)
+                if raises:
+                    raise ValueError("in the step")
+        assert inside == (before[0], False, True, before[3])
+        assert tuple(getattr(cudnn, f) for f in CUDNN_FLAGS) == before
+    finally:
+        for f, v in zip(CUDNN_FLAGS, saved):
+            setattr(cudnn, f, v)
+
+
+def _determinism_breaches(tree, embeddings: bool):
+    """Lines of bare embedding lookups (``embeddings``) and of process-wide
+    determinism switches."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+            if name == "use_deterministic_algorithms" or (
+                    embeddings and name in ("Embedding", "embedding")):
+                found.append(node.lineno)
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(node, (ast.AugAssign, ast.AnnAssign))
+                   else [])
+        for t in targets:
+            for x in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                if isinstance(x, ast.Attribute) and x.attr in ("deterministic", "benchmark"):
+                    found.append(node.lineno)
+    return sorted(set(found))
+
+
+def test_gradient_steps_have_no_atomic_embedding_or_global_switch():
+    """No bare nn.Embedding / F.embedding lookup under models/ and
+    frontend/ (FixedOrderEmbedding in their place), and no process-wide
+    use_deterministic_algorithms or cudnn.deterministic / benchmark
+    assignment anywhere in the package (deterministic_convolutions scopes
+    its flags to the step)."""
+    bad = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG).as_posix()
+        embeddings = rel.split("/")[0] in ("models", "frontend")
+        bad += [f"{rel}:{line}" for line in
+                _determinism_breaches(ast.parse(path.read_text()), embeddings)]
+    assert not bad, f"atomic embedding lookups or process-wide determinism switches: {bad}"
+
+
+def test_determinism_scan_finds_each_form():
+    """The scan's own check: each form is found, the scoped context and
+    FixedOrderEmbedding are not."""
+    src = """
+def f(x, w):
+    nn.Embedding(7, 3)
+    torch.nn.functional.embedding(x, w)
+    F.embedding(x, w)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    cudnn.benchmark, cudnn.deterministic = False, True
+    with deterministic_convolutions():
+        FixedOrderEmbedding(7, 3)(x)
+"""
+    assert _determinism_breaches(ast.parse(src), True) == [3, 4, 5, 6, 7, 8]
+    assert _determinism_breaches(ast.parse(src), False) == [6, 7, 8]
