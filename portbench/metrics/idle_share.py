@@ -1,0 +1,9 @@
+"""Device idle share of the traced stretch, in percent: 100 * (1 - busy /
+wall)."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
