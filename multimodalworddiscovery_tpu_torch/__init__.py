@@ -60,8 +60,8 @@ eval      alignment, word IoU, boundary, purity and NMI metrics; retrieval
 scripts   run_pipeline (config #4), extract_features (speech), the
           kernel and model benchmarks
 utils     audio (WAV read and write), checkpoint (torch.save parameter
-          trees), profiling (torch.profiler traces, timing), plotting
-          (matplotlib, imported when a plot is drawn)
+          trees), profiling (the mwd.* spans, torch.profiler traces),
+          plotting (matplotlib, imported when a plot is drawn)
 cli       ``mwd-torch``: train / align / segment / evaluate / retrieve /
           discover / lexicon / export / plot / shard / preprocess
 configs   the run configs (copies of the reference's ``configs/``), on

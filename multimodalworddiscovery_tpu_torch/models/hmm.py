@@ -30,6 +30,7 @@ from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm_core
 from multimodalworddiscovery_tpu_torch.ops import counts as counts_ops
 from multimodalworddiscovery_tpu_torch.ops import hmm_fwdbwd, kernels_for
+from multimodalworddiscovery_tpu_torch.utils.profiling import span
 
 # The fused route's gate, as in the reference (models/hmm.py:110-115).
 FUSED_MAX_STATES = 64
@@ -207,8 +208,9 @@ def em_step(
     dot_dtype: str = "float32",
 ) -> tuple[HMMParams, dict[str, torch.Tensor]]:
     """One batched forward-backward EM iteration."""
-    counts, ll = expected_counts(params, corpus, use_kernels, dot_dtype)
-    return m_step(params, counts, smoothing), {"loglik": ll}
+    with span("mwd.hmm.em_step"):
+        counts, ll = expected_counts(params, corpus, use_kernels, dot_dtype)
+        return m_step(params, counts, smoothing), {"loglik": ll}
 
 
 def train(
@@ -241,15 +243,16 @@ def align(
     """Viterbi decode -> [N, Ts] int32 alignment (0 = NULL, else 1-based
     trg position), through the factored-transition decoder (K3 with
     ``use_kernels=True``, the default on a CUDA corpus)."""
-    base, rowz, colmask = hmm_core.factor_log_trans(
-        params.log_jump, params.log_p0, corpus, params.max_jump
-    )
-    log_init = hmm_core.build_log_init(params.log_p0, corpus)
-    path = hmm_core.viterbi_factored(
-        log_init, base, rowz, colmask, _log_emissions(params, corpus),
-        corpus.src_len, use_kernels=use_kernels,
-    )
-    return hmm_core.path_to_alignment(path, corpus)
+    with span("mwd.hmm.align"):
+        base, rowz, colmask = hmm_core.factor_log_trans(
+            params.log_jump, params.log_p0, corpus, params.max_jump
+        )
+        log_init = hmm_core.build_log_init(params.log_p0, corpus)
+        path = hmm_core.viterbi_factored(
+            log_init, base, rowz, colmask, _log_emissions(params, corpus),
+            corpus.src_len, use_kernels=use_kernels,
+        )
+        return hmm_core.path_to_alignment(path, corpus)
 
 
 def posteriors(

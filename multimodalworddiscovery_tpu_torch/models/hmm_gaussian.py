@@ -43,6 +43,7 @@ from multimodalworddiscovery_tpu_torch.data.corpus import Corpus
 from multimodalworddiscovery_tpu_torch.models import hmm as dhmm
 from multimodalworddiscovery_tpu_torch.models import hmm_core
 from multimodalworddiscovery_tpu_torch.ops import kernels_for
+from multimodalworddiscovery_tpu_torch.utils.profiling import span
 
 _LOG_2PI = 1.8378770664093453
 
@@ -319,15 +320,18 @@ def expected_counts(
     log-likelihoods are scaled by beta (``train``'s ``anneal`` ramps it).
     """
     comp = _component_logdensity(params, corpus)  # [N, Ts, C, K]
-    log_emit = select_columns(_mixture(comp, params), hmm_core.state_concepts(corpus))
-    if emit_scale != 1.0:
-        log_emit = log_emit * emit_scale
+    with span("mwd.gauss.mixture"):
+        log_emit = select_columns(_mixture(comp, params), hmm_core.state_concepts(corpus))
+        if emit_scale != 1.0:
+            log_emit = log_emit * emit_scale
     gamma, width_counts, logz = hmm_core.estep(
         params.log_jump, params.log_p0, params.max_jump, log_emit, corpus,
         use_kernels=use_kernels, dot_dtype=dot_dtype,
     )
     r = teacher_responsibilities(gamma, corpus)
-    return _sufficient_stats(params, corpus, comp, r, width_counts), logz.sum()
+    with span("mwd.gauss.stats"):
+        stats = _sufficient_stats(params, corpus, comp, r, width_counts)
+    return stats, logz.sum()
 
 
 def m_step(
@@ -340,24 +344,25 @@ def m_step(
     """Variances are floored at max(var_floor, var_floor_rel * global
     feature variance) per dimension, so near-noiseless data cannot collapse
     a component onto single frames."""
-    c0 = counts["c0"] + smoothing
-    new_means = counts["c1"] / c0[..., None]
-    tot = torch.clamp(counts["fcnt"], min=1.0)
-    gmean = counts["fsum"] / tot
-    gvar = counts["fsq"] / tot - gmean**2  # [D]
-    floor = torch.clamp(var_floor_rel * gvar, min=var_floor)[None, None, :]
-    new_vars = torch.maximum(counts["c2"] / c0[..., None] - new_means**2, floor)
-    new_log_mix = torch.log(c0) - torch.log(c0.sum(dim=-1, keepdim=True))
-    width_counts = counts["width"]
-    w = 2 * params.max_jump + 1
-    return GaussianHMMParams(
-        means=new_means,
-        log_vars=torch.log(new_vars),
-        log_mix=new_log_mix,
-        log_jump=torch.log(width_counts[:w] + smoothing),
-        log_p0=torch.log(width_counts[w] + smoothing),
-        max_jump=params.max_jump,
-    )
+    with span("mwd.gauss.m_step"):
+        c0 = counts["c0"] + smoothing
+        new_means = counts["c1"] / c0[..., None]
+        tot = torch.clamp(counts["fcnt"], min=1.0)
+        gmean = counts["fsum"] / tot
+        gvar = counts["fsq"] / tot - gmean**2  # [D]
+        floor = torch.clamp(var_floor_rel * gvar, min=var_floor)[None, None, :]
+        new_vars = torch.maximum(counts["c2"] / c0[..., None] - new_means**2, floor)
+        new_log_mix = torch.log(c0) - torch.log(c0.sum(dim=-1, keepdim=True))
+        width_counts = counts["width"]
+        w = 2 * params.max_jump + 1
+        return GaussianHMMParams(
+            means=new_means,
+            log_vars=torch.log(new_vars),
+            log_mix=new_log_mix,
+            log_jump=torch.log(width_counts[:w] + smoothing),
+            log_p0=torch.log(width_counts[w] + smoothing),
+            max_jump=params.max_jump,
+        )
 
 
 def em_step(

@@ -24,6 +24,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -58,6 +59,8 @@ RESTYPES = {"mwd_error_string": ctypes.c_char_p, "mwd_estep_work": _L,
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
 build_log = ""  # compiler output of this process's build ("" if cached)
+load_s = 0.0  # seconds ``load`` spent building and loading the libraries
+compiled = 0  # libraries nvcc built in this process
 
 
 def library_paths() -> dict[pathlib.Path, pathlib.Path]:
@@ -90,7 +93,7 @@ def find_nvcc() -> str:
 def build() -> list[pathlib.Path]:
     """Compile every csrc/*.cu whose library does not exist yet, one nvcc
     per source, all started together; the libraries."""
-    global build_log
+    global build_log, compiled
     paths = library_paths()
     todo = {src: lib for src, lib in paths.items() if not lib.exists()}
     if todo:
@@ -109,15 +112,17 @@ def build() -> list[pathlib.Path]:
         for src, lib in todo.items():
             os.replace(tmps[src], lib)
         build_log = "".join(logs)
+        compiled += len(todo)
     return list(paths.values())
 
 
 def load() -> types.SimpleNamespace:
     """The kernels' C entry points (as attributes), built and loaded once
-    per process."""
-    global _lib
+    per process; the seconds it took add to ``load_s``."""
+    global _lib, load_s
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             libs = [ctypes.CDLL(str(p)) for p in build()]
             fns = {}
             for name, argtypes in {**SIGNATURES, "mwd_error_string": [_I]}.items():
@@ -126,6 +131,7 @@ def load() -> types.SimpleNamespace:
                 fn.restype = RESTYPES.get(name, ctypes.c_int)
                 fns[name] = fn
             _lib = types.SimpleNamespace(**fns)
+            load_s += time.perf_counter() - t0
     return _lib
 
 

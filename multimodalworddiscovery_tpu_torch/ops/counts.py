@@ -40,6 +40,7 @@ import torch
 from multimodalworddiscovery_tpu_torch.core.counts import pair_counts as pair_counts_plain
 from multimodalworddiscovery_tpu_torch.core.counts import table_lookup as table_lookup_plain
 from multimodalworddiscovery_tpu_torch.ops import _build
+from multimodalworddiscovery_tpu_torch.utils.profiling import span
 
 
 def table_lookup(
@@ -52,26 +53,27 @@ def table_lookup(
     it gives NaN)."""
     if table.device.type == "cpu":
         return table_lookup_plain(table, src, concepts)
-    if table.device.type != "cuda":
-        raise ValueError(f"table_lookup runs on cpu or cuda, got {table.device}")
-    dev = table.device
-    f, e = table.shape
-    n, ts = src.shape
-    s = concepts.shape[1]
-    _build.require(table, "table", torch.float32, (f, e), dev)
-    _build.require(src, "src", torch.int32, (n, ts), dev)
-    _build.require(concepts, "concepts", torch.int32, (n, s), dev)
-    out = torch.empty((n, ts, s), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        status = lib.mwd_table_lookup(
-            table.data_ptr(), src.data_ptr(), concepts.data_ptr(), out.data_ptr(),
-            n, ts, s, f, e, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(status, "mwd_table_lookup")
-    table_lookup.launches += 1
+    with span("mwd.ops.table_lookup"):
+        if table.device.type != "cuda":
+            raise ValueError(f"table_lookup runs on cpu or cuda, got {table.device}")
+        dev = table.device
+        f, e = table.shape
+        n, ts = src.shape
+        s = concepts.shape[1]
+        _build.require(table, "table", torch.float32, (f, e), dev)
+        _build.require(src, "src", torch.int32, (n, ts), dev)
+        _build.require(concepts, "concepts", torch.int32, (n, s), dev)
+        out = torch.empty((n, ts, s), dtype=torch.float32, device=dev)
+        if out.numel() == 0:
+            return out
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            status = lib.mwd_table_lookup(
+                table.data_ptr(), src.data_ptr(), concepts.data_ptr(), out.data_ptr(),
+                n, ts, s, f, e, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(status, "mwd_table_lookup")
+        table_lookup.launches += 1
     return out
 
 
@@ -90,26 +92,27 @@ def pair_counts(
     outside the table adds nothing)."""
     if gamma.device.type == "cpu":
         return pair_counts_plain(gamma, src, concepts, n_rows, n_cols)
-    if gamma.device.type != "cuda":
-        raise ValueError(f"pair_counts runs on cpu or cuda, got {gamma.device}")
-    dev = gamma.device
-    n, ts, s = gamma.shape
-    _build.require(gamma, "gamma", torch.float32, (n, ts, s), dev)
-    _build.require(src, "src", torch.int32, (n, ts), dev)
-    _build.require(concepts, "concepts", torch.int32, (n, s), dev)
-    if gamma.numel() == 0 or n_rows * n_cols == 0:
-        return torch.zeros((n_rows, n_cols), dtype=torch.float32, device=dev)
-    counts = torch.empty((n_rows, n_cols), dtype=torch.float32, device=dev)
-    acc = torch.empty((2, n_rows * n_cols), dtype=torch.int64, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        status = lib.mwd_pair_counts(
-            gamma.data_ptr(), src.data_ptr(), concepts.data_ptr(), acc.data_ptr(),
-            counts.data_ptr(), n, ts, s, n_rows, n_cols,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(status, "mwd_pair_counts")
-    pair_counts.launches += 1
+    with span("mwd.ops.pair_counts"):
+        if gamma.device.type != "cuda":
+            raise ValueError(f"pair_counts runs on cpu or cuda, got {gamma.device}")
+        dev = gamma.device
+        n, ts, s = gamma.shape
+        _build.require(gamma, "gamma", torch.float32, (n, ts, s), dev)
+        _build.require(src, "src", torch.int32, (n, ts), dev)
+        _build.require(concepts, "concepts", torch.int32, (n, s), dev)
+        if gamma.numel() == 0 or n_rows * n_cols == 0:
+            return torch.zeros((n_rows, n_cols), dtype=torch.float32, device=dev)
+        counts = torch.empty((n_rows, n_cols), dtype=torch.float32, device=dev)
+        acc = torch.empty((2, n_rows * n_cols), dtype=torch.int64, device=dev)
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            status = lib.mwd_pair_counts(
+                gamma.data_ptr(), src.data_ptr(), concepts.data_ptr(), acc.data_ptr(),
+                counts.data_ptr(), n, ts, s, n_rows, n_cols,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(status, "mwd_pair_counts")
+        pair_counts.launches += 1
     return counts
 
 

@@ -56,6 +56,7 @@ import torch
 from multimodalworddiscovery_tpu_torch.core.counts import pair_counts
 from multimodalworddiscovery_tpu_torch.core.logsemiring import NEG_INF
 from multimodalworddiscovery_tpu_torch.ops import _build
+from multimodalworddiscovery_tpu_torch.utils.profiling import span
 
 MAX_STATES = 64  # csrc/hmm_estep_counts.cu MWD_K2_MAX_S: K2, the fused route's gate
 # K6: csrc/hmm_estep.cu MWD_REMAT_MAX_TC, the longest chunk a lane of the
@@ -282,33 +283,34 @@ def hmm_estep_counts(
             log_init, base, rowz, colmask, emit, src, concepts, src_len,
             n_rows, n_cols, dot_dtype,
         )
-    _check_inputs("hmm_estep_counts", MAX_STATES, log_init, base, rowz, colmask, emit, src_len)
-    dev = emit.device
-    n, ts, s = emit.shape
-    _build.require(src, "src", torch.int32, (n, ts), dev)
-    _build.require(concepts, "concepts", torch.int32, (n, s), dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    if n == 0:
-        return (torch.zeros((n_rows, n_cols), **f32), torch.zeros((s, s), **f32),
-                torch.empty((0,), **f32))
-    counts = torch.empty((n_rows, n_cols), **f32)
-    xi = torch.empty((s, s), **f32)
-    logz = torch.empty((n,), **f32)
-    work = torch.empty((_counts_work_floats(n, ts, s),), **f32)
-    acc = torch.empty((2, n_rows * n_cols), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        status = _build.load().mwd_estep_counts(
-            base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
-            emit.data_ptr(), src_len.data_ptr(), src.data_ptr(), concepts.data_ptr(),
-            work.data_ptr(), acc.data_ptr(), counts.data_ptr(), xi.data_ptr(), logz.data_ptr(),
-            n, ts, s, n_rows, n_cols, int(bf16), _stream(dev),
-        )
-    _build.check(status, "mwd_estep_counts")
-    if bf16:
-        hmm_estep_counts.launches_bf16 += 1
-    else:
-        hmm_estep_counts.launches += 1
-    return counts, xi, logz
+    with span("mwd.ops.estep_counts"):
+        _check_inputs("hmm_estep_counts", MAX_STATES, log_init, base, rowz, colmask, emit, src_len)
+        dev = emit.device
+        n, ts, s = emit.shape
+        _build.require(src, "src", torch.int32, (n, ts), dev)
+        _build.require(concepts, "concepts", torch.int32, (n, s), dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        if n == 0:
+            return (torch.zeros((n_rows, n_cols), **f32), torch.zeros((s, s), **f32),
+                    torch.empty((0,), **f32))
+        counts = torch.empty((n_rows, n_cols), **f32)
+        xi = torch.empty((s, s), **f32)
+        logz = torch.empty((n,), **f32)
+        work = torch.empty((_counts_work_floats(n, ts, s),), **f32)
+        acc = torch.empty((2, n_rows * n_cols), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            status = _build.load().mwd_estep_counts(
+                base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
+                emit.data_ptr(), src_len.data_ptr(), src.data_ptr(), concepts.data_ptr(),
+                work.data_ptr(), acc.data_ptr(), counts.data_ptr(), xi.data_ptr(), logz.data_ptr(),
+                n, ts, s, n_rows, n_cols, int(bf16), _stream(dev),
+            )
+        _build.check(status, "mwd_estep_counts")
+        if bf16:
+            hmm_estep_counts.launches_bf16 += 1
+        else:
+            hmm_estep_counts.launches += 1
+        return counts, xi, logz
 
 
 hmm_estep_counts.launches = 0
@@ -330,31 +332,32 @@ def _general_kernels(log_init, base, rowz, colmask, log_emit, src_len, bf16, tcr
     entry point: length order and tables, forward, backward, xi reduction
     -> (gamma, xi, logz).  Counts the launch in ``hmm_estep``'s counter of
     the variant; a batch of no utterances launches nothing."""
-    name = "the remat E-step kernel" if tcr else "the general E-step kernel"
-    _check_inputs(name, None, log_init, base, rowz, colmask, log_emit, src_len)
-    dev = log_emit.device
-    n, ts, s = log_emit.shape
-    f32 = dict(dtype=torch.float32, device=dev)
-    gamma = torch.empty((n, ts, s), **f32)
-    logz = torch.empty((n,), **f32)
-    if n == 0:
-        return gamma, torch.zeros((s, s), **f32), logz
-    work = torch.empty((_work_floats(n, ts, s, tcr),), **f32)
-    xi = torch.empty((s, s), **f32)
-    with torch.cuda.device(dev):
-        status = _build.load().mwd_estep(
-            base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
-            log_emit.data_ptr(), src_len.data_ptr(), work.data_ptr(), gamma.data_ptr(),
-            xi.data_ptr(), logz.data_ptr(), n, ts, s, tcr, int(bf16), _stream(dev),
-        )
-    _build.check(status, "mwd_estep")
-    if tcr:
-        hmm_estep.launches_remat += 1
-    elif bf16:
-        hmm_estep.launches_bf16 += 1
-    else:
-        hmm_estep.launches += 1
-    return gamma, xi, logz
+    with span("mwd.ops.estep"):
+        name = "the remat E-step kernel" if tcr else "the general E-step kernel"
+        _check_inputs(name, None, log_init, base, rowz, colmask, log_emit, src_len)
+        dev = log_emit.device
+        n, ts, s = log_emit.shape
+        f32 = dict(dtype=torch.float32, device=dev)
+        gamma = torch.empty((n, ts, s), **f32)
+        logz = torch.empty((n,), **f32)
+        if n == 0:
+            return gamma, torch.zeros((s, s), **f32), logz
+        work = torch.empty((_work_floats(n, ts, s, tcr),), **f32)
+        xi = torch.empty((s, s), **f32)
+        with torch.cuda.device(dev):
+            status = _build.load().mwd_estep(
+                base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(), colmask.data_ptr(),
+                log_emit.data_ptr(), src_len.data_ptr(), work.data_ptr(), gamma.data_ptr(),
+                xi.data_ptr(), logz.data_ptr(), n, ts, s, tcr, int(bf16), _stream(dev),
+            )
+        _build.check(status, "mwd_estep")
+        if tcr:
+            hmm_estep.launches_remat += 1
+        elif bf16:
+            hmm_estep.launches_bf16 += 1
+        else:
+            hmm_estep.launches += 1
+        return gamma, xi, logz
 
 
 def hmm_estep(

@@ -28,6 +28,7 @@ import functools
 import torch
 
 from multimodalworddiscovery_tpu_torch.ops import _build
+from multimodalworddiscovery_tpu_torch.utils.profiling import span
 
 
 def viterbi_plain(
@@ -105,33 +106,35 @@ def viterbi(
     a batch of no utterances launches nothing."""
     if log_emit.device.type == "cpu":
         return viterbi_plain(log_init, base, rowz, colmask, log_emit, src_len)
-    if log_emit.device.type != "cuda":
-        raise ValueError(f"viterbi runs on cpu or cuda, got {log_emit.device}")
-    dev = log_emit.device
-    n, ts, s = log_emit.shape
-    if s < 1 or ts < 1:
-        raise ValueError(f"the Viterbi kernel takes S >= 1 states and Ts >= 1, got S={s}, Ts={ts}")
-    f32 = torch.float32
-    _build.require(log_init, "log_init", f32, (n, s), dev)
-    _build.require(base, "base", f32, (s, s), dev)
-    _build.require(rowz, "rowz", f32, (n, s), dev)
-    _build.require(colmask, "colmask", f32, (n, s), dev)
-    _build.require(log_emit, "log_emit", f32, (n, ts, s), dev)
-    _build.require(src_len, "src_len", torch.int32, (n,), dev)
+    with span("mwd.ops.viterbi"):
+        if log_emit.device.type != "cuda":
+            raise ValueError(f"viterbi runs on cpu or cuda, got {log_emit.device}")
+        dev = log_emit.device
+        n, ts, s = log_emit.shape
+        if s < 1 or ts < 1:
+            raise ValueError(
+                f"the Viterbi kernel takes S >= 1 states and Ts >= 1, got S={s}, Ts={ts}")
+        f32 = torch.float32
+        _build.require(log_init, "log_init", f32, (n, s), dev)
+        _build.require(base, "base", f32, (s, s), dev)
+        _build.require(rowz, "rowz", f32, (n, s), dev)
+        _build.require(colmask, "colmask", f32, (n, s), dev)
+        _build.require(log_emit, "log_emit", f32, (n, ts, s), dev)
+        _build.require(src_len, "src_len", torch.int32, (n,), dev)
 
-    path = torch.empty((n, ts), dtype=torch.int32, device=dev)
-    if n == 0:
-        return path
-    with torch.cuda.device(dev):
-        work = torch.empty((_work_bytes(n, ts, s),), dtype=torch.uint8, device=dev)
-        status = _build.load().mwd_viterbi(
-            base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(),
-            colmask.data_ptr(), log_emit.data_ptr(), src_len.data_ptr(),
-            path.data_ptr(), work.data_ptr(), n, ts, s,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(status, "mwd_viterbi")
-    viterbi.launches += 1
+        path = torch.empty((n, ts), dtype=torch.int32, device=dev)
+        if n == 0:
+            return path
+        with torch.cuda.device(dev):
+            work = torch.empty((_work_bytes(n, ts, s),), dtype=torch.uint8, device=dev)
+            status = _build.load().mwd_viterbi(
+                base.data_ptr(), log_init.data_ptr(), rowz.data_ptr(),
+                colmask.data_ptr(), log_emit.data_ptr(), src_len.data_ptr(),
+                path.data_ptr(), work.data_ptr(), n, ts, s,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(status, "mwd_viterbi")
+        viterbi.launches += 1
     return path
 
 
