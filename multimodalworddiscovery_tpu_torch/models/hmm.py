@@ -16,10 +16,28 @@ then K7 (ops/counts.pair_counts), which adds K4's posteriors into the
 of K2 and K4 (K7 stays float32).  ``use_kernels=False`` runs the plain
 dense fwd-bwd (hmm_core.estep) and the plain count scatter-add.  Decode with
 ``use_kernels=True`` runs K3 (ops/viterbi.py).
+
+``em_step`` on the fused route on the card replays the iteration as one
+CUDA graph: K1, the transition factors, K2 with its length ranking, the
+width projection, the M-step and the loglik's sum, some 45 launches that
+the host would otherwise enqueue one by one.  A key (the corpus tensors by
+identity, address, shape, stride and dtype; the parameters' shapes, strides,
+dtypes and device; the vocabularies, ``max_jump``, ``smoothing``,
+``dot_dtype``) runs eagerly on its first call, which fills the caches the
+iteration reads, and is captured on its own memory pool on its second;
+every later call copies the parameters into the graph's input buffers,
+replays, and returns clones of its outputs, so what an earlier call
+returned is never overwritten.  The graph holds the corpus
+it read, and the last ``MAX_GRAPHS`` keys are kept.  A replay adds to each
+kernel's ``.launches`` what the capture added, so the counters still count
+kernels that ran; ``em_step.graph_calls``, ``.captures`` and ``.replays``
+count the calls on this path.  Every other call (a CPU corpus, the plain or
+general route, the callers of ``expected_counts``) runs eagerly as before.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -36,6 +54,11 @@ from multimodalworddiscovery_tpu_torch.utils.profiling import span
 FUSED_MAX_STATES = 64
 FUSED_MAX_SRC_VOCAB = 128
 FUSED_MAX_TRG_VOCAB = 256
+# The fused iterations' CUDA graphs (``_IterationGraph``) by ``_graph_key``,
+# least recently used first; a key's entry is None from its first call (run
+# eagerly) to its second (the capture).
+MAX_GRAPHS = 4
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,10 +230,99 @@ def em_step(
     use_kernels: bool | None = None,
     dot_dtype: str = "float32",
 ) -> tuple[HMMParams, dict[str, torch.Tensor]]:
-    """One batched forward-backward EM iteration."""
+    """One batched forward-backward EM iteration; on the fused route on the
+    card, a CUDA graph's replay from a key's second call on (module
+    docstring).  Every call returns tensors of its own."""
     with span("mwd.hmm.em_step"):
-        counts, ll = expected_counts(params, corpus, use_kernels, dot_dtype)
-        return m_step(params, counts, smoothing), {"loglik": ll}
+        key = _graph_key(params, corpus, smoothing, use_kernels, dot_dtype)
+        if key is None:
+            return _step(params, corpus, smoothing, use_kernels, dot_dtype)
+        em_step.graph_calls += 1
+        if key not in _GRAPHS:
+            out = _step(params, corpus, smoothing, True, dot_dtype)
+            _GRAPHS[key] = None
+            if len(_GRAPHS) > MAX_GRAPHS:
+                _, old = _GRAPHS.popitem(last=False)
+                if old is not None:  # its pool is freed: let its last replay end first
+                    torch.cuda.synchronize(old.corpus.device)
+            return out
+        _GRAPHS.move_to_end(key)
+        graph = _GRAPHS[key]
+        if graph is None:
+            graph = _GRAPHS[key] = _IterationGraph(params, corpus, smoothing, dot_dtype)
+            em_step.captures += 1
+        em_step.replays += 1
+        return graph.replay(params)
+
+
+em_step.graph_calls = 0  # fused-route calls on the card
+em_step.captures = 0
+em_step.replays = 0
+
+
+def _step(params, corpus, smoothing, use_kernels, dot_dtype):
+    counts, ll = expected_counts(params, corpus, use_kernels, dot_dtype)
+    return m_step(params, counts, smoothing), {"loglik": ll}
+
+
+def _fields(params: HMMParams) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return params.log_emit, params.log_jump, params.log_p0
+
+
+def _graph_key(params, corpus, smoothing, use_kernels, dot_dtype):
+    """The key of the graph that serves this call, or None for a call that
+    runs eagerly: off the card or off the fused route."""
+    dev = corpus.device
+    if dev.type != "cuda" or not kernels_for(use_kernels, dev):
+        return None
+    v_src, v_trg = params.log_emit.shape
+    if estep_route(2 * corpus.max_trg_len, v_src, v_trg, True, dot_dtype) != "fused":
+        return None
+    data = (corpus.src, corpus.src_len, corpus.trg, corpus.trg_len)
+    return (tuple((id(t), t.data_ptr(), t.shape, t.stride(), t.dtype) for t in data),
+            tuple((t.shape, t.stride(), t.dtype, t.device) for t in _fields(params)),
+            corpus.src_vocab, corpus.trg_vocab, params.max_jump, smoothing, dot_dtype)
+
+
+# each launch counter the fused iteration's wrappers can advance
+_LAUNCH_COUNTERS = ((counts_ops.table_lookup, "launches"),
+                    (hmm_fwdbwd.hmm_estep_counts, "launches"),
+                    (hmm_fwdbwd.hmm_estep_counts, "launches_bf16"))
+
+
+class _IterationGraph:
+    """One fused-route EM iteration captured as a CUDA graph on its own
+    memory pool, over input buffers for the parameters.  It holds the corpus
+    it was captured on, so the addresses it reads stay that corpus's, and
+    what the capture added to each launch counter, which every replay adds
+    again (a capture runs no kernel)."""
+
+    def __init__(self, params, corpus, smoothing, dot_dtype):
+        self.corpus = corpus
+        self.max_jump = params.max_jump
+        self.inputs = tuple(t.clone() for t in _fields(params))
+        before = [getattr(w, a) for w, a in _LAUNCH_COUNTERS]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(corpus.device), torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"):
+                new, stats = _step(HMMParams(*self.inputs, max_jump=self.max_jump), corpus,
+                                   smoothing, True, dot_dtype)
+                self.outputs = (*_fields(new), stats["loglik"])
+        finally:
+            added = [getattr(w, a) - b for (w, a), b in zip(_LAUNCH_COUNTERS, before)]
+            for (w, a), b in zip(_LAUNCH_COUNTERS, before):
+                setattr(w, a, b)
+        self.launches = [(w, a, d) for (w, a), d in zip(_LAUNCH_COUNTERS, added) if d]
+
+    def replay(self, params: HMMParams) -> tuple[HMMParams, dict[str, torch.Tensor]]:
+        for buf, t in zip(self.inputs, _fields(params)):
+            buf.copy_(t)
+        self.graph.replay()
+        for w, a, d in self.launches:
+            setattr(w, a, getattr(w, a) + d)
+        log_emit, log_jump, log_p0, ll = (t.clone() for t in self.outputs)
+        return HMMParams(log_emit, log_jump, log_p0, self.max_jump), {"loglik": ll}
 
 
 def train(

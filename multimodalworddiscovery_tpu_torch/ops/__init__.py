@@ -15,7 +15,10 @@ _build       nvcc build at first use + ctypes binding
 A wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in ``.launches``
 (the E-step wrappers and ``log_matmul`` count their variants apart, in
-``.launches_bf16`` and ``.launches_remat``).
+``.launches_bf16`` and ``.launches_remat``).  A wrapper that runs while a
+CUDA graph is captured launches nothing then: ``models.hmm.em_step``, which
+replays the fused iteration as a graph, takes back what the capture added
+and adds it again at every replay, so the counters count kernels that ran.
 Callers that choose between a kernel and its plain version take
 ``use_kernels=None`` and resolve it with ``kernels_for``.
 """

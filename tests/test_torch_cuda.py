@@ -515,6 +515,86 @@ def test_hmm_train_same_bits_twice(dev, name):
         assert torch.equal(getattr(p1, f), getattr(p2, f))
 
 
+EM_CASES = {"S12": CASES["S12"],
+            "S64": dict(n_utterances=300, n_concepts=200, min_concepts=29, max_concepts=32,
+                        min_word_len=2, max_word_len=3, seed=5)}
+GRAPH_COUNTERS = ("graph_calls", "captures", "replays")
+
+
+def _graph_counters():
+    return {c: getattr(hmm.em_step, c) for c in GRAPH_COUNTERS}
+
+
+def _em_outputs(params, stats):
+    return params.log_emit, params.log_jump, params.log_p0, stats["loglik"]
+
+
+@pytest.mark.parametrize("dot_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(EM_CASES))
+def test_em_step_graph_same_bits_as_eager(dev, name, dot_dtype):
+    """Three hmm.em_step calls from one set of parameters on a new corpus
+    (the eager call, the capturing call, a replay) give the same bits in
+    every field and in the loglik, and each adds one to K1's and to K2's
+    launch counter of its dtype."""
+    corpus, _, _ = make_flickr8k_mini(**EM_CASES[name])
+    p0 = hmm.init(corpus)
+    k2_attr = "launches_bf16" if dot_dtype == "bfloat16" else "launches"
+    before = _graph_counters()
+    outs = []
+    for _ in range(3):
+        k1_n, k2_n = k1.table_lookup.launches, getattr(k2.hmm_estep_counts, k2_attr)
+        outs.append(_em_outputs(*hmm.em_step(p0, corpus, dot_dtype=dot_dtype)))
+        assert k1.table_lookup.launches == k1_n + 1
+        assert getattr(k2.hmm_estep_counts, k2_attr) == k2_n + 1
+    after = _graph_counters()
+    assert [after[c] - before[c] for c in GRAPH_COUNTERS] == [3, 1, 2]
+    for out in outs[1:]:
+        for a, b in zip(outs[0], out):
+            assert torch.equal(a, b)
+
+
+def test_em_step_returns_fresh_tensors(dev):
+    """What one call returned is unchanged after the calls that follow (each
+    replay writes the graph's own buffers, and the call hands back clones)."""
+    corpus, _, _ = make_flickr8k_mini(**EM_CASES["S12"])
+    params, kept = hmm.init(corpus), []
+    for _ in range(5):
+        params, stats = hmm.em_step(params, corpus)
+        out = _em_outputs(params, stats)
+        kept.append((out, tuple(t.clone() for t in out)))
+    torch.cuda.synchronize()
+    for out, copy in kept:
+        for a, b in zip(out, copy):
+            assert torch.equal(a, b)
+    assert not torch.equal(kept[1][0][0], kept[2][0][0])  # the iterations moved
+    ptrs = [t.data_ptr() for out, _ in kept for t in out]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+def test_em_step_graphs_per_corpus_and_bounded(dev):
+    """Each corpus of another shape captures anew, the cache keeps at most
+    MAX_GRAPHS keys, and a plain or CPU call never captures."""
+    before = _graph_counters()
+    corpora = [make_flickr8k_mini(**dict(CASES["S12"], n_utterances=20 + 4 * i, seed=i))[0]
+               for i in range(hmm.MAX_GRAPHS + 2)]
+    for corpus in corpora:
+        params = hmm.init(corpus)
+        for _ in range(3):
+            params, _ = hmm.em_step(params, corpus)
+        assert len(hmm._GRAPHS) <= hmm.MAX_GRAPHS
+    after = _graph_counters()
+    assert after["captures"] - before["captures"] == len(corpora)
+    held = [g.corpus for g in hmm._GRAPHS.values() if g is not None]
+    assert all(any(c is k for k in corpora[-hmm.MAX_GRAPHS:]) for c in held)
+    keys = list(hmm._GRAPHS)
+    corpus = corpora[-1]
+    cpu = corpus.to("cpu")
+    for _ in range(3):
+        hmm.em_step(params, corpus, use_kernels=False)
+        hmm.em_step(hmm.init(cpu), cpu)
+    assert _graph_counters() == after and list(hmm._GRAPHS) == keys
+
+
 @pytest.fixture
 def cudnn_unpinned():
     """cuDNN free to pick any algorithm outside the steps (another test may
